@@ -9,28 +9,44 @@ capability 9.0+ and the CUDA toolkit.  It:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the hand-written kernels from src/repro_torch/kernels/csrc
      into build/ (nvcc, one process per source, in parallel);
-  3. holds each kernel against its plain PyTorch version on the card on
-     small edge cases: padded tails, invalid rows, empty buckets, an
-     empty dirty set and a zero pane span.  Tolerance everywhere: words,
-     rids and group counts bit-equal; group sums within rtol 1e-6 (float
-     atomics add in a varying order; TPC-W's integer sums are exact);
-  4. drives the main path — SharedDBEngine at the paper's TPC-W scale
-     (configs/shareddb_tpcw: 10 000 items, 28 800 customers), on the
-     dense-index and the index-less catalog — through a reseed beat and
-     slot-stable steady beats of the TPC-W shopping mix, with every
-     kernel's launch count set to 0 before and read after; on every beat
-     the tickets must equal those of the same engine on the plain
-     ``torch`` backend and, on a sample, the query-at-a-time engine;
-     steady beats must take the delta paths with one fused_delta launch,
-     and ``dispatch()`` must not synchronise with the host; the last
-     steady beat runs under torch.profiler, for the card's busy time;
-  5. replays one beat's recorded kernel inputs (the main path's own
-     shapes and data) through each kernel and its plain version, the
-     plain version first: agreement, then each call's time on the card
-     (torch.profiler: all device work of the call, and the hand-written
-     kernel alone) and its wall time (a pair of CUDA events per call),
-     beside a bound computed from the bytes and operations of those
-     inputs;
+  3. holds each of the seven kernels against its plain PyTorch version on
+     the card on small edge cases: padded tails, invalid rows, empty
+     buckets, an empty dirty set and a zero pane span, ragged block-join
+     sides past the kernel's staging chunk with invalid rows repeating a
+     valid key, all-pad dirty sets and dirty rows at T-1.  Tolerance
+     everywhere: words, rids and group counts bit-equal; group sums within
+     rtol 1e-6 (float atomics add in a varying order; TPC-W's integer sums
+     are exact);
+  4. drives four paths at the paper's TPC-W scale (configs/shareddb_tpcw:
+     10 000 items, 28 800 customers), each with every kernel's launch
+     count set to 0 just before it and read just after:
+       dense / indexless — SharedDBEngine on the dense-index and the
+         index-less catalog, a reseed beat and slot-stable steady beats of
+         the TPC-W shopping mix;
+       fold — a QueryCycleServer over the index-less engine folds TPC-W's
+         Buy Request address lookup (``address`` joined to ``country``, a
+         block join) into the running plan on its background thread while
+         beats keep coming, then steady beats with live dirty rows on the
+         block join's and the cart join's spines;
+       chained — a cold engine compiled with all 14 templates on
+         ``hopper-chained`` (the hopper kernels without fused_delta, so the
+         delta beat chains scan / delta_scan / delta_join), replaying the
+         fold path's beats;
+     on every beat the tickets must equal those of a twin engine with the
+     same history on the plain ``torch`` backend and, on a sample, the
+     query-at-a-time engine; from the migration beat on, the folded
+     engine's tickets must equal the cold chained engine's; steady beats
+     must take the delta paths with the expected backend launches, and
+     ``dispatch()`` must not synchronise with the host (the one exemption:
+     the fold's migration beat, which drains in-flight beats by design);
+     the last steady beat of each path runs under torch.profiler, for the
+     card's busy time;
+  5. replays recorded kernel inputs (the main paths' own shapes and data)
+     through each kernel and its plain version, the plain version first:
+     agreement, then each call's time on the card (torch.profiler: all
+     device work of the call, and the hand-written kernel alone) and its
+     wall time (a pair of CUDA events per call), beside a bound computed
+     from the bytes and operations of those inputs;
   6. prints one JSON line of per-kernel results, then the one-line device
      record as the last line.
 
@@ -57,10 +73,41 @@ CUDA_CORE_OPS_PER_S = 67e12
 KERNEL_SYMBOLS = {"clockscan": "clockscan_kernel",
                   "shared_groupby": "groupby_kernel",
                   "partitioned_join": "partitioned_join_kernel",
-                  "fused_delta": "fused_delta_kernel"}
+                  "fused_delta": "fused_delta_kernel",
+                  "bitmask_join": "bitmask_join_kernel",
+                  "delta_scan": "delta_scan_kernel",
+                  "delta_join": "delta_join_kernel"}
+# the TPU kernel each replaces (src/repro/kernels, file:line of its
+# pallas_call function) and its CUDA source
+KERNEL_ORIGIN = {
+    "clockscan": ("clockscan.cu", "src/repro/kernels/clockscan.py:61"),
+    "shared_groupby": ("shared_groupby.cu",
+                       "src/repro/kernels/shared_groupby.py:66"),
+    "partitioned_join": ("partitioned_join.cu",
+                         "src/repro/kernels/partitioned_join.py:74"),
+    "fused_delta": ("fused_delta.cu", "src/repro/kernels/fused_delta.py:303"),
+    "bitmask_join": ("bitmask_join.cu",
+                     "src/repro/kernels/bitmask_join.py:80"),
+    "delta_scan": ("fused_delta.cu", "src/repro/kernels/fused_delta.py:377"),
+    "delta_join": ("fused_delta.cu", "src/repro/kernels/fused_delta.py:421"),
+}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "dense": ("clockscan", "shared_groupby", "fused_delta"),
+    "indexless": ("clockscan", "shared_groupby", "partitioned_join",
+                  "fused_delta"),
+    "fold": ("clockscan", "shared_groupby", "partitioned_join",
+             "fused_delta", "bitmask_join"),
+    "chained": ("clockscan", "shared_groupby", "partitioned_join",
+                "bitmask_join", "delta_scan", "delta_join"),
+}
 N_INTERACTIONS = 150        # web interactions in the reseed beat
 STEADY_BEATS = 3            # unprofiled steady beats, then one profiled
 SAMPLE_PER_BEAT = 12        # tickets checked against query-at-a-time
+FOLD_CAP = 16               # buy_request_address slots (fixed addresses)
+FOLD_MAX_S, FOLD_MAX_BEATS = 60.0, 200   # the fold must commit within
+FUSED_STEADY = {"fused_delta": 1, "groupby": 1}
+CHAINED_STEADY = {"scan": 7, "scan_delta": 7, "join_delta": 4, "groupby": 1}
 
 
 def fail(msg):
@@ -189,7 +236,7 @@ def edge_cases(dev):
     import torch
     from repro_torch.core.backends import FusedJoinIn, FusedScanIn
     from repro_torch.core.storage import INT_SENTINEL, build_key_partitions
-    from repro_torch.kernels import (clockscan, fused_delta,
+    from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
                                      partitioned_join, ref, shared_groupby)
 
     rng = np.random.default_rng(SEED)
@@ -275,6 +322,11 @@ def edge_cases(dev):
                   (join(300, 64, 4, 2),)),
         "identity": ((scan(128, 2, 64, 2, 8, 0, 0),),
                      (join(128, 32, 4, 0),)),
+        # block joins as single-bucket pseudo-partitions (P = 1, B = the
+        # PK capacity) with live dirty rows
+        "block": ((scan(500, 1, 32, 1, 16, 3, 1),),
+                  (join(500, 128, 16, 7, pseudo=True),
+                   join(500, 100, 16, 2, pseudo=True))),
     }
     for name, (si, ji) in cases.items():
         want = ref.fused_delta_ref(si, ji)
@@ -283,6 +335,48 @@ def edge_cases(dev):
         if name == "identity":
             same(got[0][0], si[0].carry, "fused_delta span==0/dn==0 words")
             same(got[1][0], ji[0].rid_carry, "fused_delta dn==0 rids")
+
+    # bitmask_join: ragged sides, Tr past the 1024 of the reference's tests
+    # and past the kernel's 2048-row staging chunk, invalid right rows
+    # that repeat a valid key (right keys are unique among VALID rows)
+    for Tl, Tr, W in ((300, 100, 3), (777, 1500, 14), (200, 2500, 2),
+                      (1, 1, 1), (51392, 128, 14)):
+        keys_r = rng.permutation(Tr * 3)[:Tr]
+        valid_r = rng.random(Tr) > 0.25
+        inv, val = np.flatnonzero(~valid_r), np.flatnonzero(valid_r)
+        n = min(inv.size, val.size)
+        keys_r[inv[:n]] = keys_r[rng.choice(val, n, replace=False)]
+        kl = rng.choice(Tr * 4, Tl)
+        kl[:min(Tl, n)] = keys_r[inv[:min(Tl, n)]]
+        args = (t(kl), words((Tl, W)), t(keys_r), words((Tr, W)),
+                t(valid_r, torch.bool))
+        same(bitmask_join.bitmask_join(*args), ref.bitmask_join_ref(*args),
+             f"bitmask_join {Tl}x{Tr}x{W}")
+
+    # delta_scan / delta_join: pad slots clamp to row T-1, all-pad and
+    # full dirty sets, the last row dirty
+    def dirty(T, D, dn):
+        rows = np.sort(np.concatenate([[T - 1], rng.permutation(T - 1)])[:dn])
+        return t(np.concatenate([rows, np.full(D - dn, T)]))
+
+    for T, C, Q, D, dn in ((300, 2, 64, 16, 5), (257, 3, 96, 8, 0),
+                           (1000, 1, 416, 128, 4), (64, 2, 32, 8, 8)):
+        cols = t(rng.integers(0, 50, (C, T)))
+        lo = t(rng.integers(0, 30, (C, Q)))
+        hi = lo + t(rng.integers(0, 30, (C, Q)))
+        valid = t(rng.random(T) < 0.9, torch.bool)
+        rows = dirty(T, D, dn)
+        same(fused_delta.delta_scan(cols, lo, hi, valid, rows),
+             ref.delta_scan_ref(cols, lo, hi, valid, rows),
+             f"delta_scan T={T} D={D} dn={dn}")
+    for Tl, Tr, D, dn, pseudo in ((300, 160, 16, 5, False),
+                                  (128, 64, 8, 0, False),
+                                  (5000, 128, 128, 6, True),
+                                  (64, 100, 8, 8, True)):
+        e = join(Tl, Tr, D, dn, pseudo=pseudo)
+        args = (e.keys, dirty(Tl, D, dn), e.bkeys, e.brows, e.bounds)
+        same(fused_delta.delta_join(*args), ref.delta_join_ref(*args),
+             f"delta_join Tl={Tl} D={D} dn={dn} pseudo={pseudo}")
     torch.cuda.synchronize()
 
 
@@ -386,8 +480,85 @@ def drive(dense, dev, scale_i, scale_c, kernels, check=True):
     return _beats(eng, plain, base, scale_i, scale_c, dense)
 
 
-def _beats(eng, plain, base, scale_i, scale_c, dense):
+def slot_stable(queries, beat, scale_c):
+    """The reseed beat's queries in the same slots, one get_customer query
+    re-parameterised per beat (``beat`` > 0)."""
+    qs = list(queries)
+    i = next(k for k, (n, _) in enumerate(qs) if n == "get_customer")
+    c = (beat * 7919) % scale_c
+    qs[i] = ("get_customer", {0: (c, c)})
+    return qs
+
+
+def timed_beat(eng, profiled, exempt=False):
+    """One heartbeat of the engine under test: dispatch, then collect.
+    ``dispatch()`` runs under ``set_sync_debug_mode("error")``, so any
+    host synchronisation in it raises, unless ``exempt``.  Returns (wall
+    seconds, the profiler or None)."""
     import torch
+    torch.cuda.synchronize()
+    prof = beat_profiler() if profiled else contextlib.nullcontext()
+    with prof:
+        t0 = time.perf_counter()
+        if exempt:
+            eng.dispatch()
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        eng.collect()
+        wall = time.perf_counter() - t0
+    return wall, (prof if profiled else None)
+
+
+def beat_entry(eng, path, beat, wall, prof, **extra):
+    s = eng.last_collect_stats
+    entry = {"path": path, "beat": beat,
+             "scan_path": eng.last_scan_path,
+             "join_path": eng.last_join_path,
+             "admitted": s["admitted"], "dirty": s["dirty"],
+             "wall_ms": wall * 1e3,
+             "stage_ms": s["t_stage_s"] * 1e3,
+             "dispatch_ms": s["t_dispatch_s"] * 1e3,
+             "device_wait_ms": s["t_kernel_s"] * 1e3,
+             "collect_ms": s["t_collect_s"] * 1e3,
+             "backend_ops": s["backend_ops"], "profiled": prof is not None,
+             "fold_in_flight": False, **extra}
+    if prof is not None:
+        (entry["device_busy_ms"], entry["device_events"],
+         entry["top_device_ops"]) = busy_ms(prof)
+    return entry
+
+
+def check_beat(eng, what, tickets, want_paths, want_ops):
+    """Every ticket answered, the paths and backend launches expected
+    (None: not checked), no overflow."""
+    if any(t.result is None for t in tickets):
+        fail(f"{what}: a ticket was not answered")
+    paths = (eng.last_scan_path, eng.last_join_path)
+    if want_paths is not None and paths != want_paths:
+        fail(f"{what}: paths {paths}, want {want_paths}")
+    ops = eng.last_collect_stats["backend_ops"]
+    if want_ops is not None and ops != want_ops:
+        fail(f"{what}: backend ops {ops}, want {want_ops}")
+    if eng.last_delta_overflow or eng.last_overflow:
+        fail(f"{what}: overflow {eng.last_delta_overflow}/"
+             f"{eng.last_overflow}")
+
+
+def check_sample(tickets, base, what, dense=False):
+    """A sample of the tickets against the query-at-a-time engine
+    (best_sellers only on the dense catalog, as in the reference's
+    index-less streams)."""
+    picked = [t for t in tickets if dense or t.template != "best_sellers"]
+    step = max(1, len(picked) // SAMPLE_PER_BEAT)
+    for t in picked[::step][:SAMPLE_PER_BEAT]:
+        matches_baseline(t, base.execute(t.template, t.params).result, what)
+
+
+def _beats(eng, plain, base, scale_i, scale_c, dense):
     queries, updates, steady = workload(scale_i, scale_c)
     catalog = "dense" if dense else "indexless"
     log = []
@@ -396,13 +567,7 @@ def _beats(eng, plain, base, scale_i, scale_c, dense):
     for beat in range(2 + STEADY_BEATS):
         profiled = beat == 1 + STEADY_BEATS
         ups = updates if beat == 0 else steady[beat - 1]
-        qs = list(queries)
-        if beat:
-            # slot-stable admission: the same queries in the same slots,
-            # one get_customer query re-parameterised per beat
-            i = next(k for k, (n, _) in enumerate(qs) if n == "get_customer")
-            c = (beat * 7919) % scale_c
-            qs[i] = ("get_customer", {0: (c, c)})
+        qs = slot_stable(queries, beat, scale_c) if beat else list(queries)
         engines = [e for e in (eng, plain) if e is not None]
         tickets = []
         for e in engines:
@@ -412,84 +577,277 @@ def _beats(eng, plain, base, scale_i, scale_c, dense):
         if base is not None:
             for u in ups:
                 base.apply_update(*u)
-        torch.cuda.synchronize()
-        prof = beat_profiler() if profiled else contextlib.nullcontext()
-        with prof:
-            t0 = time.perf_counter()
-            # the engine under test must enqueue its beat without waiting
-            # for the device: any host synchronisation in dispatch() raises
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                eng.dispatch()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            eng.collect()
-            wall = time.perf_counter() - t0
-        s = eng.last_collect_stats
-        entry = {"catalog": catalog, "beat": beat,
-                 "scan_path": eng.last_scan_path,
-                 "join_path": eng.last_join_path,
-                 "admitted": s["admitted"], "dirty": s["dirty"],
-                 "wall_ms": wall * 1e3,
-                 "stage_ms": s["t_stage_s"] * 1e3,
-                 "dispatch_ms": s["t_dispatch_s"] * 1e3,
-                 "device_wait_ms": s["t_kernel_s"] * 1e3,
-                 "collect_ms": s["t_collect_s"] * 1e3,
-                 "backend_ops": s["backend_ops"], "profiled": profiled}
-        if profiled:
-            (entry["device_busy_ms"], entry["device_events"],
-             entry["top_device_ops"]) = busy_ms(prof)
-        log.append(entry)
-        if any(t.result is None for t in tickets[0]):
-            fail(f"{catalog} beat {beat}: a ticket was not answered")
-        if beat and eng.last_scan_path != "delta":
-            fail(f"{catalog} beat {beat}: scan path {eng.last_scan_path}")
-        if beat and not dense and eng.last_join_path != "delta":
-            fail(f"{catalog} beat {beat}: join path {eng.last_join_path}")
-        if beat and s["backend_ops"] != {"fused_delta": 1, "groupby": 1}:
-            fail(f"{catalog} beat {beat}: backend ops {s['backend_ops']}")
-        if eng.last_delta_overflow or eng.last_overflow:
-            fail(f"{catalog} beat {beat}: overflow "
-                 f"{eng.last_delta_overflow}/{eng.last_overflow}")
+        wall, prof = timed_beat(eng, profiled)
+        log.append(beat_entry(eng, catalog, beat, wall, prof))
+        what = f"{catalog} beat {beat}"
+        check_beat(eng, what, tickets[0],
+                   (("delta", "" if dense else "delta") if beat else None),
+                   FUSED_STEADY if beat else None)
         if plain is None:
             continue
         plain.run_until_drained()
         for a, b in zip(*tickets):
-            tickets_equal(a, b, f"{catalog} beat {beat} hopper vs torch")
-        picked = [t for t in tickets[0]
-                  if dense or t.template != "best_sellers"]
-        step = max(1, len(picked) // SAMPLE_PER_BEAT)
-        for t in picked[::step][:SAMPLE_PER_BEAT]:
-            matches_baseline(t, base.execute(t.template, t.params).result,
-                             f"{catalog} beat {beat}")
+            tickets_equal(a, b, f"{what} hopper vs torch")
+        check_sample(tickets[0], base, what, dense)
+    return log
+
+
+# --------------------------------------- 4b. folding and the chained beat
+def buy_request_address():
+    """TPC-W's Buy Request page shows the customer's address with its
+    country: ``address`` joined to the 92-row ``country`` table, which
+    has no dense index on this catalog (a block join)."""
+    from repro_torch.core.plan import Join, Pred, QueryTemplate
+    return QueryTemplate("buy_request_address", "address",
+                         preds=(Pred("address", "addr_id"),),
+                         joins=(Join("addr_co_id", "country"),), limit=1)
+
+
+class SteadyTraffic:
+    """The fold and chained paths' steady beats, from SEED: 4 customer
+    ``c_expiration`` updates, 4 ``shopping_cart_line`` ``scl_qty`` updates
+    (TPC-W Shopping Cart: live probes on the cart -> item join) and 2
+    ``address`` ``addr_co_id`` updates (a customer moves country: live
+    probes on the block join), on the fixed addresses that the
+    ``buy_request_address`` queries ask for."""
+
+    def __init__(self, scale_c):
+        import numpy as np
+        self.rng = np.random.default_rng(SEED + 1)
+        self.scale_c = scale_c
+        self.addrs = [int(a) for a in
+                      np.sort(self.rng.choice(scale_c, FOLD_CAP, False))]
+
+    def updates(self):
+        r = self.rng
+        return ([("customer", "update",
+                  {"key": int(r.integers(0, self.scale_c)),
+                   "col": "c_expiration",
+                   "val": int(r.integers(12000, 15000))}) for _ in range(4)]
+                + [("shopping_cart_line", "update",
+                    {"key": int(r.integers(0, 4096)), "col": "scl_qty",
+                     "val": int(r.integers(1, 5))}) for _ in range(4)]
+                + [("address", "update",
+                    {"key": int(r.choice(self.addrs)), "col": "addr_co_id",
+                     "val": int(r.integers(0, 92))}) for _ in range(2)])
+
+    def address_queries(self):
+        return [("buy_request_address", {0: (a, a)}) for a in self.addrs]
+
+
+class Recorder:
+    """A pass-through on a backend's ops that keeps copies of their
+    inputs while the op's name is in ``armed``."""
+
+    def __init__(self, armed=()):
+        self.armed = set(armed)
+        self.calls = {}
+
+    def backend(self, base, name, **override):
+        import dataclasses
+        fields = ("scan", "join_block", "join_partitioned", "groupby",
+                  "scan_delta", "join_delta", "fused_delta")
+
+        def wrap(op, opname):
+            if op is None:
+                return None
+
+            def rec(*args):
+                if opname in self.armed:
+                    self.calls.setdefault(opname, []).append(
+                        clone_tree(args))
+                return op(*args)
+            return rec
+        ops = {f: wrap(getattr(base, f), f) for f in fields}
+        ops.update(override)
+        return dataclasses.replace(base, name=name, **ops)
+
+
+def fold_path(dev, scale_i, scale_c, recorder):
+    """The fold path: a QueryCycleServer over an index-less hopper engine
+    (base plan: the 13 TPC-W templates) registers ``buy_request_address``
+    after a reseed and two steady beats, just before the next beat's
+    dispatch, and submits its queries at once;
+    the fold builds on the server's background thread while steady beats
+    keep coming, commits at a beat boundary (the migration beat: a full
+    rescan with one block join), then 3 steady beats and 1 profiled.  Its
+    twin on ``torch`` registers at the migration beat (foreground build),
+    so both admit the same work on every beat."""
+    import numpy as np
+    from repro_torch.core import backends as B
+    from repro_torch.core import folding
+    from repro_torch.core.baseline import QueryAtATimeEngine
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.serving import QueryCycleServer
+    from repro_torch.workloads import tpcw
+
+    B.register_backend(recorder.backend(B.get_backend("hopper"),
+                                        "hopper-recorded"))
+    data = tpcw.generate_data(np.random.default_rng(SEED), scale_i, scale_c)
+    plan = tpcw.build_tpcw_plan(scale_i, scale_c, dense_pk_index=False)
+    slots = tpcw.DEFAULT_UPDATE_SLOTS
+    eng = SharedDBEngine(plan, slots, data, kernels="hopper-recorded",
+                         device=dev)
+    server = QueryCycleServer(eng)                   # background folds
+    twin = SharedDBEngine(plan, slots, data, kernels="torch", device=dev)
+    twin_server = QueryCycleServer(twin, background_folds=False)
+    tmpl = buy_request_address()
+    base = QueryAtATimeEngine(
+        folding.extend_plan(plan, [tmpl], {tmpl.name: FOLD_CAP}), data,
+        device=dev)
+    queries, updates, _ = workload(scale_i, scale_c)
+    traffic = SteadyTraffic(scale_c)
+    script, log, fold_tickets = [], [], []
+    held, t_reg, m = [], None, None
+    beat = 0
+    while True:
+        folded = m is not None
+        post = 0 if not folded else beat - m
+        if folded and post > STEADY_BEATS + 1:
+            break
+        if not folded and t_reg is not None and (
+                beat - 3 >= FOLD_MAX_BEATS
+                or time.perf_counter() - t_reg > FOLD_MAX_S):
+            fail(f"fold: no commit after {beat - 3} beats / "
+                 f"{time.perf_counter() - t_reg:.1f} s")
+        ups = updates if beat == 0 else traffic.updates()
+        qs = slot_stable(queries, beat, scale_c) if beat else list(queries)
+        if folded:
+            qs += traffic.address_queries()
+        for u in ups:
+            server.submit_update(*u)
+            base.apply_update(*u)
+        tickets = [server.submit(n, p) for n, p in qs]
+        if beat == 3:
+            # the registration arrives just before a beat: the build runs
+            # on the server's fold thread while the beats go on
+            t_reg = time.perf_counter()
+            if server.register_template(tmpl, FOLD_CAP)["status"] != \
+                    "folding":
+                fail("fold: registration did not start a fold")
+            held = [server.submit(n, p)
+                    for n, p in traffic.address_queries()]
+        in_flight = eng.fold_in_flight()
+        ready = eng.fold_ready()
+        profiled = folded and post == STEADY_BEATS + 1
+        # the beat that commits the fold drains in-flight beats by design:
+        # the one dispatch not run under sync-debug "error"
+        wall, prof = timed_beat(eng, profiled, exempt=ready)
+        committed = not folded and eng.folds_done == 1
+        if committed:
+            m = beat
+            t_commit = time.perf_counter()
+            tickets += held
+            if twin_server.register_template(tmpl, FOLD_CAP)["status"] \
+                    != "folding":
+                fail("fold: the twin's registration did not fold")
+        twin_qs = qs + (traffic.address_queries() if committed else [])
+        script.append((ups, twin_qs))
+        for u in ups:
+            twin_server.submit_update(*u)
+        twin_tickets = [twin_server.submit(n, p) for n, p in twin_qs]
+        twin.run_until_drained()
+        what = f"fold beat {beat}"
+        log.append(beat_entry(eng, "fold", beat, wall, prof,
+                              fold_in_flight=(in_flight and not ready
+                                              and not committed),
+                              migration=committed))
+        if beat == 0 or committed:
+            check_beat(eng, what, tickets, ("full", "full"), None)
+            if committed and eng.last_collect_stats["backend_ops"].get(
+                    "join_block") != 1:
+                fail(f"{what}: migration beat ran "
+                     f"{eng.last_collect_stats['backend_ops']}")
+        else:
+            check_beat(eng, what, tickets, ("delta", "delta"), FUSED_STEADY)
+        for a, b in zip(tickets, twin_tickets):
+            tickets_equal(a, b, f"{what} hopper vs torch")
+        check_sample(tickets, base, what)
+        if folded or committed:
+            fold_tickets.append(tickets)
+        beat += 1
+    if twin.folds_done != 1:
+        fail("fold: the twin did not commit its fold")
+    return {"log": log, "script": script, "migration": m,
+            "tickets": fold_tickets,
+            "latency_s": t_commit - t_reg,
+            "build_s": eng.last_fold_build_s,
+            "beats_in_flight": m - 3}
+
+
+def chained_path(dev, scale_i, scale_c, fold, recorder):
+    """The chained path: a cold engine compiled with all 14 templates on
+    ``hopper-chained`` (the hopper kernels, fused_delta None) and its twin
+    on ``torch`` replay the fold path's beats; from the fold's migration
+    beat on, the tickets must equal the folded engine's.  The last
+    unprofiled steady beat before the profiled one records its delta_scan /
+    delta_join inputs."""
+    import numpy as np
+    from repro_torch.core import backends as B
+    from repro_torch.core.baseline import QueryAtATimeEngine
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.workloads import tpcw
+
+    B.register_backend(recorder.backend(B.get_backend("hopper"),
+                                        "hopper-chained", fused_delta=None))
+    data = tpcw.generate_data(np.random.default_rng(SEED), scale_i, scale_c)
+    catalog = tpcw.make_catalog(scale_i, scale_c, dense_pk_index=False)
+    templates, caps = tpcw.make_templates(catalog.schemas["item"].capacity)
+    tmpl = buy_request_address()
+    plan = compile_plan(catalog, templates + [tmpl],
+                        dict(caps, **{tmpl.name: FOLD_CAP}))
+    slots = tpcw.DEFAULT_UPDATE_SLOTS
+    eng = SharedDBEngine(plan, slots, data, kernels="hopper-chained",
+                         device=dev)
+    twin = SharedDBEngine(plan, slots, data, kernels="torch", device=dev)
+    base = QueryAtATimeEngine(plan, data, device=dev)
+    log, m = [], fold["migration"]
+    last = len(fold["script"]) - 1
+    for beat, (ups, qs) in enumerate(fold["script"]):
+        if beat == last - 1:        # a steady beat, unprofiled
+            recorder.armed = {"scan_delta", "join_delta"}
+        tickets, twin_tickets = [], []
+        for e, out in ((eng, tickets), (twin, twin_tickets)):
+            for u in ups:
+                e.submit_update(*u)
+            out += [e.submit(n, p) for n, p in qs]
+        for u in ups:
+            base.apply_update(*u)
+        wall, prof = timed_beat(eng, beat == last)
+        recorder.armed = set()
+        what = f"chained beat {beat}"
+        log.append(beat_entry(eng, "chained", beat, wall, prof))
+        if beat == 0:
+            check_beat(eng, what, tickets, ("full", "full"), None)
+        elif beat == m:
+            # the first admission of buy_request_address: its 16 slots
+            # straddle a word boundary, wider than the address stage's
+            # 1-word admission pane, so this beat rescans in full
+            check_beat(eng, what, tickets, None, None)
+        else:
+            check_beat(eng, what, tickets, ("delta", "delta"),
+                       CHAINED_STEADY)
+        twin.run_until_drained()
+        for a, b in zip(tickets, twin_tickets):
+            tickets_equal(a, b, f"{what} hopper-chained vs torch")
+        if beat >= m:
+            for a, b in zip(tickets, fold["tickets"][beat - m]):
+                tickets_equal(a, b, f"{what} cold chained vs folded")
+        check_sample(tickets, base, what)
     return log
 
 
 # ------------------------------------------------- 5. kernels at main-path
-def recording_backend(base, store):
-    from repro_torch.core.backends import OperatorBackend
-    fields = ("scan", "join_block", "join_partitioned", "groupby",
-              "scan_delta", "join_delta", "fused_delta")
-
-    def wrap(op, name):
-        def rec(*args):
-            store.setdefault(name, []).append(clone_tree(args))
-            return op(*args)
-        return rec
-    return OperatorBackend(name="hopper-recording",
-                           **{f: wrap(getattr(base, f), f) for f in fields})
-
-
 def kernel_rows(calls, launches):
     """Compare and time each kernel on recorded main-path inputs."""
     import torch
     from repro_torch.core.dataquery import popcount
-    from repro_torch.kernels import (clockscan, fused_delta,
+    from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
                                      partitioned_join, ref, shared_groupby)
     rows = []
 
-    def row(name, route_src, replaces, kern, plain, check, work,
-            setup=None):
+    def row(name, kern, plain, check, work, setup=None):
         """``setup`` restores what ``kern`` writes in place (fused_delta's
         scan-word carries) before every call: the plain version first,
         then the kernel, each on the recorded inputs."""
@@ -507,8 +865,9 @@ def kernel_rows(calls, launches):
         plain_ms, _, _ = device_ms(plain, KERNEL_SYMBOLS[name], setup)
         if per_call == 0:
             fail(f"{name}: the profiler saw no launch of the kernel")
+        src, replaces = KERNEL_ORIGIN[name]
         rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{route_src}",
+                     "source": f"src/repro_torch/kernels/csrc/{src}",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms,
@@ -523,8 +882,7 @@ def kernel_rows(calls, launches):
                      + a[3].numel() * a[1].shape[1] // 8 for a in scans)
     scan_ops = sum(2 * a[0].shape[0] * a[0].shape[1] * a[1].shape[1]
                    for a in scans)
-    row("clockscan", "clockscan.cu", "src/repro/kernels/clockscan.py:61",
-        lambda: [clockscan.clockscan(*a) for a in scans],
+    row("clockscan", lambda: [clockscan.clockscan(*a) for a in scans],
         lambda: [ref.clockscan_ref(*a) for a in scans],
         lambda g, w: same(g, w, "clockscan (main path)"),
         (scan_bytes, scan_ops))
@@ -538,9 +896,7 @@ def kernel_rows(calls, launches):
         same(g[0], w[0], "shared_groupby counts (main path)")
         if not torch.allclose(g[1], w[1], rtol=1e-6):
             fail("shared_groupby sums (main path)")
-    row("shared_groupby", "shared_groupby.cu",
-        "src/repro/kernels/shared_groupby.py:66",
-        lambda: shared_groupby.shared_groupby(codes, vals, mask, G),
+    row("shared_groupby", lambda: shared_groupby.shared_groupby(codes, vals, mask, G),
         lambda: ref.shared_groupby_ref(codes, vals, mask, G), gb_check,
         (nbytes(codes, vals, mask) + 2 * G * Q * 4, 2 * set_bits))
 
@@ -551,9 +907,7 @@ def kernel_rows(calls, launches):
     pj_ops = sum(a[0].numel() * (a[2].shape[1] + a[1].shape[1]
                                  + max(1, a[2].shape[0]).bit_length())
                  for a in joins)
-    row("partitioned_join", "partitioned_join.cu",
-        "src/repro/kernels/partitioned_join.py:74",
-        lambda: [partitioned_join.partitioned_join(*a) for a in joins],
+    row("partitioned_join", lambda: [partitioned_join.partitioned_join(*a) for a in joins],
         lambda: [ref.partitioned_join_ref(*a) for a in joins],
         lambda g, w: same(g, w, "partitioned_join (main path)"),
         (pj_bytes, pj_ops))
@@ -584,11 +938,46 @@ def kernel_rows(calls, launches):
     def restore_carries():
         for e, c in zip(scan_in, recorded):
             e.carry.copy_(c)
-    row("fused_delta", "fused_delta.cu", "src/repro/kernels/fused_delta.py:303",
-        lambda: fused_delta.fused_delta(scan_in, join_in),
+    row("fused_delta", lambda: fused_delta.fused_delta(scan_in, join_in),
         lambda: ref.fused_delta_ref(scan_in, join_in),
         lambda g, w: same(g, w, "fused_delta (main path)"), (fb, fo),
         setup=restore_carries)
+
+    # bitmask_join: the fold path's migration beat (address ⋈ country)
+    keys_l, mask_l, keys_r, mask_r, valid_r = calls["join_block"][-1]
+    Tl, W = mask_l.shape
+    row("bitmask_join",
+        lambda: bitmask_join.bitmask_join(keys_l, mask_l, keys_r, mask_r,
+                                          valid_r),
+        lambda: ref.bitmask_join_ref(keys_l, mask_l, keys_r, mask_r, valid_r),
+        lambda g, w: same(g, w, "bitmask_join (fold path)"),
+        (nbytes(keys_l, mask_l, keys_r, mask_r, valid_r) + Tl * 4
+         + nbytes(mask_l), Tl * keys_r.numel() + Tl * W))
+
+    # delta_scan / delta_join: the 7 and 4 calls of one chained steady
+    # beat; every slot (pads too) is computed, on its clamped row
+    ds = calls["scan_delta"]
+    ds_bytes = sum(a[4].numel() * (4 + a[0].shape[0] * 4 + 1
+                                   + a[1].shape[1] // 8)
+                   + nbytes(a[1], a[2]) for a in ds)
+    ds_ops = sum(2 * a[4].numel() * a[0].shape[0] * a[1].shape[1]
+                 for a in ds)
+    row("delta_scan",
+        lambda: [fused_delta.delta_scan(*a) for a in ds],
+        lambda: [ref.delta_scan_ref(*a) for a in ds],
+        lambda g, w: same(g, w, "delta_scan (chained path)"),
+        (ds_bytes, ds_ops))
+    dj = calls["join_delta"]
+    dj_bytes = sum(a[1].numel() * (4 + 4 + a[2].shape[1] * 8 + 4)
+                   + nbytes(a[4]) for a in dj)
+    dj_ops = sum(a[1].numel() * (a[2].shape[1]
+                                 + max(1, a[2].shape[0]).bit_length())
+                 for a in dj)
+    row("delta_join",
+        lambda: [fused_delta.delta_join(*a) for a in dj],
+        lambda: [ref.delta_join_ref(*a) for a in dj],
+        lambda g, w: same(g, w, "delta_join (chained path)"),
+        (dj_bytes, dj_ops))
     return rows
 
 
@@ -624,33 +1013,70 @@ def main():
 
     t0 = time.perf_counter()
     edge_cases(dev)
-    print(f"edge cases: all four kernels agree with their plain versions "
+    print(f"edge cases: all seven kernels agree with their plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
 
     si, sc = CONFIG.scale_items, CONFIG.scale_customers
-    K.reset_launches()
-    log = []
-    for dense in (True, False):
-        log += drive(dense, dev, si, sc, kernels="auto")
-    launches = dict(K.LAUNCHES)
+    launches = dict.fromkeys(K.LAUNCHES, 0)
+
+    def run_path(name, fn):
+        """Drive one path with every launch count set to 0 just before it
+        and read just after; each of the path's kernels must launch."""
+        K.reset_launches()
+        out = fn()
+        got = dict(K.LAUNCHES)
+        print(f"launches, {name} path:", json.dumps(got))
+        idle = [k for k in PATH_KERNELS[name] if got[k] == 0]
+        if idle:
+            fail(f"{name} path: kernels never launched: {idle}")
+        for k, n in got.items():
+            launches[k] += n
+        return out
+
+    fold_rec, chained_rec = Recorder({"join_block"}), Recorder()
+    log = run_path("dense", lambda: drive(True, dev, si, sc, "auto"))
+    log += run_path("indexless", lambda: drive(False, dev, si, sc, "auto"))
+    fold = run_path("fold", lambda: fold_path(dev, si, sc, fold_rec))
+    log += fold["log"]
+    log += run_path("chained",
+                    lambda: chained_path(dev, si, sc, fold, chained_rec))
     for entry in log:
         print("beat:", json.dumps(entry))
-    for catalog in ("dense", "indexless"):
-        walls = [e["wall_ms"] for e in log if e["catalog"] == catalog
-                 and e["beat"] and not e["profiled"]]
+    for path in ("dense", "indexless", "fold", "chained"):
+        walls = [e["wall_ms"] for e in log if e["path"] == path
+                 and e["beat"] and not e["profiled"]
+                 and not e["fold_in_flight"] and not e.get("migration")]
         busy = next(e["device_busy_ms"] for e in log
-                    if e["catalog"] == catalog and e["profiled"])
-        print(f"steady beat, {catalog}: card busy {busy:.3f} ms of a "
+                    if e["path"] == path and e["profiled"])
+        print(f"steady beat, {path}: card busy {busy:.3f} ms of a "
               f"median {statistics.median(walls):.3f} ms unprofiled wall "
               f"(idle share {1 - busy / statistics.median(walls):.3f})")
+    building = [e["wall_ms"] for e in fold["log"] if e["fold_in_flight"]]
+    steady = [e["wall_ms"] for e in fold["log"] if e["beat"]
+              and not e["profiled"] and not e["fold_in_flight"]
+              and not e.get("migration")]
+    print(f"fold: begin_fold -> build done {fold['build_s'] * 1e3:.1f} ms;"
+          f" registration -> committed (end of the migration beat's "
+          f"dispatch) {fold['latency_s'] * 1e3:.1f} ms; "
+          f"{fold['beats_in_flight']} beats while in flight, "
+          f"{len(building)} of them with the build running: median wall "
+          f"{statistics.median(building) if building else float('nan'):.3f}"
+          f" ms vs {statistics.median(steady):.3f} ms for the path's other "
+          f"steady beats")
     print("launches on the main path:", json.dumps(launches))
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
 
-    calls = {}
-    B.register_backend(recording_backend(B.get_backend("hopper"), calls))
+    # the kernels' recorded inputs: the index-less catalog's beats once
+    # more, every op recorded (reseed scans and joins, the last steady
+    # beat's groupby and fused_delta); the fold path's block join; the
+    # chained path's delta ops
+    rec = Recorder(("scan", "join_partitioned", "groupby", "fused_delta"))
+    B.register_backend(rec.backend(B.get_backend("hopper"),
+                                   "hopper-recording"))
     drive(False, dev, si, sc, kernels="hopper-recording", check=False)
+    calls = dict(rec.calls, **fold_rec.calls, **chained_rec.calls)
     rows = kernel_rows(calls, launches)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}))

@@ -5,6 +5,7 @@ CPU runs only when the caller asks for it with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,17 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
     return device
+
+
+def upload(a, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on ``device``.
+
+    To a CUDA card the copy goes through pinned memory and is enqueued
+    asynchronously on the current stream, so the calling thread never
+    waits for the card: cycles built on a background fold thread, while
+    the serving thread enqueues beats, make no synchronising copy."""
+    t = torch.as_tensor(np.asarray(a), dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -30,23 +30,33 @@ touched; every choice is made host-side from exact admission knowledge.
 The scan-word carry may be merged into in place (the reference donates
 it); the rid carry is never written in place, because its tensors are
 also the previous heartbeat's in-flight ``results["_join_rids"]``.
+
+Plan folding (core/folding.py): ``begin_fold`` builds the cycles of an
+extended plan on a background thread while the installed ones keep
+serving; the next dispatch() after the build lands drains the in-flight
+beats, installs the new cycle handle, migrates the carries and forces
+one full-rescan beat.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
+import os
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import folding
 from repro_torch.core.backends import counting_backend, resolve_backend
 from repro_torch.core.device import resolve_device
 from repro_torch.core.lowering import (PARTITIONED_MIN_CAPACITY, build_cycle,
                                        build_delta_cycle, lower_plan)
-from repro_torch.core.plan import CompiledPlan
+from repro_torch.core.plan import CompiledPlan, QueryTemplate
 from repro_torch.core.storage import (UPDATE_BATCH_RESET, UpdateSlots,
                                       empty_update_batch)
 
@@ -214,6 +224,42 @@ class CycleResult:
 
 
 @dataclasses.dataclass
+class _CompiledHandle:
+    """One plan generation's built cycles, swapped in one piece.
+
+    A fold keeps serving from the installed handle while a background
+    thread builds the next one for the extended plan; everything that
+    depends on the admission layout lives here, so installing a handle
+    IS the layout swap."""
+    plan: CompiledPlan
+    lowered: Any
+    backend_ops: Dict[str, Dict[str, int]]
+    cycle: Any
+    cycle_delta: Any
+    cycle_delta_join: Any
+    carried_joins: tuple
+    layout_token: tuple
+    uploaded: Any = None       # CUDA event recorded behind the build's
+    #                            uploads (None on the CPU)
+
+
+@dataclasses.dataclass
+class _PendingFold:
+    """A fold in flight: the extended plan and its background build."""
+    plan: CompiledPlan
+    t_begin: float = 0.0       # perf_counter at begin_fold
+    t_built: float = 0.0       # ... when the build finished
+    handle: Optional[_CompiledHandle] = None
+    error: Optional[BaseException] = None
+    thread: Optional[threading.Thread] = None
+    built: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+
+    def ready(self) -> bool:
+        return self.built.is_set()
+
+
+@dataclasses.dataclass
 class _InFlight:
     """One dispatched-but-not-collected heartbeat."""
     admitted: Dict[str, List[Ticket]]
@@ -236,11 +282,14 @@ class SharedDBEngine:
     def __init__(self, plan: CompiledPlan, update_slots: UpdateSlots,
                  initial_data: Dict[str, Dict[str, np.ndarray]],
                  kernels: str = "auto", device=None,
-                 pipeline_depth: int = 2):
+                 pipeline_depth: int = 2, delta_scans: bool = True,
+                 delta_joins: bool = True):
         """``device=None`` runs on the CUDA card and raises when there is
         none; ``device="cpu"`` runs the plain PyTorch path.  ``kernels``:
         "auto" (``hopper`` on a card of capability 9.0+, ``torch`` on the
-        CPU), "torch", "hopper" or another registered backend name."""
+        CPU), "torch", "hopper" or another registered backend name.
+        ``delta_scans=False`` / ``delta_joins=False`` keep every beat on
+        the full rescan / the full join probe."""
         self.device = resolve_device(device)
         self.plan = plan
         self.update_slots = update_slots
@@ -249,9 +298,20 @@ class SharedDBEngine:
         self._update_queue: collections.deque = collections.deque()
         self._ticket_ids = itertools.count()
         self._backend = resolve_backend(kernels, self.device)
+        # measured once from the initial snapshot and reused by every
+        # re-lower (folds): the partition geometry must stay identical
+        # across generations for the carried key partitions to remap
         self._key_stats = _measure_key_stats(plan, initial_data)
-        self._build_cycles()
+        self.delta_scans = delta_scans
+        self.delta_joins = delta_joins
+        self._install_handle(self._build_compiled(plan))
         self.state = plan.catalog.init_state(initial_data, self.device)
+        self._fold: Optional[_PendingFold] = None
+        self.folds_done = 0
+        self.last_fold_build_s = None   # begin_fold -> build done, seconds
+        # set by a fold commit: the first post-fold heartbeat is a FORCED
+        # full-rescan reseed under the new layout
+        self._force_full = False
         self._carry = None           # previous heartbeat's scan words +
         #                              key partitions
         self._rid_carry = None       # previous heartbeat's join rids
@@ -287,39 +347,203 @@ class SharedDBEngine:
                                    "t_kernel_s": 0.0, "t_collect_s": 0.0,
                                    "backend_ops": {}}
 
-    def _build_cycles(self) -> None:
-        """Lower the plan and build its three cycle flavours, each through
-        its own counting wrapper (``CycleResult.backend_ops``)."""
-        plan, dev = self.plan, self.device
-        self._lowered = lower_plan(plan, key_stats=self._key_stats)
-        self.backend_ops: Dict[str, Dict[str, int]] = {
+    # --------------------------------------------- compiled-cycle handle
+    def _build_compiled(self, plan: CompiledPlan) -> _CompiledHandle:
+        """Lower one plan generation and build its three cycle flavours,
+        each through its own counting wrapper (``CycleResult.
+        backend_ops``).  Pure with respect to the engine's serving
+        state, so a background fold thread can run it while the
+        installed generation keeps beating; its device constants go up
+        through pinned memory on the engine's device, without a wait."""
+        dev = self.device
+        lowered = lower_plan(plan, key_stats=self._key_stats)
+        backend_ops: Dict[str, Dict[str, int]] = {
             "full": {}, "delta": {}, "delta_join": {}}
         cb = {f: counting_backend(self._backend, c)
-              for f, c in self.backend_ops.items()}
-        self._cycle = _clear_counts_at_entry(
-            build_cycle(self._lowered, cb["full"], dev),
-            self.backend_ops["full"])
-        self._cycle_delta = _clear_counts_at_entry(
-            build_delta_cycle(self._lowered, cb["delta"], device=dev),
-            self.backend_ops["delta"])
-        self._cycle_delta_join = _clear_counts_at_entry(
-            build_delta_cycle(self._lowered, cb["delta_join"],
-                              delta_joins=True, device=dev),
-            self.backend_ops["delta_join"])
-        # join stages with carried rid state (non-gather paths)
-        self._carried_joins = tuple(j for j in self._lowered.joins
-                                    if j.kind != "gather")
-        # the admission layout the carries live under
-        self._layout_token = (plan.qcap, plan.n_params_max,
-                              tuple(sorted(plan.offsets.items())),
-                              tuple(sorted(plan.caps.items())))
+              for f, c in backend_ops.items()}
+        cycle = _clear_counts_at_entry(
+            build_cycle(lowered, cb["full"], dev), backend_ops["full"])
+        delta = _clear_counts_at_entry(
+            build_delta_cycle(lowered, cb["delta"], device=dev),
+            backend_ops["delta"])
+        delta_j = _clear_counts_at_entry(
+            build_delta_cycle(lowered, cb["delta_join"], delta_joins=True,
+                              device=dev),
+            backend_ops["delta_join"])
+        uploaded = None
+        if dev.type == "cuda":
+            uploaded = torch.cuda.Event()
+            uploaded.record(torch.cuda.current_stream(dev))
+        return _CompiledHandle(
+            plan=plan, lowered=lowered, backend_ops=backend_ops,
+            cycle=cycle, cycle_delta=delta, cycle_delta_join=delta_j,
+            # join stages with carried rid state (non-gather paths)
+            carried_joins=tuple(j for j in lowered.joins
+                                if j.kind != "gather"),
+            # the admission layout this generation's carries live under
+            layout_token=(plan.qcap, plan.n_params_max,
+                          tuple(sorted(plan.offsets.items())),
+                          tuple(sorted(plan.caps.items()))),
+            uploaded=uploaded)
+
+    def _install_handle(self, h: _CompiledHandle) -> None:
+        """Swap the serving generation (at a beat boundary)."""
+        if h.uploaded is not None:
+            # the beats that follow wait, on the card, for the build's
+            # uploads (enqueued from the fold thread)
+            torch.cuda.current_stream(self.device).wait_event(h.uploaded)
+        self.plan = h.plan
+        self._lowered = h.lowered
+        self.backend_ops = h.backend_ops
+        self._cycle = h.cycle
+        self._cycle_delta = h.cycle_delta
+        self._cycle_delta_join = h.cycle_delta_join
+        self._carried_joins = h.carried_joins
+        self._layout_token = h.layout_token
+
+    # ------------------------------------------------------ plan folding
+    def begin_fold(self, new_templates: List[QueryTemplate],
+                   new_caps: Dict[str, int],
+                   background: bool = True) -> dict:
+        """Fold new templates into the running plan (core/folding.py).
+
+        Validates the extension synchronously (a recompile of the plan
+        graph, no lowering), opens admission queues for the new
+        templates at once (their queries queue and are served after the
+        fold commits), and builds the extended generation's cycles on a
+        background thread while the current ones keep beating.  The
+        swap happens at the next dispatch() after the build finishes:
+        drain in-flight beats, install the new handle, migrate the
+        carries, force one full-rescan beat.  Returns the ``background``
+        variant of runtime/elastic.relower_recipe."""
+        from repro_torch.runtime.elastic import relower_recipe
+        if self._fold is not None:
+            raise RuntimeError(
+                f"[planlint:{folding.FOLD_IN_FLIGHT}] a fold is already in "
+                "flight — wait for it to commit before starting another "
+                "(serving front ends batch registrations instead)")
+        new_templates = list(new_templates)
+        new_plan = folding.extend_plan(self.plan, new_templates,
+                                       dict(new_caps))
+        for t in new_templates:
+            self._queues.setdefault(t.name, collections.deque())
+        fold = _PendingFold(plan=new_plan, t_begin=time.perf_counter())
+        self._fold = fold
+        if background:
+            fold.thread = threading.Thread(target=self._fold_build,
+                                           args=(fold,),
+                                           name="plan-fold", daemon=True)
+            fold.thread.start()
+        else:
+            self._fold_build(fold)
+        return relower_recipe(tuple(self.plan.templates),
+                              tuple(new_plan.templates),
+                              what="the extended always-on plan",
+                              background=True)
+
+    def fold_in_flight(self) -> bool:
+        return self._fold is not None
+
+    def fold_ready(self) -> bool:
+        return self._fold is not None and self._fold.ready()
+
+    def _fold_build(self, fold: _PendingFold) -> None:
+        """Background half of a fold: lower and build the cycles.
+
+        On the fold thread it denices itself first (the build is slack
+        work: the old generation keeps serving and commits the swap
+        whenever the build lands) and makes the engine's device current.
+        Any failure is kept and raised at commit.  The reference also
+        warms its jit caches here (``_fold_warmup``); the port runs
+        eagerly and has no compile cache to warm, so there is no
+        warm-up."""
+        try:
+            if fold.thread is not None:
+                try:
+                    os.setpriority(os.PRIO_PROCESS,
+                                   threading.get_native_id(), 19)
+                except (AttributeError, OSError):
+                    pass    # non-Linux / restricted: build at normal prio
+            with (torch.cuda.device(self.device)
+                  if self.device.type == "cuda"
+                  else contextlib.nullcontext()):
+                fold.handle = self._build_compiled(fold.plan)
+        except BaseException as e:  # noqa: BLE001 — surfaced at commit
+            fold.error = e
+        finally:
+            fold.t_built = time.perf_counter()
+            fold.built.set()
+
+    def _commit_fold(self) -> None:
+        """The migration beat boundary: swap generations.
+
+        Runs at dispatch() once the background build is ready.  In-flight
+        beats drain first (their results are positional in the OLD
+        layout; this waits for the card by design), the new handle
+        installs, the admission-diff state prefix-copies into the wider
+        layout, the staging buffers are rebuilt for it, and the carries
+        migrate — through the same carry/layout check as the delta
+        dispatch path — before one forced full-rescan beat reseeds
+        everything under the new layout."""
+        fold, self._fold = self._fold, None
+        if fold.thread is not None:
+            fold.thread.join()
+        if fold.error is not None:
+            new = sorted(set(fold.plan.templates) - set(self.plan.templates))
+            raise RuntimeError(f"background fold of {new} failed to "
+                               "build") from fold.error
+        self.last_fold_build_s = fold.t_built - fold.t_begin
+        while self._inflight:
+            for name, tickets in self._collect_oldest().items():
+                self._spilled.setdefault(name, []).extend(tickets)
+        old_plan, old_lowered = self.plan, self._lowered
+        self._install_handle(fold.handle)
+        plan = self.plan
+        # admission-diff state: the old slot ranges are a prefix of the
+        # new layout, appended slots have never been admitted
+        prev_p = np.zeros((plan.qcap, plan.n_params_max, 2), np.int32)
+        prev_p[:old_plan.qcap, :old_lowered.n_params_max] = \
+            self._prev_params
+        prev_a = np.zeros((plan.qcap,), bool)
+        prev_a[:old_plan.qcap] = self._prev_active
+        self._prev_params, self._prev_active = prev_p, prev_a
+        self._staging = [_StagingBuffers(plan, self.update_slots,
+                                         self.device)
+                         for _ in range(self.pipeline_depth)]
+        self._staging_idx = 0
+        carry, rids = folding.migrate_carry(
+            old_lowered, self._lowered, self._carry, self._rid_carry)
+        self._carry, self._rid_carry = carry, rids
+        if carry is not None:
+            # version the swap: the migrated carry now lives under the
+            # NEW layout token, proven through the always-on guard
+            self._carry_token = self._layout_token
+            check_carry_layout(self._carry_token, self._layout_token)
+        else:
+            self._carry_token = None
+        self._force_full = True
+        self.folds_done += 1
 
     # ------------------------------------------------------------------ API
     def submit(self, template: str, params: Dict[str, Any]) -> Ticket:
         """params: {pred_index: (lo, hi)} inclusive int ranges."""
-        t = Ticket(next(self._ticket_ids), template, params, time.time())
-        self._queues[template].append(t)
+        t = self.make_ticket(template, params)
+        self.submit_ticket(t)
         return t
+
+    def make_ticket(self, template: str, params: Dict[str, Any]) -> Ticket:
+        """Mint a ticket WITHOUT enqueueing it (serving front ends hold
+        tickets for templates still waiting on a fold batch)."""
+        return Ticket(next(self._ticket_ids), template, params,
+                      time.time())
+
+    def accepts(self, template: str) -> bool:
+        """True iff the engine has an admission queue for the template
+        (compiled in, or in an in-flight fold)."""
+        return template in self._queues
+
+    def submit_ticket(self, ticket: Ticket) -> None:
+        self._queues[ticket.template].append(ticket)
 
     def submit_update(self, table: str, kind: str, payload: Dict) -> None:
         """kind: insert | update | delete (payload per storage slots)."""
@@ -328,6 +552,9 @@ class SharedDBEngine:
     def pending(self) -> int:
         return (sum(len(q) for q in self._queues.values())
                 + len(self._update_queue))
+
+    def in_flight(self) -> int:
+        return len(self._inflight)
 
     # ------------------------------------------------------------ one beat
     def _admit_queries(self, buf: _StagingBuffers):
@@ -438,7 +665,13 @@ class SharedDBEngine:
         the results.  At full pipeline depth the oldest in-flight
         heartbeat is collected first (backpressure), so a staging buffer
         is only rewritten after the heartbeat that read it completed.
+        When a fold's build has landed, this beat first commits it
+        (``_commit_fold``) and runs as the forced full rescan.
         """
+        if self._fold is not None and self._fold.ready():
+            # migration beat boundary: swap generations before admitting
+            # this heartbeat's work
+            self._commit_fold()
         while len(self._inflight) >= self.pipeline_depth:
             for name, tickets in self._collect_oldest().items():
                 self._spilled.setdefault(name, []).extend(tickets)
@@ -453,9 +686,12 @@ class SharedDBEngine:
         # and every delta fits its fixed capacity, else a full rescan
         # (which reseeds the carry)
         changed = self._diff_admission(buf)
-        use_delta = (self._carry is not None
+        force_full, self._force_full = self._force_full, False
+        use_delta = (not force_full and self.delta_scans
+                     and self._carry is not None
                      and self._delta_eligible(changed, touches))
-        use_delta_join = use_delta and self._join_delta_eligible(touches)
+        use_delta_join = (use_delta and self.delta_joins
+                          and self._join_delta_eligible(touches))
         staged = buf.stage()
         queries = {"params": staged["params"], "active": staged["active"]}
         updates = staged["updates"]

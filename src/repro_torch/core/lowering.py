@@ -52,7 +52,7 @@ from repro_torch.core import dataquery as dq
 from repro_torch.core import operators as ops
 from repro_torch.core.backends import (FusedJoinIn, FusedScanIn,
                                        OperatorBackend)
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, upload
 from repro_torch.core.plan import CompiledPlan, GroupAgg
 from repro_torch.core.storage import (INT_SENTINEL, apply_updates,
                                       build_key_partitions,
@@ -357,6 +357,18 @@ def lower_plan(plan: CompiledPlan,
 
 
 
+def check_extension_prefix(old: LoweredPlan, new: LoweredPlan) -> None:
+    """Validate that ``new`` prefix-stably EXTENDS ``old`` at the stage
+    level — the IR contract dynamic plan folding (core/folding.py) rests
+    on: existing stages keep their position, scan windows only widen on
+    the high side, predicated column lists only append, and join stages
+    keep their access path.  The derivation checks are
+    ``folding.lint_extension_prefix`` (rule ``fold-prefix-stability``);
+    raises ``ValueError`` naming the rule."""
+    from repro_torch.core.folding import lint_extension_prefix, raise_on
+    raise_on(lint_extension_prefix(old, new), ValueError)
+
+
 # ---------------------------------------------------------------------------
 # Executing the lowered graph: one heartbeat of the always-on plan
 # ---------------------------------------------------------------------------
@@ -369,10 +381,8 @@ def lower_plan(plan: CompiledPlan,
 def _device_consts(lowered: LoweredPlan, device):
     """The lowering-time predicate scatter plans as device tensors, built
     once when a cycle is built (never inside a heartbeat)."""
-    covered = [torch.as_tensor(s.covered, device=device)
-               for s in lowered.scans]
-    pidx = [torch.as_tensor(s.param_idx, dtype=torch.int64, device=device)
-            for s in lowered.scans]
+    covered = [upload(s.covered, device) for s in lowered.scans]
+    pidx = [upload(s.param_idx, device, torch.int64) for s in lowered.scans]
     return covered, pidx
 
 
@@ -668,10 +678,9 @@ def _build_post_scan(lowered: LoweredPlan, backend: OperatorBackend,
     cat = plan.catalog
 
     def words(a):
-        return torch.as_tensor(np.asarray(a, np.uint32).view(np.int32),
-                               device=device)
+        return upload(np.asarray(a, np.uint32).view(np.int32), device)
 
-    limits = torch.as_tensor(lowered.limits, device=device)
+    limits = upload(lowered.limits, device)
     join_subs = [words(j.sub_mask) for j in lowered.joins]
     sort_subs = [words(s.sub_mask) for s in lowered.sorts]
     route_subs = [words(r.sub_mask) for r in lowered.routes]

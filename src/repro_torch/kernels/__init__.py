@@ -7,7 +7,7 @@ launch) and ``csrc/<name>.cu`` the kernel with a plain C launcher;
 CPU tensors computes the plain version; given CUDA tensors it launches
 its kernel or raises — there is no fallback.
 
-The four kernels are built into ONE shared library by ``nvcc`` at first
+The kernels are built into ONE shared library by ``nvcc`` at first
 use, into ``build/`` at the repository root (git-ignored): one ``nvcc``
 per source, all started together, then one link.  The library exports C
 functions, loaded with ``ctypes``: no PyTorch headers are compiled, which
@@ -39,13 +39,14 @@ from repro_torch.core import backends as _backends
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("clockscan.cu", "shared_groupby.cu", "partitioned_join.cu",
-           "fused_delta.cu")
+           "fused_delta.cu", "bitmask_join.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIBRARY = "libshareddb_kernels.so"
 
 LAUNCHES = {"clockscan": 0, "shared_groupby": 0, "partitioned_join": 0,
-            "fused_delta": 0}
+            "fused_delta": 0, "bitmask_join": 0, "delta_scan": 0,
+            "delta_join": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -136,6 +137,15 @@ def library() -> ctypes.CDLL:
             lib.shareddb_partitioned_join.restype = i
             lib.shareddb_fused_delta.argtypes = [p, i, p, p]
             lib.shareddb_fused_delta.restype = i
+            lib.shareddb_bitmask_join.argtypes = [p, p, p, p, p, p, p, i, i,
+                                                  i, p]
+            lib.shareddb_bitmask_join.restype = i
+            lib.shareddb_delta_scan.argtypes = [p, p, p, p, p, p, i, i, i,
+                                                i, p]
+            lib.shareddb_delta_scan.restype = i
+            lib.shareddb_delta_join.argtypes = [p, p, p, p, p, p, i, i, i,
+                                                i, p]
+            lib.shareddb_delta_join.restype = i
             _lib = lib
     return _lib
 
@@ -162,24 +172,16 @@ def require(t, dtype, ndim: int, name: str, device):
         raise ValueError(f"{name} is on {t.device}, not {device}")
 
 
-def _off_path(op: str, row: str):
-    def raise_not_ported(*args, **kwargs):
-        raise NotImplementedError(
-            f"the hopper backend has no {op} kernel yet: it is queued in "
-            f"ROADMAP.md, kernel queue item {row}")
-    return raise_not_ported
-
-
 def _register() -> None:
-    from repro_torch.kernels import (clockscan, fused_delta,
+    from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
                                      partitioned_join, shared_groupby)
     _backends.register_backend(_backends.OperatorBackend(
         name="hopper", scan=clockscan.clockscan,
-        join_block=_off_path("join_block", "4 (bitmask_join)"),
+        join_block=bitmask_join.bitmask_join,
         join_partitioned=partitioned_join.partitioned_join,
         groupby=shared_groupby.shared_groupby,
-        scan_delta=_off_path("scan_delta", "5 (delta_scan)"),
-        join_delta=_off_path("join_delta", "5 (delta_join)"),
+        scan_delta=fused_delta.delta_scan,
+        join_delta=fused_delta.delta_join,
         fused_delta=fused_delta.fused_delta))
 
 

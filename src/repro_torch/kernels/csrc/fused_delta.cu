@@ -137,6 +137,68 @@ fused_delta_kernel(const int32_t* __restrict__ sdesc,
 
 static_assert(sizeof(FusedArgs) <= 4096, "kernel parameter limit");
 
+// ---------------------------------------------------------------------------
+// The chained delta ops: the DIRTY and PROBE blocks as standalone launches
+// ---------------------------------------------------------------------------
+//
+// delta_scan replaces repro/kernels/fused_delta.py::delta_scan_pallas and
+// delta_join replaces ::delta_join_pallas: the backend's scan_delta and
+// join_delta, which a backend without fused_delta chains per stage and
+// per join.  Unlike the fused blocks they have no live count and write
+// no carry: they write ONE output row per slot, pad slots included,
+// computed on the slot's row clamped into [0, T-1] (the caller's scatter
+// drops the pads), as kernels/ref.py's delta_scan_ref / delta_join_ref
+// do.  delta_join routes its key to a bucket inside the kernel (the
+// reference routes in XLA before its kernel).
+//
+// What bounds them: bytes — D gathered rows' predicate columns, the
+// [C, Q] predicate matrices and D*Q/32 output words for the scan; D
+// bucket panes of B (key, row) pairs for the probe.  Both are a few
+// hundred KB at most on the path; launch latency dominates.
+
+// One block per dirty slot: the slot's clamped row against the FULL
+// window, one warp per output word at a time (__ballot_sync packs it).
+__global__ void __launch_bounds__(kThreads)
+delta_scan_kernel(const int32_t* __restrict__ cols,
+                  const int32_t* __restrict__ lo,
+                  const int32_t* __restrict__ hi,
+                  const uint8_t* __restrict__ valid,
+                  const int32_t* __restrict__ rows,
+                  int32_t* __restrict__ out, int C, int T, int Q) {
+  const int slot = blockIdx.x;
+  const int64_t row = min(max(rows[slot], 0), T - 1);
+  const int w = Q / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const bool v = valid[row] != 0;
+  for (int k = threadIdx.x / kWarp; k < w; k += kWarpsPerBlock) {
+    const bool ok = v && range_match(cols, T, row, lo, hi, Q,
+                                     k * kWarp + lane, C);
+    const uint32_t word = __ballot_sync(kFullMask, ok);
+    if (lane == 0) out[int64_t(slot) * w + k] = int32_t(word);
+  }
+}
+
+// One warp per dirty slot: route the clamped spine row's key to its one
+// bucket (searchsorted right, -1, clip), then the max live row of that
+// bucket with an equal key (-1 if none).
+__global__ void __launch_bounds__(kThreads)
+delta_join_kernel(const int32_t* __restrict__ keys,
+                  const int32_t* __restrict__ rows,
+                  const int32_t* __restrict__ bkeys,
+                  const int32_t* __restrict__ brows,
+                  const int32_t* __restrict__ bounds,
+                  int32_t* __restrict__ rid_out, int Tl, int D, int P,
+                  int B) {
+  const int slot = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (slot >= D) return;                             // whole warps exit
+  const int lane = threadIdx.x % kWarp;
+  const int64_t row = min(max(rows[slot], 0), Tl - 1);
+  const int32_t key = keys[row];
+  const int b = route_bucket(bounds, P, key);
+  const int rid = probe_bucket(bkeys, brows, b, B, key, lane);
+  if (lane == 0) rid_out[slot] = rid;
+}
+
 }  // namespace
 }  // namespace shareddb
 
@@ -147,5 +209,29 @@ extern "C" int shareddb_fused_delta(const int32_t* sdesc, int N,
   if (N == 0) return int(cudaGetLastError());
   const FusedArgs& a = *static_cast<const FusedArgs*>(args);
   fused_delta_kernel<<<N, kThreads, 0, stream>>>(sdesc, a);
+  return int(cudaGetLastError());
+}
+
+extern "C" int shareddb_delta_scan(const int32_t* cols, const int32_t* lo,
+                                   const int32_t* hi, const uint8_t* valid,
+                                   const int32_t* rows, int32_t* out, int C,
+                                   int T, int Q, int D, cudaStream_t stream) {
+  using namespace shareddb;
+  if (D == 0) return int(cudaGetLastError());
+  delta_scan_kernel<<<D, kThreads, 0, stream>>>(cols, lo, hi, valid, rows,
+                                                out, C, T, Q);
+  return int(cudaGetLastError());
+}
+
+extern "C" int shareddb_delta_join(const int32_t* keys, const int32_t* rows,
+                                   const int32_t* bkeys, const int32_t* brows,
+                                   const int32_t* bounds, int32_t* rid_out,
+                                   int Tl, int D, int P, int B,
+                                   cudaStream_t stream) {
+  using namespace shareddb;
+  if (D == 0) return int(cudaGetLastError());
+  const int blocks = (D + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  delta_join_kernel<<<blocks, kThreads, 0, stream>>>(
+      keys, rows, bkeys, brows, bounds, rid_out, Tl, D, P, B);
   return int(cudaGetLastError());
 }

@@ -22,6 +22,13 @@ The kernel merges straight into the carries: the scan words in place
 (the reference donates that carry half, so each beat's words become the
 next beat's carry), the rids into fresh copies of the rid carry (its
 tensors are also the previous beat's in-flight results).
+
+``delta_scan`` and ``delta_join`` are the chained delta ops (a backend
+without ``fused_delta`` calls them per stage and per join): the DIRTY
+and PROBE blocks as standalone kernels in the same source (they replace
+the reference's ``delta_scan_pallas`` and ``delta_join_pallas``).  They
+write one output row per slot, pad slots included, computed on the
+slot's row clamped into range; ``delta_join`` routes inside its kernel.
 """
 from __future__ import annotations
 
@@ -225,3 +232,63 @@ def fused_delta(scan_in, join_in):
     _k.LAUNCHES["fused_delta"] += 1
     _k.check_launch(code, "fused_delta")
     return tuple(e.carry for e in scan_in), rids
+
+
+def delta_scan(cols, lo, hi, valid, rows):
+    """cols int32[C,T]; lo/hi int32[C,Q]; valid bool[T]; rows int32[D]
+    -> int32[D, Q/32]; contract of kernels/ref.delta_scan_ref."""
+    if cols.device.type == "cpu":
+        return ref.delta_scan_ref(cols, lo, hi, valid, rows)
+    dev = cols.device
+    for t, name in ((cols, "cols"), (lo, "lo"), (hi, "hi")):
+        _k.require(t, torch.int32, 2, name, dev)
+    _k.require(valid, torch.bool, 1, "valid", dev)
+    _k.require(rows, torch.int32, 1, "rows", dev)
+    C, T = cols.shape
+    Q = lo.shape[1]
+    if (hi.shape != lo.shape or lo.shape[0] != C or valid.shape[0] != T
+            or Q % 32 or C < 1 or T < 1):
+        raise ValueError(f"delta_scan: cols {tuple(cols.shape)}, lo "
+                         f"{tuple(lo.shape)}, hi {tuple(hi.shape)}, valid "
+                         f"{tuple(valid.shape)}: want C >= 1, T >= 1, "
+                         f"Q % 32 == 0")
+    D = rows.shape[0]
+    out = torch.empty((D, Q // 32), dtype=torch.int32, device=dev)
+    code = _k.library().shareddb_delta_scan(
+        cols.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        valid.view(torch.uint8).data_ptr(), rows.data_ptr(), out.data_ptr(),
+        C, T, Q, D, _k.stream_of(cols))
+    _k.LAUNCHES["delta_scan"] += 1
+    _k.check_launch(code, "delta_scan")
+    return out
+
+
+def delta_join(keys_l, rows, bucket_keys, bucket_rows, bounds):
+    """keys_l int32[Tl]; rows int32[D]; buckets int32[P, B]; bounds
+    int32[P] -> rid int32[D]; contract of kernels/ref.delta_join_ref."""
+    if keys_l.device.type == "cpu":
+        return ref.delta_join_ref(keys_l, rows, bucket_keys, bucket_rows,
+                                  bounds)
+    dev = keys_l.device
+    _k.require(keys_l, torch.int32, 1, "keys_l", dev)
+    _k.require(rows, torch.int32, 1, "rows", dev)
+    _k.require(bucket_keys, torch.int32, 2, "bucket_keys", dev)
+    _k.require(bucket_rows, torch.int32, 2, "bucket_rows", dev)
+    _k.require(bounds, torch.int32, 1, "bounds", dev)
+    P, B = bucket_keys.shape
+    Tl = keys_l.shape[0]
+    if (bucket_rows.shape != bucket_keys.shape or bounds.shape[0] != P
+            or P < 1 or Tl < 1):
+        raise ValueError(
+            f"delta_join: keys {tuple(keys_l.shape)}, buckets "
+            f"{tuple(bucket_keys.shape)}/{tuple(bucket_rows.shape)}, "
+            f"bounds {tuple(bounds.shape)}")
+    D = rows.shape[0]
+    rid = torch.empty((D,), dtype=torch.int32, device=dev)
+    code = _k.library().shareddb_delta_join(
+        keys_l.data_ptr(), rows.data_ptr(), bucket_keys.data_ptr(),
+        bucket_rows.data_ptr(), bounds.data_ptr(), rid.data_ptr(), Tl, D, P,
+        B, _k.stream_of(keys_l))
+    _k.LAUNCHES["delta_join"] += 1
+    _k.check_launch(code, "delta_join")
+    return rid

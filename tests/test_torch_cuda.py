@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.backends import FusedJoinIn, FusedScanIn
 from repro_torch.core.storage import INT_SENTINEL, build_key_partitions
+from repro_torch.kernels import bitmask_join as tbj
 from repro_torch.kernels import clockscan as tcs
 from repro_torch.kernels import fused_delta as tfd
 from repro_torch.kernels import partitioned_join as tpj
@@ -128,7 +129,7 @@ def test_partitioned_join_matches_plain(cuda_device, Tr, Tl, W, frac, B,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mixed", "seams", "identity"])
+@pytest.mark.parametrize("case", ["mixed", "seams", "identity", "block"])
 def test_fused_delta_matches_plain(cuda_device, case):
     """Mixed stages and joins in one launch, dirty rows on pane-tile
     seams, and the span == 0 / dn == 0 identity."""
@@ -144,6 +145,10 @@ def test_fused_delta_matches_plain(cuda_device, case):
         si = (_scan(rng, dev, 300, 2, 64, 1, 8, 5, 1,
                     seam=(0, 255, 256, 299)),)
         ji = (_join(rng, dev, 300, 64, 4, 2),)
+    elif case == "block":   # P = 1, B = the PK capacity, live probes
+        si = (_scan(rng, dev, 500, 1, 32, 1, 16, 3, 1),)
+        ji = (_join(rng, dev, 500, 128, 16, 7, pseudo=True),
+              _join(rng, dev, 500, 100, 16, 2, pseudo=True))
     else:
         si = (_scan(rng, dev, 128, 2, 64, 2, 8, 0, 0),)
         ji = (_join(rng, dev, 128, 32, 4, 0),)
@@ -155,3 +160,56 @@ def test_fused_delta_matches_plain(cuda_device, case):
     if case == "identity":
         assert torch.equal(got_w[0], carry)
         assert torch.equal(got_r[0], ji[0].rid_carry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tl,Tr,W,dup", [
+    (256, 256, 1, False), (1024, 512, 8, False), (300, 100, 3, True),
+    (51392 // 8, 128, 14, True), (200, 2500, 2, True), (1, 1, 1, False)])
+def test_bitmask_join_matches_plain(cuda_device, Tl, Tr, W, dup):
+    """Ragged sides, Tr over the kernel's 2048-row shared-memory chunk,
+    and invalid right rows that repeat a valid key."""
+    rng = np.random.default_rng(Tl + Tr)
+    dev = cuda_device
+    keys_r = rng.permutation(Tr * 3)[:Tr]
+    valid_r = rng.random(Tr) > 0.25
+    if dup and Tr > 4:
+        inv, val = np.flatnonzero(~valid_r), np.flatnonzero(valid_r)
+        n = min(inv.size, val.size)
+        keys_r[inv[:n]] = keys_r[rng.choice(val, n, replace=False)]
+    kl = _t(rng.choice(Tr * 4, Tl), dev)
+    args = (kl, _words(rng, (Tl, W), dev), _t(keys_r, dev),
+            _words(rng, (Tr, W), dev), _t(valid_r, dev, torch.bool))
+    for a, b in zip(tbj.bitmask_join(*args), tref.bitmask_join_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,C,Q,D,dn", [
+    (300, 2, 64, 16, 5), (257, 3, 96, 8, 0), (1000, 1, 416, 128, 4),
+    (64, 2, 32, 8, 8)])
+def test_delta_scan_matches_plain(cuda_device, T, C, Q, D, dn):
+    """Pad slots (clamped to row T-1), an all-pad set and a full one."""
+    rng = np.random.default_rng(T + D)
+    dev = cuda_device
+    cols = _t(rng.integers(0, 50, (C, T)), dev)
+    lo = _t(rng.integers(0, 30, (C, Q)), dev)
+    hi = lo + _t(rng.integers(0, 30, (C, Q)), dev)
+    valid = _t(rng.random(T) < 0.9, dev, torch.bool)
+    rows = np.sort(np.concatenate([[T - 1], rng.permutation(T - 1)])[:dn])
+    rows = _t(np.concatenate([rows, np.full(D - dn, T)]), dev)
+    assert torch.equal(tfd.delta_scan(cols, lo, hi, valid, rows),
+                       tref.delta_scan_ref(cols, lo, hi, valid, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tl,Tr,D,dn,pseudo", [
+    (300, 160, 16, 5, False), (128, 64, 8, 0, False),
+    (5000, 128, 128, 6, True), (64, 100, 8, 8, True)])
+def test_delta_join_matches_plain(cuda_device, Tl, Tr, D, dn, pseudo):
+    """Partitioned and single-bucket (block) probes, pad slots clamped to
+    row Tl-1, an all-pad set."""
+    rng = np.random.default_rng(Tl + D)
+    e = _join(rng, cuda_device, Tl, Tr, D, dn, pseudo=pseudo)
+    args = (e.keys, e.rows, e.bkeys, e.brows, e.bounds)
+    assert torch.equal(tfd.delta_join(*args), tref.delta_join_ref(*args))

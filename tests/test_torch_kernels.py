@@ -1,11 +1,15 @@
-"""Port parity, kernels: the plain PyTorch version of each of the four
-kernels on the main path (kernels/ref.py, and the hopper wrappers, which
-compute it for CPU tensors) equals the JAX package's Pallas kernel in
-interpret mode and its jnp reference, on the shapes of the reference's
-own kernel tests; the fused kernel's descriptor equals the reference's.
-The CUDA kernels themselves are held to these plain versions on the card
-by tests/test_torch_cuda.py.
+"""Port parity, kernels: the plain PyTorch version of clockscan,
+shared_groupby, partitioned_join and fused_delta (kernels/ref.py, and the
+hopper wrappers, which compute it for CPU tensors) equals the JAX
+package's Pallas kernel in interpret mode and its jnp reference, on the
+shapes of the reference's own kernel tests; the fused kernel's
+descriptor equals the reference's; every hopper op is a kernel wrapper.
+The other three kernels are in tests/test_torch_block_delta.py; the CUDA
+kernels themselves are held to these plain versions on the card by
+tests/test_torch_cuda.py.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -270,12 +274,16 @@ FUSED_CASES = {
     "empty_dirty_zero_span": ((mk_scan(128, 2, 64, 2, 8, 0, 0, 9),),
                               (mk_join(128, 32, 4, 0, 10),)),
     "scan_only": ((mk_scan(64, 1, 32, 1, 4, 2, 1, 7),), ()),
+    # a block join's single-bucket pseudo-partition (P = 1, B = 100: no
+    # multiple of 32), with live dirty rows
+    "block": ((mk_scan(200, 1, 32, 1, 8, 3, 1, 14),),
+              (mk_join(200, 100, 8, 6, 15, pseudo=True),)),
     "join_only": ((), (mk_join(100, 50, 4, 4, 8),)),
 }
 
 
 # cases whose Pallas kernel also runs here, in interpret mode
-FUSED_PALLAS = ("mixed", "empty_dirty_zero_span", "join_only")
+FUSED_PALLAS = ("mixed", "empty_dirty_zero_span", "join_only", "block")
 
 
 @pytest.mark.parametrize("case", sorted(FUSED_CASES))
@@ -325,10 +333,46 @@ def test_fused_schedule_and_descriptor_equal_reference(case):
     np.testing.assert_array_equal(tdesc.numpy(), np.asarray(rdesc))
 
 
-def test_hopper_off_path_ops_raise_and_name_the_roadmap():
-    hopper = tb.get_backend("hopper")
-    for op in ("join_block", "scan_delta", "join_delta"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(hopper, op)()
+def test_hopper_ops_are_kernel_wrappers_with_plain_cpu_results():
+    """Every op of the ``hopper`` backend is a kernel wrapper of
+    ``repro_torch.kernels`` that returns its plain version's result on CPU
+    tensors (no stub is left), and ``auto`` on the CPU is ``torch``."""
+    hopper, plain = tb.get_backend("hopper"), tb.get_backend("torch")
+    rng = np.random.default_rng(20)
+    cols = torch.as_tensor(rng.integers(0, 40, (2, 96)).astype(np.int32))
+    lo = torch.as_tensor(rng.integers(0, 20, (2, 64)).astype(np.int32))
+    hi = lo + 15
+    valid = torch.as_tensor(rng.random(96) < 0.9)
+    rows = torch.as_tensor(np.array([3, 50, 95, 96, 96], np.int32))
+    keys_r = torch.as_tensor(rng.permutation(90)[:40].astype(np.int32))
+    valid_r = torch.as_tensor(rng.random(40) < 0.8)
+    keys_l = torch.as_tensor(rng.integers(0, 90, 96).astype(np.int32))
+    mask_l, mask_r = T(_words(rng, (96, 2))), T(_words(rng, (40, 2)))
+    parts = build_key_partitions(keys_r, valid_r, 2, 32)
+    codes = torch.as_tensor(rng.integers(-1, 12, 96).astype(np.int32))
+    scan_in, join_in = _both(FUSED_CASES["block"][0],
+                             FUSED_CASES["block"][1])[2:]
+    args = {"scan": (cols, lo, hi, valid),
+            "scan_delta": (cols, lo, hi, valid, rows),
+            "join_block": (keys_l, mask_l, keys_r, mask_r, valid_r),
+            "join_partitioned": (keys_l, mask_l, *parts, mask_r),
+            "join_delta": (keys_l, rows, *parts),
+            "groupby": (codes, cols[0], mask_l, 12),
+            "fused_delta": (scan_in, join_in)}
+    assert sorted(args) == sorted(f.name for f in
+                                  dataclasses.fields(tb.OperatorBackend)
+                                  if f.name != "name")
+    for op, a in args.items():
+        fn = getattr(hopper, op)
+        assert fn.__module__.startswith("repro_torch.kernels."), op
+        assert fn.__module__ != "repro_torch.kernels.ref", op
+        got, want = fn(*a), getattr(plain, op)(*a)
+        for g, w in zip(_leaves(got), _leaves(want)):
+            assert torch.equal(g, w), op
     assert tb.resolve_backend("auto", "cpu").name == "torch"
 
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _leaves(v)]

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of SharedDB on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port of SharedDB (the query engine and
+the LM server) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,14 +10,19 @@ capability 9.0+ and the CUDA toolkit.  It:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the hand-written kernels from src/repro_torch/kernels/csrc
      into build/ (nvcc, one process per source, in parallel);
-  3. holds each of the seven kernels against its plain PyTorch version on
+  3. holds each of the eight kernels against its plain PyTorch version on
      the card on small edge cases: padded tails, invalid rows, empty
      buckets, an empty dirty set and a zero pane span, ragged block-join
      sides past the kernel's staging chunk with invalid rows repeating a
-     valid key, all-pad dirty sets and dirty rows at T-1.  Tolerance
-     everywhere: words, rids and group counts bit-equal; group sums within
-     rtol 1e-6 (float atomics add in a varying order; TPC-W's integer sums
-     are exact);
+     valid key, all-pad dirty sets and dirty rows at T-1; flash attention
+     on the reference's five test shapes, ragged S (24, 200), Sq < Sk,
+     D 16 and 128, causal Sq > Sk (rows that see no key), and the LM
+     paths' prefill shapes (yi-6b's 512 tokens, gemma3-27b's 2048-token
+     local and global layers) on standard-normal inputs, in float32 and
+     bfloat16.  Tolerance: words, rids and group counts bit-equal;
+     group sums within rtol 1e-6 (float atomics add in a varying order;
+     TPC-W's integer sums are exact); attention within rtol = atol / 5 =
+     1e-5 in float32 and 2e-2 in bfloat16 (the reference's own test);
   4. drives four paths at the paper's TPC-W scale (configs/shareddb_tpcw:
      10 000 items, 28 800 customers), each with every kernel's launch
      count set to 0 just before it and read just after:
@@ -41,12 +47,37 @@ capability 9.0+ and the CUDA toolkit.  It:
      the fold's migration beat, which drains in-flight beats by design);
      the last steady beat of each path runs under torch.profiler, for the
      card's busy time;
+       lm-yi-6b — the LM CycleServer on yi-6b at full width and depth (32
+         layers, bf16 weights from the port's seeded init): capacity 8,
+         max_seq 1024, prefill_len 512, 16 requests of 64-512 prompt
+         tokens and 32 new tokens each, run to drain;
+       lm-gemma3-27b — gemma3-27b at full width, depth cut to 7 layers
+         (one 5:1 local/global group and a leftover local layer, for chip
+         time): capacity 4, max_seq 4096, prefill_len 2048 (over the 1024
+         window: the ring cache), 4 requests of 16 new tokens;
+     every prefill layer of the server under test is re-run with the
+     plain attention from the server's own input to that layer, and its
+     output must agree within 2e-2 of the tensor's largest magnitude.
+     With random weights at the reference's init scales the attention
+     is nearly one-hot (the score spread of a recorded call is printed),
+     so the kernel's online-softmax rescaling is held to its plain
+     version at these paths' shapes on soft-softmax inputs in step 3.
+     Each LM server also runs beat for beat beside a twin on the same
+     weights whose prefill attention is the plain version
+     (kernels="torch"); the twin gates nothing and only measures the
+     end-to-end divergence: one bf16 rounding grows several-fold a layer
+     under one-hot attention, and the two reach O(1) within about ten
+     layers.  Every request must end with its tokens and no NaN, and
+     flash_attention must launch once per layer per admission; one
+     admission beat and one decode-only beat run under torch.profiler;
   5. replays recorded kernel inputs (the main paths' own shapes and data)
      through each kernel and its plain version, the plain version first:
      agreement, then each call's time on the card (torch.profiler: all
      device work of the call, and the hand-written kernel alone) and its
      wall time (a pair of CUDA events per call), beside a bound computed
-     from the bytes and operations of those inputs;
+     from the bytes and operations of those inputs; flash attention also
+     beside one PyTorch call of the same function
+     (scaled_dot_product_attention, timed here only);
   6. prints one JSON line of per-kernel results, then the one-line device
      record as the last line.
 
@@ -69,6 +100,8 @@ SEED = 0
 # float adds (none of them run on tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+# bf16 dense tensor-core peak: the rate flash attention's bound is held to
+TENSOR_CORE_BF16_FLOPS = 989e12
 # each kernel's symbol, as it appears in a profiler trace
 KERNEL_SYMBOLS = {"clockscan": "clockscan_kernel",
                   "shared_groupby": "groupby_kernel",
@@ -76,7 +109,8 @@ KERNEL_SYMBOLS = {"clockscan": "clockscan_kernel",
                   "fused_delta": "fused_delta_kernel",
                   "bitmask_join": "bitmask_join_kernel",
                   "delta_scan": "delta_scan_kernel",
-                  "delta_join": "delta_join_kernel"}
+                  "delta_join": "delta_join_kernel",
+                  "flash_attention": "flash_attention_kernel"}
 # the TPU kernel each replaces (src/repro/kernels, file:line of its
 # pallas_call function) and its CUDA source
 KERNEL_ORIGIN = {
@@ -90,6 +124,8 @@ KERNEL_ORIGIN = {
                      "src/repro/kernels/bitmask_join.py:80"),
     "delta_scan": ("fused_delta.cu", "src/repro/kernels/fused_delta.py:377"),
     "delta_join": ("fused_delta.cu", "src/repro/kernels/fused_delta.py:421"),
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:91"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -100,6 +136,8 @@ PATH_KERNELS = {
              "fused_delta", "bitmask_join"),
     "chained": ("clockscan", "shared_groupby", "partitioned_join",
                 "bitmask_join", "delta_scan", "delta_join"),
+    "lm-yi-6b": ("flash_attention",),
+    "lm-gemma3-27b": ("flash_attention",),
 }
 N_INTERACTIONS = 150        # web interactions in the reseed beat
 STEADY_BEATS = 3            # unprofiled steady beats, then one profiled
@@ -195,9 +233,9 @@ def device_ms(fn, kernel, setup=None, reps=20):
     return total / reps / 1e3, own_us / reps / 1e3, len(own) / reps
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, ops_per_s=CUDA_CORE_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -377,7 +415,54 @@ def edge_cases(dev):
         args = (e.keys, dirty(Tl, D, dn), e.bkeys, e.brows, e.bounds)
         same(fused_delta.delta_join(*args), ref.delta_join_ref(*args),
              f"delta_join Tl={Tl} D={D} dn={dn} pseudo={pseudo}")
+    flash_edge_cases(dev, rng)
     torch.cuda.synchronize()
+
+
+# (B, Sq, Sk, H, KV, D, causal, window): tests/test_kernels.py's five,
+# then ragged S, Sq < Sk, Sq > Sk (causal: rows that see no key), D 16,
+# then the LM paths' own prefill shapes: yi-6b's, gemma3-27b's local
+# (window 1024) and global layers
+FLASH_EDGE = (
+    (1, 128, 128, 4, 4, 64, True, 0), (2, 256, 256, 8, 2, 64, True, 0),
+    (2, 256, 256, 8, 4, 32, True, 64), (1, 128, 256, 4, 1, 128, False, 0),
+    (2, 128, 128, 4, 4, 64, True, 32),
+    (1, 24, 24, 4, 2, 16, True, 0), (1, 200, 200, 8, 2, 128, True, 0),
+    (2, 100, 300, 4, 2, 64, True, 0), (1, 300, 100, 4, 4, 128, True, 0),
+    (1, 200, 70, 2, 1, 16, True, 16), (1, 77, 130, 4, 4, 32, False, 20),
+    (1, 512, 512, 32, 4, 128, True, 0),
+    (1, 2048, 2048, 32, 16, 128, True, 1024),
+    (1, 2048, 2048, 32, 16, 128, True, 0),
+)
+
+
+def flash_edge_cases(dev, rng):
+    """Flash attention against its plain version, float32 at rtol 1e-5 /
+    atol 5e-5 and bfloat16 at 2e-2 / 1e-1; finite everywhere (the rows
+    that see no key average v, they are not NaN).  Standard-normal q, k,
+    v give scores of unit spread, a soft softmax: at the LM paths' shapes
+    this is the gate on the kernel's online-softmax rescaling, which the
+    paths' own one-hot attention (random weights) hardly exercises."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ref
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for B, Sq, Sk, H, KV, D, causal, window in FLASH_EDGE:
+            q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                                       device=dev)
+                       for s in ((B, Sq, H, D), (B, Sk, KV, D),
+                                 (B, Sk, KV, D)))
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+            what = f"flash_attention {dtype} {(B, Sq, Sk, H, KV, D)} " \
+                f"causal={causal} window={window}"
+            if got.dtype != dtype or not torch.isfinite(got).all():
+                fail(f"{what}: dtype {got.dtype} or non-finite values")
+            if not torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=5 * tol):
+                fail(f"{what}: max abs err {max_abs_err(got, want)}")
+            if H == 32:                    # the LM paths' prefill shapes
+                print(f"{what}: max abs err {max_abs_err(got, want)}")
 
 
 # ------------------------------------------------------ 4. the main path
@@ -838,19 +923,262 @@ def chained_path(dev, scale_i, scale_c, fold, recorder):
     return log
 
 
+# ------------------------------------------------------- 4c. LM serving
+# (arch, depth cut or None, capacity, max_seq, prefill_len, requests,
+#  prompt lengths [lo, hi], new tokens)
+LM_PATHS = {
+    "lm-yi-6b": ("yi-6b", None, 8, 1024, 512, 16, (64, 512), 32),
+    "lm-gemma3-27b": ("gemma3-27b", 7, 4, 4096, 2048, 4, (256, 2048), 16),
+}
+# every prefill layer of the server under test, re-run with the plain
+# attention from the server's own input to that layer: max |kernel path -
+# plain path| <= LM_REL_TOL * max |plain path|, outputs and K/V
+LM_REL_TOL = 2e-2
+LM_PROFILED_BEAT = 1       # an admission beat after the first
+
+
+class StepRecorder:
+    """Keeps what a CycleServer's prefills return and its decode steps'
+    logits until ``take`` hands them over."""
+
+    def __init__(self, srv):
+        self.prefills, self.decodes = [], []
+        prefill, decode = srv._prefill, srv._decode
+
+        def rec_prefill(*a):
+            out = prefill(*a)
+            self.prefills.append(out)
+            return out
+
+        def rec_decode(*a):
+            out = decode(*a)
+            self.decodes.append(out[0])
+            return out
+        srv._prefill, srv._decode = rec_prefill, rec_decode
+
+    def take(self):
+        out = self.prefills, self.decodes
+        self.prefills, self.decodes = [], []
+        return out
+
+
+class LayerRecorder:
+    """While armed, keeps every prefill sublayer's arguments and result
+    (``transformer._sublayer_train``), so that each layer can be re-run
+    with the plain attention from the same input."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        self.tf = transformer
+        self.orig = transformer._sublayer_train
+        self.calls = []
+
+    def __enter__(self):
+        def rec(*args):
+            out = self.orig(*args)
+            self.calls.append((args, out))
+            return out
+        self.tf._sublayer_train = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.tf._sublayer_train = self.orig
+
+    def replay_plain(self):
+        """The largest relative error of a recorded layer's output against
+        its re-run with kernels="torch" (the layer's K/V come before its
+        attention, so only the output can differ), and the layer count."""
+        worst = 0.0
+        for args, (x, _) in self.calls:
+            x2, _ = self.orig(*args[:-1], "torch")
+            worst = max(worst, rel_err(x, x2))
+        n = len(self.calls)
+        self.calls = []
+        return worst, n
+
+
+def count_params(tree):
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return tree.numel()
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b| over two tensors (0 for two zero tensors)."""
+    d = (a.float() - b.float()).abs().max()
+    scale = b.float().abs().max()
+    return float(d / scale) if float(scale) > 0 else float(d)
+
+
+def layer_divergence(c1, c2):
+    """Relative error of each layer's cached K between two prefills, in
+    layer order (group layers, then leftovers)."""
+    out = []
+    for key in sorted(k for k in c1 if k.startswith("g")):
+        for layer in range(c1[key]["k"].shape[0]):
+            out.append(rel_err(c1[key]["k"][layer], c2[key]["k"][layer]))
+    return out + [rel_err(c1[k]["k"], c2[k]["k"])
+                  for k in sorted(k for k in c1 if k.startswith("x"))]
+
+
+def lm_path(dev, name, recorded):
+    """One LM path: the CycleServer under test (hopper) and a twin on the
+    same weights whose prefill attention is the plain version (torch),
+    beat for beat, to drain.  Every prefill layer of the server under
+    test is re-run with the plain attention from its own input (the gate,
+    LM_REL_TOL).  The twin gates nothing: it only measures how far the
+    two diverge end to end.  Returns the beat log and the path's summary;
+    the first flash-attention call of the profiled beat goes to
+    ``recorded``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving import CycleServer
+
+    arch, depth, cap, max_seq, plen, n_req, (lo, hi), new = LM_PATHS[name]
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = CycleServer(cfg, capacity=cap, max_seq=max_seq, prefill_len=plen,
+                      prefill_budget=2, seed=SEED, device=dev,
+                      kernels="hopper")
+    twin = CycleServer(cfg, capacity=cap, max_seq=max_seq, prefill_len=plen,
+                       prefill_budget=2, params=srv.params, device=dev,
+                       kernels="torch")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec, twin_rec, layers = StepRecorder(srv), StepRecorder(twin), \
+        LayerRecorder()
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(lo, hi + 1, n_req)
+    lens[-1] = hi                              # one full-length prompt
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in lens]
+    reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    for p in prompts:
+        twin.submit(p, max_new_tokens=new)
+    plain_fa = fa.flash_attention
+    log, admissions, beat, n_layer_checks, worst = [], 0, 0, 0, 0.0
+    twin_err = {"logits": 0.0, "cache": 0.0}
+    divergence, decode_profiled = None, False
+    # the server's own clock: its beats' walls (the two profiled ones
+    # included), without the twin's beats and the checks between them; a
+    # request's first token comes at the end of the beat that admits it
+    # (all are submitted at the start)
+    own_s, first_token_s = 0.0, {}
+    while srv.pending() or srv.active():
+        # the profiled admission beat, then the first decode-only beat
+        # after it (no queue, or every slot taken)
+        decode_only = not srv.pending() or srv.active() == cap
+        profiled = beat == LM_PROFILED_BEAT or (
+            beat > LM_PROFILED_BEAT and decode_only and not decode_profiled)
+        decode_profiled |= profiled and beat > LM_PROFILED_BEAT
+        if beat == LM_PROFILED_BEAT:
+            def recording(q, k, v, **kw):
+                if not recorded:
+                    recorded.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                                    **kw)
+                return plain_fa(q, k, v, **kw)
+            fa.flash_attention = recording
+        torch.cuda.synchronize()
+        prof = beat_profiler() if profiled else contextlib.nullcontext()
+        try:
+            with prof, layers:
+                t0 = time.perf_counter()
+                srv.dispatch()
+                active = srv.active()
+                srv.collect()
+                wall = time.perf_counter() - t0
+        finally:
+            fa.flash_attention = plain_fa
+        admitted = srv.last_admitted
+        own_s += wall
+        for r in reqs:
+            if r.first_token_time is not None and r.id not in first_token_s:
+                first_token_s[r.id] = own_s
+        entry = {"path": name, "beat": beat, "admitted": admitted,
+                 "active": active, "wall_ms": wall * 1e3,
+                 "prefill_ms": srv.last_admit_s * 1e3,
+                 "decode_ms": srv.last_decode_s * 1e3,
+                 "tokens": admitted + active,
+                 "tok_per_s": (admitted + active) / wall,
+                 "profiled": profiled}
+        if profiled:
+            (entry["device_busy_ms"], entry["device_events"],
+             entry["top_device_ops"]) = busy_ms(prof)
+        log.append(entry)
+        what = f"{name} beat {beat}"
+        w, n = layers.replay_plain()
+        n_layer_checks += n
+        if n != cfg.n_layers * admitted:
+            fail(f"{what}: {n} prefill layers recorded for {admitted} "
+                 f"admissions")
+        worst = max(worst, w)
+        if w > LM_REL_TOL:
+            fail(f"{what}: prefill layer outputs vs their plain re-run "
+                 f"{w} > {LM_REL_TOL} of scale")
+        # the twin admits the same requests on the same beats: the
+        # schedule does not depend on the logits (no EOS, fixed lengths)
+        twin.dispatch()
+        twin.collect()
+        (pre, dec), (tpre, _) = rec.take(), twin_rec.take()
+        for (lg, c1), (tlg, tc1) in zip(pre, tpre):
+            if not torch.isfinite(lg).all():
+                fail(f"{what}: non-finite prefill logits")
+            twin_err["logits"] = max(twin_err["logits"], rel_err(lg, tlg))
+            div = layer_divergence(c1, tc1)
+            twin_err["cache"] = max(twin_err["cache"], max(div))
+            if divergence is None:
+                divergence = div
+        if any(not torch.isfinite(x).all() for x in dec):
+            fail(f"{what}: non-finite decode logits")
+        admissions += admitted
+        beat += 1
+    if K.LAUNCHES["flash_attention"] != cfg.n_layers * admissions:
+        fail(f"{name}: {K.LAUNCHES['flash_attention']} flash_attention "
+             f"launches for {admissions} admissions of {cfg.n_layers} "
+             f"layers")
+    for r in reqs:
+        if len(r.output) != new or r.truncated or r.done_time is None:
+            fail(f"{name}: request {r.id} ended with {len(r.output)} tokens "
+                 f"(truncated={r.truncated})")
+    tokens = sum(len(r.output) for r in reqs)
+    summary = {"path": name, "arch": arch, "layers": cfg.n_layers,
+               "params": count_params(srv.params), "init_s": init_s,
+               "admissions": admissions, "beats": beat,
+               "beats_s": own_s, "tokens": tokens,
+               "tok_per_s": tokens / own_s,
+               "first_token_ms_p50": 1e3 * statistics.median(
+                   first_token_s.values()),
+               "first_token_ms_max": 1e3 * max(first_token_s.values()),
+               "layer_checks": n_layer_checks,
+               "max_rel_err_layer_out": worst,
+               "twin_end_to_end_rel_err_logits": twin_err["logits"],
+               "twin_end_to_end_rel_err_cache": twin_err["cache"],
+               "twin_first_admission_k_rel_err_by_layer": divergence,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return log, summary
+
+
 # ------------------------------------------------- 5. kernels at main-path
-def kernel_rows(calls, launches):
-    """Compare and time each kernel on recorded main-path inputs."""
+def kernel_rows(calls, launches, attn):
+    """Compare and time each kernel on recorded main-path inputs (``attn``:
+    the q, k, v and options of one recorded yi-6b prefill call)."""
     import torch
     from repro_torch.core.dataquery import popcount
     from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
                                      partitioned_join, ref, shared_groupby)
     rows = []
 
-    def row(name, kern, plain, check, work, setup=None):
+    def row(name, kern, plain, check, work, setup=None, library=None):
         """``setup`` restores what ``kern`` writes in place (fused_delta's
         scan-word carries) before every call: the plain version first,
-        then the kernel, each on the recorded inputs."""
+        then the kernel, each on the recorded inputs.  ``library``: one
+        PyTorch call of the same function, timed beside them."""
         if setup is not None:
             setup()
         want = plain()
@@ -863,6 +1191,8 @@ def kernel_rows(calls, launches):
         ms, kernel_ms, per_call = device_ms(kern, KERNEL_SYMBOLS[name],
                                             setup)
         plain_ms, _, _ = device_ms(plain, KERNEL_SYMBOLS[name], setup)
+        library_ms = None if library is None else \
+            device_ms(library, "no kernel of this repository")[0]
         if per_call == 0:
             fail(f"{name}: the profiler saw no launch of the kernel")
         src, replaces = KERNEL_ORIGIN[name]
@@ -871,7 +1201,8 @@ def kernel_rows(calls, launches):
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b, "bound_by": by, "library_ms": None,
+                     "bound_ms": b, "bound_by": by,
+                     "library_ms": library_ms,
                      "kernel_ms": kernel_ms, "kernel_launches": per_call,
                      "wall_ms": wall_ms(kern, setup),
                      "plain_wall_ms": wall_ms(plain, setup)})
@@ -978,7 +1309,65 @@ def kernel_rows(calls, launches):
         lambda: [ref.delta_join_ref(*a) for a in dj],
         lambda g, w: same(g, w, "delta_join (chained path)"),
         (dj_bytes, dj_ops))
+
+    # flash_attention: one recorded yi-6b prefill call (B 1, S 512, H 32,
+    # KV 4, D 128, bf16); the operations that its mask lets through
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = attn["q"], attn["k"], attn["v"]
+    causal, window = attn["causal"], attn["window"]
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    vis = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        vis &= qpos >= kpos
+    if window > 0:
+        vis &= qpos - kpos < window
+    pairs = int(vis.sum())
+    kr = k.float().repeat_interleave(H // KV, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / D ** 0.5
+    sc = sc.masked_fill(~vis, float("nan"))
+    top = torch.softmax(sc.nan_to_num(-1e30), dim=-1).amax(dim=-1)
+    print(f"flash_attention, recorded yi-6b prefill call: attention score "
+          f"std {float(sc[~sc.isnan()].std()):.1f}, median top-1 weight "
+          f"{float(top.median()):.4f}")
+
+    def fa_check(g, w):
+        if not torch.allclose(g.float(), w.float(), rtol=2e-2, atol=1e-1):
+            fail(f"flash_attention (yi-6b prefill): max abs err "
+                 f"{max_abs_err(g, w)}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row("flash_attention",
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+        lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window),
+        fa_check,
+        (2 * nbytes(q) + nbytes(k, v), 4 * B * H * D * pairs,
+         TENSOR_CORE_BF16_FLOPS),
+        library=None if window else
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
     return rows
+
+
+def print_lm_summary(summary, log):
+    """The LM path's totals; its profiled admission and decode-only
+    beats' card busy time and device ops beside the median unprofiled
+    walls of their kind."""
+    path = summary["path"]
+    beats = [e for e in log if e["path"] == path]
+    print(f"{path}:", json.dumps(summary))
+    for kind, admitting in (("admission", True), ("decode-only", False)):
+        same_kind = [e for e in beats if bool(e["admitted"]) == admitting]
+        walls = [e["wall_ms"] for e in same_kind if not e["profiled"]]
+        prof = next(e for e in same_kind if e["profiled"])
+        med = statistics.median(walls) if walls else float("nan")
+        print(f"{kind} beat, {path}: card busy {prof['device_busy_ms']:.3f} "
+              f"ms in {prof['device_events']} device ops, of a median "
+              f"{med:.3f} ms unprofiled wall (idle share "
+              f"{1 - prof['device_busy_ms'] / med:.3f}; "
+              f"{prof['wall_ms']:.3f} ms wall under the profiler)")
 
 
 def main():
@@ -1013,7 +1402,7 @@ def main():
 
     t0 = time.perf_counter()
     edge_cases(dev)
-    print(f"edge cases: all seven kernels agree with their plain versions "
+    print(f"edge cases: all eight kernels agree with their plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
 
     si, sc = CONFIG.scale_items, CONFIG.scale_customers
@@ -1040,6 +1429,12 @@ def main():
     log += fold["log"]
     log += run_path("chained",
                     lambda: chained_path(dev, si, sc, fold, chained_rec))
+    attn, lm_summaries = {}, []
+    for name in LM_PATHS:
+        lm_log, summary = run_path(name, lambda: lm_path(dev, name, attn))
+        log += lm_log
+        lm_summaries.append(summary)
+        torch.cuda.empty_cache()
     for entry in log:
         print("beat:", json.dumps(entry))
     for path in ("dense", "indexless", "fold", "chained"):
@@ -1051,6 +1446,8 @@ def main():
         print(f"steady beat, {path}: card busy {busy:.3f} ms of a "
               f"median {statistics.median(walls):.3f} ms unprofiled wall "
               f"(idle share {1 - busy / statistics.median(walls):.3f})")
+    for summary in lm_summaries:
+        print_lm_summary(summary, log)
     building = [e["wall_ms"] for e in fold["log"] if e["fold_in_flight"]]
     steady = [e["wall_ms"] for e in fold["log"] if e["beat"]
               and not e["profiled"] and not e["fold_in_flight"]
@@ -1077,7 +1474,7 @@ def main():
                                    "hopper-recording"))
     drive(False, dev, si, sc, kernels="hopper-recording", check=False)
     calls = dict(rec.calls, **fold_rec.calls, **chained_rec.calls)
-    rows = kernel_rows(calls, launches)
+    rows = kernel_rows(calls, launches, attn)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

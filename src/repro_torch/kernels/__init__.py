@@ -39,14 +39,14 @@ from repro_torch.core import backends as _backends
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("clockscan.cu", "shared_groupby.cu", "partitioned_join.cu",
-           "fused_delta.cu", "bitmask_join.cu")
+           "fused_delta.cu", "bitmask_join.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIBRARY = "libshareddb_kernels.so"
 
 LAUNCHES = {"clockscan": 0, "shared_groupby": 0, "partitioned_join": 0,
             "fused_delta": 0, "bitmask_join": 0, "delta_scan": 0,
-            "delta_join": 0}
+            "delta_join": 0, "flash_attention": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -146,6 +146,9 @@ def library() -> ctypes.CDLL:
             lib.shareddb_delta_join.argtypes = [p, p, p, p, p, p, i, i, i,
                                                 i, p]
             lib.shareddb_delta_join.restype = i
+            lib.shareddb_flash_attention.argtypes = [p, p, p, p, i, i, i, i,
+                                                     i, i, i, i, i, i, p]
+            lib.shareddb_flash_attention.restype = i
             _lib = lib
     return _lib
 

@@ -133,3 +133,28 @@ def fused_delta_ref(scan_in, join_in):
             e.keys.shape[0])
         rids.append(torch.where(e.dn > 0, fresh, e.rid_carry))
     return tuple(words), tuple(rids)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """Naive softmax attention: q [B,Sq,H,D]; k, v [B,Sk,KV,D] (GQA, KV
+    divides H) -> [B,Sq,H,D] in q's dtype.
+
+    Scores, softmax and the value sum in float32; query i sits at
+    position i + Sk - Sq; masked scores are -1e30 (not -inf), so a row
+    that sees no key (causal, Sq > Sk) averages v uniformly."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k.float()) / (D ** 0.5)
+    qpos = torch.arange(Sq, device=q.device) + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        ok &= qpos[:, None] - kpos[None, :] < window
+    s = s.masked_fill(~ok[None, :, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqhk,bkhd->bqhd", p, v.float()).to(q.dtype)

@@ -1,0 +1,108 @@
+"""Model registry of the port: one API over the dense language models.
+
+``get_model(cfg)`` returns a :class:`ModelApi`:
+
+  init_params(seed)                         -> params (nested dict)
+  prefill(params, batch, cache_capacity,
+          last_pos)                         -> (last_logits, cache)
+  decode_step(params, cache, tokens, pos)   -> (logits, cache)
+
+``params_from_numpy`` carries the JAX package's parameter tree across.
+Training (``train_step``, the optimizer) and the dry-run's analytic specs
+are not ported yet (ROADMAP.md §1 item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.core.backends import resolve_backend
+from repro_torch.core.device import resolve_device
+from repro_torch.models import transformer
+
+
+def resolve_kernels(kernels: str, device) -> str:
+    """"hopper" (the flash-attention kernel) or "torch" (its plain
+    version) for a ``kernels=`` spec; "auto" follows the operator
+    backends: hopper on a CUDA card of capability 9.0+, torch on the
+    CPU, and ``device=None`` is the card (raises without one)."""
+    if kernels in ("hopper", "torch"):
+        return kernels
+    if kernels != "auto":
+        raise ValueError(f"kernels must be 'hopper', 'torch' or 'auto', "
+                         f"got {kernels!r}")
+    return resolve_backend("auto", device).name
+
+
+@dataclasses.dataclass
+class ModelApi:
+    cfg: ArchConfig
+    device: torch.device
+    kernels: str = "hopper"       # prefill attention: "hopper" | "torch"
+
+    def init_params(self, seed: int = 0) -> dict:
+        """Random bfloat16 parameters on the model's device from ``seed``
+        (float32 ones come from ``params_from_numpy``)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return transformer.init_lm(gen, self.cfg, self.device)
+
+    def prefill(self, params, batch, cache_capacity: Optional[int] = None,
+                last_pos=None):
+        return transformer.prefill(params, batch, self.cfg, cache_capacity,
+                                   last_pos=last_pos, kernels=self.kernels)
+
+    def decode_step(self, params, caches, tokens, positions):
+        return transformer.decode_step(params, caches, tokens, positions,
+                                       self.cfg)
+
+    def init_cache(self, batch: int, capacity: int) -> dict:
+        return transformer.init_cache(self.cfg, batch, capacity,
+                                      self.device)
+
+
+def get_model(cfg: ArchConfig, *, device=None,
+              kernels: str = "auto") -> ModelApi:
+    """The model API on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
+    return ModelApi(cfg=cfg, device=device,
+                    kernels=resolve_kernels(kernels, device))
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: exact via float32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def params_from_numpy(tree, cfg: ArchConfig, device=None) -> dict:
+    """The JAX package's parameter tree, as numpy arrays (stacked ``g*``
+    leaves with the layer axis first, ``x*`` leftovers, ``embed``,
+    ``unembed`` when untied, ``final_norm``), as the port's parameters on
+    ``device`` (None: the CUDA card), dtypes kept.
+
+    Raises ValueError unless the tree has exactly the keys and shapes
+    ``init_lm`` makes for ``cfg``."""
+    device = resolve_device(device)
+    want = transformer.init_lm(None, cfg, "meta", torch.float32)
+
+    def convert(node, spec, path):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or set(node) != set(spec):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"params_from_numpy: {path or 'root'} has "
+                                 f"{got}, want {sorted(spec)}")
+            return {k: convert(node[k], spec[k], f"{path}/{k}")
+                    for k in spec}
+        t = _to_tensor(node, device)
+        if tuple(t.shape) != tuple(spec.shape):
+            raise ValueError(f"params_from_numpy: {path} has shape "
+                             f"{tuple(t.shape)}, want {tuple(spec.shape)}")
+        return t
+
+    return convert(tree, want, "")

@@ -1,0 +1,235 @@
+"""SharedDB-cycle LM serving on PyTorch (``repro.serving.scheduler``'s
+port).
+
+Requests queue while a cycle runs; each heartbeat admits up to
+``prefill_budget`` queued requests into free slots (one batch-1 prefill
+each, right-padded to ``prefill_len``) and then runs ONE decode step for
+ALL ``capacity`` slots.  Per-cycle work is a function of (capacity,
+max_seq), never of the queue length, so worst-case first-token latency
+is bounded by 2 cycles (the paper's §3.5 guarantee).  Idle slots still
+flow through the decode step, parked at position 0.
+
+The slot cache is updated IN PLACE: admission copies a prefill's cache
+into its slot and each decode step writes its K/V into the ring buffer,
+where the reference donates the cache to jit instead.  Host arrays go up
+through pinned memory, asynchronously (``core/device.upload``).
+Greedy argmax runs over the padded vocabulary, as the reference's does.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.core.device import upload
+from repro_torch.models.registry import get_model
+
+
+@dataclasses.dataclass
+class Request:
+    id: int
+    prompt: List[int]
+    max_new_tokens: int
+    arrival: float
+    output: List[int] = dataclasses.field(default_factory=list)
+    first_token_time: Optional[float] = None
+    done_time: Optional[float] = None
+    slot: int = -1
+    # the request hit the KV-cache capacity (max_seq) before producing
+    # max_new_tokens and was force-finished to protect the cache
+    truncated: bool = False
+
+
+def _cache_insert(cache, cache1, slot: int):
+    """Copy a batch-1 prefill cache into slot ``slot`` of the slot cache,
+    in place.  Group entries ("g*") carry batch at axis 1, leftover
+    entries ("x*") at axis 0.  Returns ``cache``."""
+    for key, entry in cache.items():
+        axis = 1 if key.startswith("g") else 0
+        for f, dst in entry.items():
+            dst.narrow(axis, slot, 1).copy_(cache1[key][f])
+    return cache
+
+
+class CycleServer:
+    """The LM heartbeat server.  ``device=None`` is the CUDA card (raises
+    without one); ``kernels`` picks the prefill attention: "hopper" (the
+    flash-attention kernel), "torch" (its plain version) or "auto"
+    (hopper on a card of capability 9.0+, torch on the CPU).  ``params``
+    (the port's nested dict, e.g. from ``params_from_numpy``) replaces
+    the random init from ``seed`` (bfloat16)."""
+
+    def __init__(self, cfg: ArchConfig, *, capacity: int = 8,
+                 max_seq: int = 256, prefill_budget: int = 2,
+                 prefill_len: int = 64, params=None, seed: int = 0,
+                 device=None, kernels: str = "auto"):
+        self.cfg = cfg
+        self.capacity = capacity
+        self.max_seq = max_seq
+        self.prefill_budget = prefill_budget
+        self.prefill_len = prefill_len
+        api = get_model(cfg, device=device, kernels=kernels)
+        self.api = api
+        self.device = api.device
+        self.kernels = api.kernels
+        self.params = params if params is not None else \
+            api.init_params(seed)
+        self.cache = api.init_cache(capacity, max_seq)
+        # the step functions, as attributes like the reference's jitted
+        # ones: prefill (batch 1, at the cache capacity, logits at
+        # ``last``) and the shared decode step
+        self._prefill = lambda p, batch, last: api.prefill(
+            p, batch, cache_capacity=max_seq, last_pos=last)
+        self._decode = api.decode_step
+        self._queue: collections.deque = collections.deque()
+        self._ids = itertools.count()
+        self._slots: List[Optional[Request]] = [None] * capacity
+        self._pos = np.zeros(capacity, np.int64)
+        self._last_tok = np.zeros(capacity, np.int64)
+        self._pending_logits = None
+        self.cycles = 0
+        self.completed: List[Request] = []
+        # per-cycle wall times / admitted-prefill / active-slot counts of
+        # the last run_until_drained (the relational engine's CycleResult
+        # accounting)
+        self.last_drain_walls: List[float] = []
+        self.last_drain_admitted: List[int] = []
+        self.last_drain_active: List[int] = []
+        self.last_admitted = 0       # prefills admitted by the last beat
+        # host seconds of the last beat: admission (prefills, inserts and
+        # first tokens, which wait for the card) and the decode step
+        # (enqueue in dispatch() to the end of collect()'s wait)
+        self.last_admit_s = 0.0
+        self.last_decode_s = 0.0
+        self._t_decode = 0.0
+
+    # ---------------------------------------------------------------- API
+    def submit(self, prompt: List[int], max_new_tokens: int = 16) -> Request:
+        r = Request(next(self._ids), list(prompt), max_new_tokens,
+                    time.time())
+        self._queue.append(r)
+        return r
+
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def active(self) -> int:
+        return sum(1 for s in self._slots if s is not None)
+
+    # ---------------------------------------------------------- heartbeat
+    def _admit(self) -> int:
+        budget = self.prefill_budget
+        admitted = 0
+        for slot in range(self.capacity):
+            if budget == 0 or not self._queue:
+                break
+            if self._slots[slot] is not None:
+                continue
+            req = self._queue.popleft()
+            budget -= 1
+            admitted += 1
+            P = self.prefill_len
+            toks = np.asarray(req.prompt[-P:] if len(req.prompt) >= P
+                              else req.prompt + [0] * (P - len(req.prompt)),
+                              np.int64)
+            # short prompts are RIGHT-padded to the prefill length, so the
+            # first token comes from the true last prompt position (causal
+            # attention: it never sees the pads).  An EMPTY prompt
+            # conditions on the single pad token at position 0.
+            n_real = max(1, min(len(req.prompt), P))
+            batch = {"tokens": upload(toks[None], self.device)}
+            logits, cache1 = self._prefill(self.params, batch, n_real - 1)
+            _cache_insert(self.cache, cache1, slot)
+            tok = int(torch.argmax(logits[0]))
+            req.slot = slot
+            req.output.append(tok)
+            req.first_token_time = time.time()
+            self._slots[slot] = req
+            self._pos[slot] = n_real
+            self._last_tok[slot] = tok
+        return admitted
+
+    def dispatch(self) -> None:
+        """Admit + prefill, then enqueue ONE shared decode step for all
+        slots; returns while the card still computes it."""
+        if self._pending_logits is not None:
+            raise RuntimeError(
+                "dispatch() with a decode step already in flight: decode "
+                "N+1 consumes N's tokens, collect() the previous cycle "
+                "first")
+        t0 = time.perf_counter()
+        self.last_admitted = self._admit()
+        self._t_decode = time.perf_counter()
+        self.last_admit_s = self._t_decode - t0
+        tokens = upload(self._last_tok[:, None], self.device)
+        positions = upload(self._pos, self.device)
+        logits, self.cache = self._decode(self.params, self.cache, tokens,
+                                          positions)
+        self._pending_logits = logits
+
+    def collect(self) -> List[Request]:
+        """Wait for the in-flight decode step and route its tokens.  Step
+        N+1 consumes step N's argmax, so the pipeline depth is one."""
+        if self._pending_logits is None:
+            return []
+        logits = self._pending_logits
+        self._pending_logits = None
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.last_decode_s = time.perf_counter() - self._t_decode
+        finished = []
+        now = time.time()
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            tok = int(nxt[slot])
+            req.output.append(tok)
+            # the step that just ran wrote KV at self._pos[slot]; a request
+            # whose next position would leave the cache is FORCE-FINISHED
+            # (clamping would overwrite one KV entry every step)
+            hit_cap = self._pos[slot] + 1 >= self.max_seq
+            if len(req.output) >= req.max_new_tokens or hit_cap:
+                req.truncated = hit_cap and \
+                    len(req.output) < req.max_new_tokens
+                req.done_time = now
+                finished.append(req)
+                self.completed.append(req)
+                self._slots[slot] = None
+                # park the freed slot at position 0: its dummy KV writes
+                # stay in bounds, and admission overwrites the slot
+                self._pos[slot] = 0
+                self._last_tok[slot] = 0
+            else:
+                self._pos[slot] += 1
+                self._last_tok[slot] = tok
+        self.cycles += 1
+        return finished
+
+    def run_cycle(self) -> List[Request]:
+        """One heartbeat: admit + prefill, ONE shared decode step, route."""
+        self.dispatch()
+        return self.collect()
+
+    def run_until_drained(self, max_cycles: int = 10000) -> List[Request]:
+        """Heartbeat until idle; ``max_cycles`` bounds cycles run.  Per-
+        cycle walls, admitted prefills and post-admission active slots
+        land in ``last_drain_walls`` / ``last_drain_admitted`` /
+        ``last_drain_active``."""
+        out = []
+        self.last_drain_walls = []
+        self.last_drain_admitted = []
+        self.last_drain_active = []
+        while (self.pending() or self.active()) \
+                and len(self.last_drain_walls) < max_cycles:
+            t0 = time.time()
+            self.dispatch()
+            self.last_drain_admitted.append(self.last_admitted)
+            self.last_drain_active.append(self.active())
+            out.extend(self.collect())
+            self.last_drain_walls.append(time.time() - t0)
+        return out

@@ -8,16 +8,24 @@ so it runs on a machine without JAX:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: words and rids bit-equal, group counts exact, group sums
-within rtol 1e-6 (float atomics add in a varying order).
+within rtol 1e-6 (float atomics add in a varying order); flash attention
+within rtol = atol / 5 = 1e-5 in float32 and 2e-2 in bfloat16 (the
+reference's own test), and a bfloat16 LM prefill through the kernel
+within 2e-2 of each tensor's largest magnitude of the plain version's.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels as K
+from repro_torch.configs import smoke_config
 from repro_torch.core.backends import FusedJoinIn, FusedScanIn
 from repro_torch.core.storage import INT_SENTINEL, build_key_partitions
 from repro_torch.kernels import bitmask_join as tbj
 from repro_torch.kernels import clockscan as tcs
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_delta as tfd
 from repro_torch.kernels import partitioned_join as tpj
 from repro_torch.kernels import ref as tref
@@ -213,3 +221,76 @@ def test_delta_join_matches_plain(cuda_device, Tl, Tr, D, dn, pseudo):
     e = _join(rng, cuda_device, Tl, Tr, D, dn, pseudo=pseudo)
     args = (e.keys, e.rows, e.bkeys, e.brows, e.bounds)
     assert torch.equal(tfd.delta_join(*args), tref.delta_join_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window", [
+    (1, 128, 128, 4, 4, 64, True, 0), (2, 256, 256, 8, 2, 64, True, 0),
+    (2, 256, 256, 8, 4, 32, True, 64), (1, 128, 256, 4, 1, 128, False, 0),
+    (2, 128, 128, 4, 4, 64, True, 32),          # tests/test_kernels.py's
+    (1, 24, 24, 4, 2, 16, True, 0), (1, 200, 200, 8, 2, 128, True, 0),
+    (2, 100, 300, 4, 2, 64, True, 0), (1, 300, 100, 4, 4, 128, True, 0),
+    (1, 200, 70, 2, 1, 16, True, 16), (1, 77, 130, 4, 4, 32, False, 20),
+    (1, 512, 512, 32, 4, 128, True, 0),         # yi-6b's prefill
+    (1, 2048, 2048, 32, 16, 128, True, 1024),   # gemma3-27b's local layer
+    (1, 2048, 2048, 32, 16, 128, True, 0)])     # and its global layer
+def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV,
+                                       D, causal, window):
+    """Ragged S, Sq < Sk, D 16 and 128, causal Sq > Sk (its first rows
+    see no key and average v, finite), and the LM paths' prefill shapes
+    on standard-normal inputs (a soft softmax)."""
+    rng = np.random.default_rng(Sq * Sk + D)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dt,
+                               device=cuda_device)
+               for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    before = K.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == before + 1
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert got.dtype == dt and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=5 * tol)
+
+
+@pytest.mark.cuda
+def test_cycle_server_admission_kernel_matches_plain(cuda_device):
+    """One admission of a bfloat16 smoke LM (GQA 4:2, D 16, a right-padded
+    prompt) on kernels="hopper" against kernels="torch" on the same
+    weights: the prefill logits and the inserted slot cache."""
+    from repro_torch.serving import CycleServer
+    cfg = dataclasses.replace(smoke_config("yi-6b"), n_kv=2)
+    kw = dict(capacity=2, max_seq=128, prefill_len=96, device=cuda_device)
+    srv = CycleServer(cfg, kernels="hopper", seed=0, **kw)
+    twin = CycleServer(cfg, kernels="torch", params=srv.params, **kw)
+    outs = []
+    for s in (srv, twin):
+        prefill = s._prefill
+
+        def rec(*a, _prefill=prefill):
+            out = _prefill(*a)
+            outs.append(out)
+            return out
+        s._prefill = rec
+        s.submit(list(range(1, 71)), max_new_tokens=2)
+        before = K.LAUNCHES["flash_attention"]
+        s.run_cycle()
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["flash_attention"] - before == \
+            (cfg.n_layers if s is srv else 0)
+    (lg, c1), (tlg, tc1) = outs
+
+    def close(a, b):
+        scale = b.float().abs().max()
+        assert (a.float() - b.float()).abs().max() <= 2e-2 * scale
+    close(lg, tlg)
+    for key in c1:
+        close(c1[key]["k"], tc1[key]["k"])
+        close(c1[key]["v"], tc1[key]["v"])
+        assert torch.equal(c1[key]["pos"], tc1[key]["pos"])
+        # the slot cache holds the prompt's K (the decode step then wrote
+        # position 70, after its own token)
+        close(srv.cache[key]["k"][:, 0, :70], twin.cache[key]["k"][:, 0, :70])

@@ -9,7 +9,9 @@ capability 9.0+ and the CUDA toolkit.  It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the hand-written kernels from src/repro_torch/kernels/csrc
-     into build/ (nvcc, one process per source, in parallel);
+     into build/ (nvcc, one process per source, in parallel), and prints
+     ptxas's report and the HGMMA (wgmma) count in the SASS of the
+     tensor-core flash-attention kernel;
   3. holds each of the eight kernels against its plain PyTorch version on
      the card on small edge cases: padded tails, invalid rows, empty
      buckets, an empty dirty set and a zero pane span, ragged block-join
@@ -22,7 +24,9 @@ capability 9.0+ and the CUDA toolkit.  It:
      bfloat16.  Tolerance: words, rids and group counts bit-equal;
      group sums within rtol 1e-6 (float atomics add in a varying order;
      TPC-W's integer sums are exact); attention within rtol = atol / 5 =
-     1e-5 in float32 and 2e-2 in bfloat16 (the reference's own test);
+     1e-5 in float32 and 2e-2 in bfloat16 (the reference's own test),
+     and at the LM paths' shapes each output row (one query, one head)
+     also within FLASH_ROW_REL_TOL of its own norm;
   4. drives four paths at the paper's TPC-W scale (configs/shareddb_tpcw:
      10 000 items, 28 800 customers), each with every kernel's launch
      count set to 0 just before it and read just after:
@@ -68,16 +72,20 @@ capability 9.0+ and the CUDA toolkit.  It:
      end-to-end divergence: one bf16 rounding grows several-fold a layer
      under one-hot attention, and the two reach O(1) within about ten
      layers.  Every request must end with its tokens and no NaN, and
-     flash_attention must launch once per layer per admission; one
+     flash_attention must launch once per layer per admission, every
+     launch on its tensor-core kernel (bf16, D 128); one
      admission beat and one decode-only beat run under torch.profiler;
   5. replays recorded kernel inputs (the main paths' own shapes and data)
      through each kernel and its plain version, the plain version first:
      agreement, then each call's time on the card (torch.profiler: all
      device work of the call, and the hand-written kernel alone) and its
      wall time (a pair of CUDA events per call), beside a bound computed
-     from the bytes and operations of those inputs; flash attention also
-     beside one PyTorch call of the same function
-     (scaled_dot_product_attention, timed here only);
+     from the bytes and operations of those inputs; flash attention at
+     three recorded calls (yi-6b's 512-token prefill, gemma3-27b's
+     2048-token window-1024 and causal layers), each beside one PyTorch
+     call of the same function (scaled_dot_product_attention, with the
+     causal and window band as a boolean mask at the window layer; timed
+     here only), and its CUDA-core kernel once at yi-6b's call;
   6. prints one JSON line of per-kernel results, then the one-line device
      record as the last line.
 
@@ -110,7 +118,9 @@ KERNEL_SYMBOLS = {"clockscan": "clockscan_kernel",
                   "bitmask_join": "bitmask_join_kernel",
                   "delta_scan": "delta_scan_kernel",
                   "delta_join": "delta_join_kernel",
-                  "flash_attention": "flash_attention_kernel"}
+                  "flash_attention": "flash_attention_wgmma_kernel"}
+# flash attention's CUDA-core kernel (float32, and bf16 at D 16 / 32)
+FLASH_SIMT_SYMBOL = "flash_attention_simt_kernel"
 # the TPU kernel each replaces (src/repro/kernels, file:line of its
 # pallas_call function) and its CUDA source
 KERNEL_ORIGIN = {
@@ -139,6 +149,13 @@ PATH_KERNELS = {
     "lm-yi-6b": ("flash_attention",),
     "lm-gemma3-27b": ("flash_attention",),
 }
+# flash attention at the LM paths' shapes on standard-normal inputs: the
+# largest ||kernel - plain|| / ||plain|| over output rows (one query, one
+# head).  The kernel's tile loop replayed on the CPU stays under a quarter
+# of it, and goes over ten times it with one key tile of one query tile
+# left out (tests/test_torch_flash.py
+# ::test_row_relative_gate_separates_roundoff_from_a_dropped_key_tile)
+FLASH_ROW_REL_TOL = 2e-2
 N_INTERACTIONS = 150        # web interactions in the reseed beat
 STEADY_BEATS = 3            # unprofiled steady beats, then one profiled
 SAMPLE_PER_BEAT = 12        # tickets checked against query-at-a-time
@@ -192,9 +209,14 @@ def device_ms(fn, kernel, setup=None, reps=20):
 
     Each call runs inside its own ``record_function`` range; the device
     work of a call is every kernel, copy and fill linked to that range or
-    to an op inside it.  ``setup`` runs before each call, outside the
-    range.  A kernel of ``kernel`` that the profiler did not link to a
-    range is added to the total."""
+    to an op inside it; kernels launched through ctypes are linked to no
+    range.  The trace can lose an event or two of a run, so the work
+    other than ``kernel`` is the mean over the calls whose ranges hold
+    the most device work items (the whole calls), and ``kernel``'s is
+    the mean of its events in the trace times its launches per call (the
+    whole number nearest to its events per call).  ``setup`` runs before
+    each call, outside the range.  The third value is the events of
+    ``kernel`` that the trace holds per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     for _ in range(3):
@@ -221,16 +243,15 @@ def device_ms(fn, kernel, setup=None, reps=20):
              if e.name == "chip_smoke.call" and e.device_type == cpu]
     if len(calls) != reps:
         fail(f"profiler: {len(calls)} call ranges, not {reps}")
-    total = own_linked = 0.0
-    for c in calls:
-        for k in linked(c):
-            total += k.duration
-            own_linked += k.duration if kernel in k.name else 0.0
-    own = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+    per = [[k.duration for k in linked(c) if kernel not in k.name]
+           for c in calls]
+    whole = [p for p in per if len(p) == max(map(len, per))]
+    own = [e.time_range.elapsed_us() for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
            and kernel in e.name]
-    own_us = sum(e.time_range.elapsed_us() for e in own)
-    total += max(0.0, own_us - own_linked)
-    return total / reps / 1e3, own_us / reps / 1e3, len(own) / reps
+    own_us = sum(own) / len(own) * round(len(own) / reps) if own else 0.0
+    other_us = sum(map(sum, whole)) / len(whole)
+    return (other_us + own_us) / 1e3, own_us / 1e3, len(own) / reps
 
 
 def bound_ms(nbytes, nops, ops_per_s=CUDA_CORE_OPS_PER_S):
@@ -252,6 +273,13 @@ def max_abs_err(a, b):
     if a.dtype == torch.int32:
         a, b = a.to(torch.int64) & 0xFFFFFFFF, b.to(torch.int64) & 0xFFFFFFFF
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def row_rel_err(got, want):
+    """||got - want|| / ||want|| of each row of the last axis, in float32
+    (a zero row of ``want`` divides by 1e-30)."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    return d / want.float().norm(dim=-1).clamp_min(1e-30)
 
 
 def same(a, b, what):
@@ -440,9 +468,13 @@ def flash_edge_cases(dev, rng):
     """Flash attention against its plain version, float32 at rtol 1e-5 /
     atol 5e-5 and bfloat16 at 2e-2 / 1e-1; finite everywhere (the rows
     that see no key average v, they are not NaN).  Standard-normal q, k,
-    v give scores of unit spread, a soft softmax: at the LM paths' shapes
-    this is the gate on the kernel's online-softmax rescaling, which the
-    paths' own one-hot attention (random weights) hardly exercises."""
+    v give scores of unit spread, a soft softmax, whose outputs average
+    many keys and are small (~sqrt(1/keys) an element), so the elementwise
+    atol can pass a lost key tile; at the LM paths' shapes (H 32) each
+    output row is also held to FLASH_ROW_REL_TOL of its own norm: that is
+    the gate on the kernel's online-softmax rescaling and tile skipping,
+    which the paths' own one-hot attention (random weights) hardly
+    exercises."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ref
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -462,7 +494,12 @@ def flash_edge_cases(dev, rng):
                                   atol=5 * tol):
                 fail(f"{what}: max abs err {max_abs_err(got, want)}")
             if H == 32:                    # the LM paths' prefill shapes
-                print(f"{what}: max abs err {max_abs_err(got, want)}")
+                worst = float(row_rel_err(got, want).max())
+                print(f"{what}: max abs err {max_abs_err(got, want)}, "
+                      f"largest row-relative err {worst}")
+                if worst > FLASH_ROW_REL_TOL:
+                    fail(f"{what}: an output row is {worst} of its norm "
+                         f"off, over {FLASH_ROW_REL_TOL}")
 
 
 # ------------------------------------------------------ 4. the main path
@@ -1028,8 +1065,9 @@ def lm_path(dev, name, recorded):
     test is re-run with the plain attention from its own input (the gate,
     LM_REL_TOL).  The twin gates nothing: it only measures how far the
     two diverge end to end.  Returns the beat log and the path's summary;
-    the first flash-attention call of the profiled beat goes to
-    ``recorded``."""
+    per (causal, window), ``recorded[name]`` gets the path's count of
+    flash-attention calls and the first such call of the profiled
+    beat."""
     import dataclasses
     import numpy as np
     import torch
@@ -1062,6 +1100,7 @@ def lm_path(dev, name, recorded):
     for p in prompts:
         twin.submit(p, max_new_tokens=new)
     plain_fa = fa.flash_attention
+    mine = recorded.setdefault(name, {})
     log, admissions, beat, n_layer_checks, worst = [], 0, 0, 0, 0.0
     twin_err = {"logits": 0.0, "cache": 0.0}
     divergence, decode_profiled = None, False
@@ -1077,13 +1116,14 @@ def lm_path(dev, name, recorded):
         profiled = beat == LM_PROFILED_BEAT or (
             beat > LM_PROFILED_BEAT and decode_only and not decode_profiled)
         decode_profiled |= profiled and beat > LM_PROFILED_BEAT
-        if beat == LM_PROFILED_BEAT:
-            def recording(q, k, v, **kw):
-                if not recorded:
-                    recorded.update(q=q.clone(), k=k.clone(), v=v.clone(),
-                                    **kw)
-                return plain_fa(q, k, v, **kw)
-            fa.flash_attention = recording
+        def recording(q, k, v, _keep=beat == LM_PROFILED_BEAT, **kw):
+            call = mine.setdefault((kw["causal"], kw["window"]),
+                                   {"launches": 0})
+            call["launches"] += 1
+            if _keep and "q" not in call:
+                call.update(q=q.clone(), k=k.clone(), v=v.clone(), **kw)
+            return plain_fa(q, k, v, **kw)
+        fa.flash_attention = recording
         torch.cuda.synchronize()
         prof = beat_profiler() if profiled else contextlib.nullcontext()
         try:
@@ -1142,6 +1182,10 @@ def lm_path(dev, name, recorded):
         fail(f"{name}: {K.LAUNCHES['flash_attention']} flash_attention "
              f"launches for {admissions} admissions of {cfg.n_layers} "
              f"layers")
+    if K.FLASH_ROUTE_LAUNCHES["wgmma"] != cfg.n_layers * admissions:
+        fail(f"{name}: the tensor-core flash_attention kernel launched "
+             f"{K.FLASH_ROUTE_LAUNCHES['wgmma']} times for {admissions} "
+             f"admissions of {cfg.n_layers} layers")
     for r in reqs:
         if len(r.output) != new or r.truncated or r.done_time is None:
             fail(f"{name}: request {r.id} ended with {len(r.output)} tokens "
@@ -1165,20 +1209,59 @@ def lm_path(dev, name, recorded):
 
 
 # ------------------------------------------------- 5. kernels at main-path
+def visible(Sq, Sk, causal, window, device):
+    """[Sq, Sk] bool: the (query, key) pairs that the causal and window
+    mask lets through (query i at position i + Sk - Sq)."""
+    import torch
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    vis = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        vis &= qpos >= kpos
+    if window > 0:
+        vis &= qpos - kpos < window
+    return vis
+
+
+def flash_work(q, k, causal, window, label):
+    """(bytes, FLOPs, peak) of one flash-attention call: q, k, v read and
+    o written once; 4 B H D FLOPs per (query, key) pair that the mask lets
+    through, at the bf16 tensor-core peak.  Prints the call's score spread
+    and the median top-1 attention weight."""
+    import torch
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    vis = visible(Sq, Sk, causal, window, q.device)
+    pairs = int(vis.sum())
+    kr = k.float().repeat_interleave(H // KV, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / D ** 0.5
+    sc = sc.masked_fill(~vis, float("nan"))
+    top = torch.softmax(sc.nan_to_num(-1e30), dim=-1).amax(dim=-1)
+    print(f"flash_attention, recorded {label} prefill call: attention "
+          f"score std {float(sc[~sc.isnan()].std()):.1f}, median top-1 "
+          f"weight {float(top.median()):.4f}")
+    return (2 * nbytes(q) + 2 * nbytes(k), 4 * B * H * D * pairs,
+            TENSOR_CORE_BF16_FLOPS)
+
+
 def kernel_rows(calls, launches, attn):
     """Compare and time each kernel on recorded main-path inputs (``attn``:
-    the q, k, v and options of one recorded yi-6b prefill call)."""
+    per LM path, the q, k, v and options of the first prefill call of each
+    (causal, window) in its profiled beat)."""
     import torch
     from repro_torch.core.dataquery import popcount
     from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
                                      partitioned_join, ref, shared_groupby)
     rows = []
 
-    def row(name, kern, plain, check, work, setup=None, library=None):
-        """``setup`` restores what ``kern`` writes in place (fused_delta's
-        scan-word carries) before every call: the plain version first,
-        then the kernel, each on the recorded inputs.  ``library``: one
-        PyTorch call of the same function, timed beside them."""
+    def measure(name, kern, plain, check, work, setup=None, library=None,
+                calls=1):
+        """Check ``kern`` against ``plain`` and time both, and ``library``
+        (one PyTorch call of the same function) beside them.  ``setup``
+        restores what ``kern`` writes in place (fused_delta's scan-word
+        carries) before every call: the plain version first, then the
+        kernel, each on the recorded inputs.  ``calls``: launches in one
+        timed call set."""
         if setup is not None:
             setup()
         want = plain()
@@ -1195,17 +1278,27 @@ def kernel_rows(calls, launches, attn):
             device_ms(library, "no kernel of this repository")[0]
         if per_call == 0:
             fail(f"{name}: the profiler saw no launch of the kernel")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+                "calls_per_timing": calls, "per_launch_ms": ms / calls,
+                "kernel_ms": kernel_ms, "kernel_launches": per_call,
+                "wall_ms": wall_ms(kern, setup),
+                "plain_wall_ms": wall_ms(plain, setup)}
+
+    def line(name, m, **extra):
         src, replaces = KERNEL_ORIGIN[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{src}",
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b, "bound_by": by,
-                     "library_ms": library_ms,
-                     "kernel_ms": kernel_ms, "kernel_launches": per_call,
-                     "wall_ms": wall_ms(kern, setup),
-                     "plain_wall_ms": wall_ms(plain, setup)})
+                     "replaces": replaces, "launches": launches[name], **m,
+                     **extra})
+
+    def row(name, *args, **kwargs):
+        """One kernel's line: ``measure`` on its recorded inputs, and
+        ``loss_ms``, the main path's launches times (device ms - bound)
+        of one launch."""
+        m = measure(name, *args, **kwargs)
+        line(name, m, loss_ms=launches[name] * (m["ms"] - m["bound_ms"])
+             / m["calls_per_timing"])
 
     # clockscan: the reseed beat's six scans, one set per timing
     scans = calls["scan"][:6]
@@ -1216,7 +1309,7 @@ def kernel_rows(calls, launches, attn):
     row("clockscan", lambda: [clockscan.clockscan(*a) for a in scans],
         lambda: [ref.clockscan_ref(*a) for a in scans],
         lambda g, w: same(g, w, "clockscan (main path)"),
-        (scan_bytes, scan_ops))
+        (scan_bytes, scan_ops), calls=len(scans))
 
     # shared_groupby: the last steady beat's call
     codes, vals, mask, G = calls["groupby"][-1]
@@ -1241,7 +1334,7 @@ def kernel_rows(calls, launches, attn):
     row("partitioned_join", lambda: [partitioned_join.partitioned_join(*a) for a in joins],
         lambda: [ref.partitioned_join_ref(*a) for a in joins],
         lambda g, w: same(g, w, "partitioned_join (main path)"),
-        (pj_bytes, pj_ops))
+        (pj_bytes, pj_ops), calls=len(joins))
 
     # fused_delta: the last steady beat's launch; the work that its data
     # needs — live panes, live dirty rows, live probes
@@ -1297,7 +1390,7 @@ def kernel_rows(calls, launches, attn):
         lambda: [fused_delta.delta_scan(*a) for a in ds],
         lambda: [ref.delta_scan_ref(*a) for a in ds],
         lambda g, w: same(g, w, "delta_scan (chained path)"),
-        (ds_bytes, ds_ops))
+        (ds_bytes, ds_ops), calls=len(ds))
     dj = calls["join_delta"]
     dj_bytes = sum(a[1].numel() * (4 + 4 + a[2].shape[1] * 8 + 4)
                    + nbytes(a[4]) for a in dj)
@@ -1308,46 +1401,82 @@ def kernel_rows(calls, launches, attn):
         lambda: [fused_delta.delta_join(*a) for a in dj],
         lambda: [ref.delta_join_ref(*a) for a in dj],
         lambda g, w: same(g, w, "delta_join (chained path)"),
-        (dj_bytes, dj_ops))
+        (dj_bytes, dj_ops), calls=len(dj))
 
-    # flash_attention: one recorded yi-6b prefill call (B 1, S 512, H 32,
-    # KV 4, D 128, bf16); the operations that its mask lets through
+    # flash_attention: the first recorded prefill call of yi-6b (B 1, S
+    # 512, H 32, KV 4, D 128, bf16, causal) is the row; gemma3-27b's
+    # 2048-token window-1024 and causal layers ride along in "shapes"
+    from repro_torch import kernels as K
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = attn["q"], attn["k"], attn["v"]
-    causal, window = attn["causal"], attn["window"]
-    B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    vis = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
-    if causal:
-        vis &= qpos >= kpos
-    if window > 0:
-        vis &= qpos - kpos < window
-    pairs = int(vis.sum())
-    kr = k.float().repeat_interleave(H // KV, dim=2)
-    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / D ** 0.5
-    sc = sc.masked_fill(~vis, float("nan"))
-    top = torch.softmax(sc.nan_to_num(-1e30), dim=-1).amax(dim=-1)
-    print(f"flash_attention, recorded yi-6b prefill call: attention score "
-          f"std {float(sc[~sc.isnan()].std()):.1f}, median top-1 weight "
-          f"{float(top.median()):.4f}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls_fa = [("yi-6b 512 causal", attn["lm-yi-6b"][(True, 0)]),
+                ("gemma3-27b 2048 window 1024",
+                 attn["lm-gemma3-27b"][(True, 1024)]),
+                ("gemma3-27b 2048 causal", attn["lm-gemma3-27b"][(True, 0)])]
+    shapes = []
+    for label, c in calls_fa:
+        q, k, v = c["q"], c["k"], c["v"]
+        causal, window = c["causal"], c["window"]
+        if fa.route(q.dtype, q.shape[3]) != "wgmma":
+            fail(f"flash_attention ({label}): {q.dtype} D {q.shape[3]} does "
+                 f"not take the tensor-core route")
+        work = flash_work(q, k, causal, window, label)
 
-    def fa_check(g, w):
-        if not torch.allclose(g.float(), w.float(), rtol=2e-2, atol=1e-1):
-            fail(f"flash_attention (yi-6b prefill): max abs err "
-                 f"{max_abs_err(g, w)}")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    row("flash_attention",
-        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
-        lambda: ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window),
-        fa_check,
-        (2 * nbytes(q) + nbytes(k, v), 4 * B * H * D * pairs,
-         TENSOR_CORE_BF16_FLOPS),
-        library=None if window else
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        def kern(q=q, k=k, v=v, causal=causal, window=window):
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain(q=q, k=k, v=v, causal=causal, window=window):
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+
+        def fa_check(g, w, label=label):
+            if not torch.allclose(g.float(), w.float(), rtol=2e-2, atol=1e-1):
+                fail(f"flash_attention ({label}): max abs err "
+                     f"{max_abs_err(g, w)}")
+        # SDPA on the same inputs in its [B, H, S, D] view: is_causal for
+        # a causal call, else the visible band as a boolean mask (built
+        # here, outside the timed call); checked like the kernel
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        band = None if causal and not window else \
+            visible(q.shape[1], k.shape[1], causal, window, q.device)
+
+        def library(qt=qt, kt=kt, vt=vt, band=band):
+            return sdpa(qt, kt, vt, attn_mask=band, is_causal=band is None,
+                        enable_gqa=True)
+        fa_check(library().transpose(1, 2), plain(), label="SDPA, " + label)
+        m = measure("flash_attention", kern, plain, fa_check, work,
+                    library=library)
+        m["launches"] = c["launches"]
+        m["loss_ms"] = c["launches"] * (m["ms"] - m["bound_ms"])
+        shapes.append(dict(shape=label, **m))
+    line("flash_attention", {k2: v2 for k2, v2 in shapes[0].items()
+                             if k2 not in ("shape", "launches")},
+         loss_ms=sum(x["loss_ms"] for x in shapes), shapes=shapes)
+
+    # the CUDA-core kernel on yi-6b's call, straight through its launcher:
+    # timed, and compared, never counted
+    c = calls_fa[0][1]
+    q, k, v, causal, window = c["q"], c["k"], c["v"], c["causal"], c["window"]
+
+    def simt():
+        B, Sq, H, D = q.shape
+        out = torch.empty_like(q)
+        K.check_launch(K.library().shareddb_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            k.shape[1], H, k.shape[2], D, int(causal), int(window), 1,
+            fa.q_tiles(Sq, fa.TILES["simt"][0]), K.stream_of(q)),
+            "flash_attention (simt)")
+        return out
+    if not torch.allclose(simt().float(), ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window).float(), rtol=2e-2,
+            atol=1e-1):
+        fail(f"flash_attention (simt, {calls_fa[0][0]}) disagrees with its "
+             f"plain version")
+    rows[-1]["simt_ms"], rows[-1]["simt_kernel_ms"], _ = device_ms(
+        simt, FLASH_SIMT_SYMBOL)
+    if sum(x["launches"] for x in shapes) != launches["flash_attention"]:
+        fail("flash_attention: the recorded shapes do not cover every "
+             "launch of the main path")
     return rows
 
 
@@ -1368,6 +1497,45 @@ def print_lm_summary(summary, log):
               f"{med:.3f} ms unprofiled wall (idle share "
               f"{1 - prof['device_busy_ms'] / med:.3f}; "
               f"{prof['wall_ms']:.3f} ms wall under the profiler)")
+
+
+def flash_build_report(lib):
+    """The tensor-core flash-attention kernel as built: ptxas's registers
+    and spills and its dynamic shared memory per head dim, and the HGMMA
+    (wgmma) instructions of each kernel in the library's SASS, where the
+    toolkit has cuobjdump.  Fails if the kernel holds no HGMMA."""
+    import os
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch import kernels as K
+    sym = KERNEL_SYMBOLS["flash_attention"]
+    log = (lib.parent / "ptxas.log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and sym in line:
+            D = 128 if "ILi128E" in line else 64
+            props = "; ".join(x.split("ptxas info    :")[-1].strip()
+                              for x in log[i + 1:i + 4]
+                              if "spill" in x or "registers" in x)
+            smem = K.library().shareddb_flash_attention_wgmma_smem(D)
+            print(f"ptxas, {sym}<{D}>: {props}; {smem} B of dynamic shared "
+                  f"memory")
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("cuobjdump not in the toolkit: no SASS count (ptxas above)")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+        elif "HGMMA" in line and fn is not None:
+            counts[fn] = counts.get(fn, 0) + 1
+    ours = {("D 128" if "ILi128E" in f else "D 64"): n
+            for f, n in counts.items() if sym in f}
+    print(f"SASS: HGMMA instructions in {sym}: {json.dumps(ours)}; in the "
+          f"whole library: {sum(counts.values())}")
+    if not ours:
+        fail(f"{sym} holds no HGMMA instruction")
 
 
 def main():
@@ -1399,6 +1567,7 @@ def main():
     for line in (lib.parent / "ptxas.log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("ptxas:", line.split("ptxas info    :")[-1].strip())
+    flash_build_report(lib)
 
     t0 = time.perf_counter()
     edge_cases(dev)
@@ -1414,7 +1583,9 @@ def main():
         K.reset_launches()
         out = fn()
         got = dict(K.LAUNCHES)
-        print(f"launches, {name} path:", json.dumps(got))
+        print(f"launches, {name} path:", json.dumps(got),
+              "flash_attention by route:",
+              json.dumps(K.FLASH_ROUTE_LAUNCHES))
         idle = [k for k in PATH_KERNELS[name] if got[k] == 0]
         if idle:
             fail(f"{name} path: kernels never launched: {idle}")

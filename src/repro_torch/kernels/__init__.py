@@ -19,7 +19,8 @@ Importing this package registers the ``hopper`` backend with
 
 ``LAUNCHES`` counts each wrapper's kernel launches (one per launch, and
 nowhere else), so a run can show that its main path went through the
-kernels; ``reset_launches()`` sets every count to 0.
+kernels; ``FLASH_ROUTE_LAUNCHES`` splits flash_attention's by kernel;
+``reset_launches()`` sets every count to 0.
 """
 from __future__ import annotations
 
@@ -47,14 +48,18 @@ LIBRARY = "libshareddb_kernels.so"
 LAUNCHES = {"clockscan": 0, "shared_groupby": 0, "partitioned_join": 0,
             "fused_delta": 0, "bitmask_join": 0, "delta_scan": 0,
             "delta_join": 0, "flash_attention": 0}
+# flash_attention's launches by route (flash_attention.route): which of its
+# two kernels ran
+FLASH_ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, FLASH_ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _build_tag() -> str:
@@ -149,6 +154,11 @@ def library() -> ctypes.CDLL:
             lib.shareddb_flash_attention.argtypes = [p, p, p, p, i, i, i, i,
                                                      i, i, i, i, i, i, p]
             lib.shareddb_flash_attention.restype = i
+            lib.shareddb_flash_attention_wgmma.argtypes = [
+                p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+            lib.shareddb_flash_attention_wgmma.restype = i
+            lib.shareddb_flash_attention_wgmma_smem.argtypes = [i]
+            lib.shareddb_flash_attention_wgmma_smem.restype = i
             _lib = lib
     return _lib
 

@@ -1,39 +1,54 @@
 // Flash attention for Hopper: causal / sliding-window GQA attention with
-// an online softmax in float32, the LM server's prefill attention.
+// an online softmax, the LM server's prefill attention.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _kernel).  q [B,Sq,H,D], k/v [B,Sk,KV,D] in bf16 or f32 -> o [B,Sq,H,D]
-// in q's type; scale 1/sqrt(D); query i sits at position i + Sk - Sq; head
-// h reads kv head h / (H/KV); masked scores are -1e30, so a row that sees
-// no key (causal, Sq > Sk) averages v uniformly, as the TPU kernel and the
-// plain version do.
+// _kernel).  q [B,Sq,H,D], k/v [B,Sk,KV,D] -> o [B,Sq,H,D] in q's type;
+// scale 1/sqrt(D); query i sits at position i + Sk - Sq; head h reads kv
+// head h / (H/KV); masked scores are -1e30 and the running max starts at
+// -1e30, so a row that sees no key (causal, Sq > Sk) averages v
+// uniformly, as the TPU kernel and the plain version do; keys past Sk
+// score -inf.  Key tiles wholly outside a query tile's causal or window
+// range are skipped (flash_attention.py::key_tile_range is the same rule;
+// a tile holding a row that sees no key visits every key tile).  Any Sq /
+// Sk: ragged tails are masked, rows past Sq are not stored.
 //
-// What bounds it: at yi-6b's prefill (S 512, H 32, KV 4, D 128, bf16,
-// causal) the card's least time is set by bytes, barely: 9.4 MB of q, k,
-// v and o take 2.8 us at 3.35 TB/s, the 2.2 GFLOP 2.2 us on the bf16
-// tensor cores; from S ~ 1k on (gemma3's 2048-token prefill) operations
-// bound it.  This first kernel runs the multiply-adds on the CUDA cores
-// in float32 (67 TFLOP/s), so operations bound it at every S; the tensor
-// cores are a later change.
+// Two kernels; the wrapper (flash_attention.py::route) picks one from the
+// dtype and D alone, and never retries on the other:
 //
-// Design.  The Pallas grid carries (m, l, acc) in VMEM across its
-// sequential key axis; Hopper blocks run in no order, so ONE block owns
-// one (b*h, 64-query tile) and loops over its 64-key tiles itself.  The
-// block stages the Q tile once and each K/V tile in shared memory as
-// float32 (rows padded to D+1 floats: conflict-free column reads), then
+// flash_attention_wgmma_kernel (bf16, D 64 / 128: every dense LM config
+// the port serves).  What bounds it: at yi-6b's prefill (S 512, H 32, KV
+// 4, D 128, causal) bytes and FLOPs nearly tie on the card (9.4 MB of q,
+// k, v, o in 2.8 us at 3.35 TB/s; 2.2 GFLOP in 2.2 us at 989 TFLOP/s);
+// from S ~ 1k on (gemma3's 2048-token prefill, ~26-34 GFLOP a layer)
+// FLOPs bound it.  So both products run on the tensor cores through
+// wgmma (S = Q.K^T from shared memory, O += P.V with P from registers),
+// the f32 scores and output stay in registers (online softmax reduced
+// over the 4 lanes that share a row, no round trip through shared
+// memory), and K / V stay bf16 in a 3-stage ring of 128-byte swizzled
+// tiles that one producer warp fills with TMA copies, so loads overlap
+// the products.  Softmax runs on the CUDA cores, so it is hidden under
+// tensor-core work twice: within a warpgroup, key tile n's Q.K^T and tile
+// n-1's P.V are in flight while tile n's softmax runs; across the two
+// consumer warpgroups, which take turns to issue their products (named
+// barriers), one's softmax runs under the other's products.  128-query
+// tiles over 64-key tiles; the grid launches the heaviest (last) causal
+// query tiles of every head first, so the tail of a wave is light tiles.
+//
+// flash_attention_simt_kernel (float32 at any D, bf16 at D 16 / 32): the
+// multiply-adds on the CUDA cores in float32 (67 TFLOP/s).  float32 stays
+// here because its tests hold it at rtol 1e-5, which bf16 or TF32
+// products cannot meet.  One block owns one (b*h, 64-query tile) and
+// loops over its 64-key tiles.  The block stages the Q tile once and each
+// K/V tile in shared memory as float32 (rows padded to D+1 floats:
+// conflict-free column reads), then
 //   1. scores: 256 threads, each a 4x4 patch of the 64x64 tile (rows
 //      ti+16r, keys tj+16c), masked and written to shared memory;
 //   2. softmax: 4 threads per row update the row's running max and sum and
 //      turn the scores into probabilities;
 //   3. values: each thread keeps a 4 x D/16 patch of the accumulator in
 //      registers (32 floats at D = 128), rescales it and adds P.V.
-// Key tiles wholly outside a query tile's causal or window range are
-// skipped (flash_attention.py::key_tile_range is the same rule); a tile
-// holding a row that sees no key visits every key tile, so that row's
-// uniform average covers all of v.  Keys past Sk score -inf and weigh 0;
-// query rows past Sq are computed on zeros and not stored, so any Sq / Sk
-// works.  About 116 KB of dynamic shared memory at D = 128: one block per
-// SM.
+// About 116 KB of dynamic shared memory at D = 128: one block per SM.
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -62,15 +77,16 @@ constexpr size_t smem_bytes() {
           size_t(kBlockQ) * (kBlockK + 1) + 3 * kBlockQ);
 }
 
-// [*j_lo, *j_hi): the key tiles query tile qt visits
-// (flash_attention.py::key_tile_range).
+// [*j_lo, *j_hi): the key tiles (of BK keys) that query tile qt (of BQ
+// rows) visits (flash_attention.py::key_tile_range, the same rule).
+template <int BQ, int BK>
 __device__ __forceinline__ void key_tile_range(int qt, int Sq, int Sk,
                                                int causal, int window,
                                                int* j_lo, int* j_hi) {
   const int off = Sk - Sq;
-  const int n_k = (Sk + kBlockK - 1) / kBlockK;
-  const int p0 = qt * kBlockQ + off;
-  const int p1 = min(qt * kBlockQ + kBlockQ, Sq) - 1 + off;
+  const int n_k = (Sk + BK - 1) / BK;
+  const int p0 = qt * BQ + off;
+  const int p1 = min(qt * BQ + BQ, Sq) - 1 + off;
   if (causal && p0 < 0) {
     *j_lo = 0;
     *j_hi = n_k;
@@ -78,13 +94,13 @@ __device__ __forceinline__ void key_tile_range(int qt, int Sq, int Sk,
   }
   const int hi = causal ? min(Sk, p1 + 1) : Sk;
   const int lo = window > 0 ? max(0, p0 - window + 1) : 0;
-  *j_lo = lo / kBlockK;
-  *j_hi = (hi + kBlockK - 1) / kBlockK;
+  *j_lo = lo / BK;
+  *j_hi = (hi + BK - 1) / BK;
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Sk, int H, int KV, int causal, int window,
                        float scale) {
@@ -129,7 +145,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DT; ++c) acc[r][c] = 0.f;
 
   int j_lo, j_hi;
-  key_tile_range(qt, Sq, Sk, causal, window, &j_lo, &j_hi);
+  key_tile_range<kBlockQ, kBlockK>(qt, Sq, Sk, causal, window, &j_lo,
+                                   &j_hi);
   for (int jt = j_lo; jt < j_hi; ++jt) {
     const int k0 = jt * kBlockK;
     __syncthreads();          // the last tile's K / V / P reads are done
@@ -246,7 +263,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, int causal, int window,
            int n_qtiles, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_simt_kernel<T, D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (attr != cudaSuccess) return int(attr);
@@ -275,6 +292,483 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core route: bf16, D 64 or 128 (flash_attention_wgmma_kernel).
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBlockQ = 128;      // two consumer warpgroups of 64 rows
+constexpr int kWgBlockK = 64;
+constexpr int kWgStages = 3;        // K/V ring depth
+constexpr int kWgConsumers = 2;
+constexpr int kWgThreads = kWgConsumers * 128 + 32;   // + one producer warp
+constexpr int kSwizzleCols = 64;    // bf16 columns in one 128-byte row
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WgSmem {
+  static constexpr int kHalves = D / kSwizzleCols;
+  static constexpr int kQ = kWgBlockQ * D * 2;        // bytes of the Q tile
+  static constexpr int kKV = kWgBlockK * D * 2;       // bytes of a K or V tile
+  static constexpr int kBarOffset = kWgStages * kKV * 2 + kQ;
+  // tiles, then 1 + 2 * stages mbarriers; + 1024 to align the base
+  static constexpr size_t kBytes = size_t(kBarOffset) + 8 * (1 + 2 * kWgStages)
+                                   + 1024;
+};
+
+// Named barriers 1 + w (w = 0, 1) order the two consumer warpgroups'
+// wgmma issues; 0 is __syncthreads'.
+__device__ __forceinline__ void wg_turn_wait(int w) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "n"(kWgConsumers * 128)
+               : "memory");
+}
+__device__ __forceinline__ void wg_turn_pass(int w) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + w), "n"(kWgConsumers * 128)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 4-d tensor map (d, head, position, batch) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int d0, int head, int pos, int b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(head), "r"(pos),
+      "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 in bits 62-63.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across a
+// wgmma issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[32] (+)= A (shared, K-major) . B (shared, K-major), m64n64k16
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] += A (registers, 4 x bf16x2) . B (shared, MN-major), m64n64k16
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A (registers, 4 x bf16x2) . B (shared, MN-major), m64n128k16
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = Q.K^T of one key tile (issued, not committed): m64n64k16 x D/16,
+// both operands K-major in shared memory, 16 columns = 32 bytes a step;
+// the first step overwrites sc.
+template <int D>
+__device__ __forceinline__ void issue_qk(float* sc, uint32_t qa, uint32_t kb) {
+  constexpr int kRow = kSwizzleCols * 2;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int half = kk / 4, at = (kk % 4) * 32;
+    wgmma_ss_n64(sc, wg_desc(qa + half * kWgBlockQ * kRow + at, 16, 1024),
+                 wg_desc(kb + half * kWgBlockK * kRow + at, 16, 1024),
+                 kk > 0);
+  }
+}
+
+// O += P.V of one key tile (issued, not committed): m64nDk16 x 4, A = P
+// from registers, B = V read MN-major; 16 keys = 16 swizzled rows a step,
+// LBO steps to the next 64 columns of D.
+template <int D>
+__device__ __forceinline__ void issue_pv(float* acc, const uint32_t* pa,
+                                         uint32_t vb) {
+  constexpr int kRow = kSwizzleCols * 2;
+#pragma unroll
+  for (int kk = 0; kk < kWgBlockK / 16; ++kk) {
+    const uint64_t db = wg_desc(vb + kk * 16 * kRow, kWgBlockK * kRow, 1024);
+    if constexpr (D == 128) wgmma_rs_n128(acc, pa + 4 * kk, db);
+    else wgmma_rs_n64(acc, pa + 4 * kk, db);
+  }
+}
+
+// The online softmax of one 64-key score tile, in place (accumulator
+// fragment of a lane: element i is row r0 + 8 * ((i >> 1) & 1), key k0 +
+// 8 * (i >> 2) + c0 + (i & 1)).  Scales into the log2 domain and masks:
+// keys past Sk weigh 0 (-inf), keys out of the causal or window range
+// score -1e30; a tile that every row of the warpgroup (first row q0) sees
+// in full skips the masks.  Moves each row's running max m (reduced over
+// the 4 lanes that hold the row) to this tile, scales the running sum l
+// and sets corr, the factor that moves an accumulator summed under the
+// old max, and leaves P = exp2(S - m) in float32 in sc.
+__device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
+                                             float* corr, int k0, int q0,
+                                             int r0, int c0, int off, int Sk,
+                                             int causal, int window,
+                                             float scale_log2) {
+  const bool whole = k0 + kWgBlockK <= Sk &&
+                     (!causal || k0 + kWgBlockK - 1 <= q0 + off) &&
+                     (window <= 0 || q0 + 63 + off - k0 < window);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+  if (!whole) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qpos = r0 + 8 * ((i >> 1) & 1) + off;
+      const int kpos = k0 + 8 * (i >> 2) + c0 + (i & 1);
+      bool ok = !causal || qpos >= kpos;
+      if (window > 0) ok = ok && qpos - kpos < window;
+      sc[i] = kpos >= Sk ? -INFINITY : (ok ? sc[i] : kMasked);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m[r];
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (((i >> 1) & 1) == r) mx = fmaxf(mx, sc[i]);
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
+    corr[r] = exp2f(m[r] - mx);
+    m[r] = mx;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+}
+
+// P rounded to bf16 into wgmma's A fragment (register t holds elements 2t
+// and 2t+1, row r0 + 8 * (t & 1); k-step kk takes registers 4kk..4kk+3);
+// l adds the rounded values, as P.V sums them.
+__device__ __forceinline__ void to_a_fragment(const float* sc, uint32_t* pa,
+                                              float* l) {
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(sc[2 * t], sc[2 * t + 1]);
+    l[t & 1] += __low2float(p) + __high2float(p);
+    pa[t] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+}
+
+// One block: a (b*h, 128-query tile); warps 0-7 are two consumer
+// warpgroups of 64 query rows each, warp 8 the producer.  The producer
+// loads the Q tile once and the K / V tiles of key_tile_range into a ring
+// of kWgStages stages (TMA, 128-byte swizzle, one "full" mbarrier per
+// stage); each consumer warp frees a stage (its "empty" mbarrier) once its
+// P.V product has read it.  A consumer warpgroup, per key tile:
+//   S = Q.K^T   wgmma m64n64k16 x D/16, both operands in shared memory
+//               (K-major), the f32 scores in registers (issue_qk);
+//   softmax     scale folded into log2 e, masks, the running max of each
+//               row reduced over the 4 lanes that hold it, P = exp2(S - m)
+//               (softmax_tile), rounded to bf16 into wgmma's A-fragment
+//               registers, the row sum taken over the rounded values
+//               (to_a_fragment);
+//   O += P.V    wgmma m64nDk16 x 4, A = P from registers, B = V from shared
+//               memory read MN-major (the descriptor's transpose bit;
+//               issue_pv).
+// P enters the A-fragment registers only after both products of the
+// round have completed: a register that a wgmma in flight may read and
+// that other instructions write makes ptxas serialise every wgmma.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ o, int Sq, int Sk,
+                             int H, int KV, int causal, int window,
+                             float scale_log2) {
+  using L = WgSmem<D>;
+  constexpr int kRow = kSwizzleCols * 2;           // bytes of a swizzled row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;                        // [D/64][128 rows][64]
+  const uint32_t sK = sQ + L::kQ;                  // stage s: + s * kKV
+  const uint32_t sV = sK + kWgStages * L::kKV;     // [D/64][64 keys][64]
+  const uint32_t bar_q = base + L::kBarOffset;
+  const uint32_t bar_full = bar_q + 8;             // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kWgStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;       // heaviest tiles first
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  int j_lo, j_hi;
+  key_tile_range<kWgBlockQ, kWgBlockK>(qt, Sq, Sk, causal, window, &j_lo,
+                                       &j_hi);
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kWgConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kWgConsumers * 4) {                  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, L::kQ);
+      for (int half = 0; half < L::kHalves; ++half)
+        tma_load(sQ + half * kWgBlockQ * kRow, &tq, half * kSwizzleCols, h,
+                 qt * kWgBlockQ, b, bar_q);
+      for (int j = j_lo; j < j_hi; ++j) {
+        const int n = j - j_lo, s = n % kWgStages;
+        if (n >= kWgStages)
+          mbar_wait(bar_empty + 8 * s, (n / kWgStages - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::kKV);
+        for (int half = 0; half < L::kHalves; ++half) {
+          const uint32_t at = s * L::kKV + half * kWgBlockK * kRow;
+          tma_load(sK + at, &tk, half * kSwizzleCols, kvh, j * kWgBlockK, b,
+                   full);
+          tma_load(sV + at, &tv, half * kSwizzleCols, kvh, j * kWgBlockK, b,
+                   full);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int off = Sk - Sq;
+  const int q0 = qt * kWgBlockQ + wg * 64;         // the warpgroup's row 0
+  const int r0 = q0 + (warp % 4) * 16 + lane / 4;  // this lane: r0, r0 + 8
+  const int c0 = (lane % 4) * 2;                   // its column pair
+  float acc[D / 2];                                // O, fragment as S's
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pa[16];
+  const uint32_t qa = sQ + wg * 64 * kRow;
+  mbar_wait(bar_q, 0);
+  {
+    float sc[32];
+    mbar_wait(bar_full, 0);
+    wg_fence();
+    issue_qk<D>(sc, qa, sK);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<32>(sc);
+    softmax_tile(sc, m, l, corr, j_lo * kWgBlockK, q0, r0, c0, off, Sk,
+                 causal, window, scale_log2);
+    to_a_fragment(sc, pa, l);
+  }
+  // Key tile n's S = Q.K^T runs on the tensor cores while tile n-1's P.V
+  // is issued behind it and tile n's softmax runs on the CUDA cores; P
+  // enters wgmma's registers only once both products are done.  The two
+  // warpgroups take turns to issue (warpgroup 0 first), so one's softmax
+  // runs under the other's products.
+  if (wg == 1 && j_hi - j_lo > 1) wg_turn_pass(0);
+  for (int j = j_lo + 1; j < j_hi; ++j) {
+    const int n = j - j_lo, s = n % kWgStages;
+    const int prev = (n - 1) % kWgStages;
+    float sc[32];
+    mbar_wait(bar_full + 8 * s, (n / kWgStages) & 1);
+    wg_turn_wait(wg);
+    wg_fence();
+    issue_qk<D>(sc, qa, sK + s * L::kKV);
+    wg_commit();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    fence_regs<D / 2>(acc);
+    wg_fence();
+    issue_pv<D>(acc, pa, sV + prev * L::kKV);
+    wg_commit();
+    if (wg == 0 || j + 1 < j_hi) wg_turn_pass(1 - wg);
+    wg_wait<1>();
+    fence_regs<32>(sc);
+    softmax_tile(sc, m, l, corr, j * kWgBlockK, q0, r0, c0, off, Sk,
+                 causal, window, scale_log2);
+    wg_wait<0>();
+    fence_regs<D / 2>(acc);
+    if (lane == 0) mbar_arrive(bar_empty + 8 * prev);
+    to_a_fragment(sc, pa, l);
+  }
+  const int last = (j_hi - 1 - j_lo) % kWgStages;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+  fence_regs<D / 2>(acc);
+  wg_fence();
+  issue_pv<D>(acc, pa, sV + last * L::kKV);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs<D / 2>(acc);
+  if (lane == 0) mbar_arrive(bar_empty + 8 * last);
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFullMask, l[r], 1);
+    l[r] += __shfl_xor_sync(kFullMask, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* ob = o + int64_t(b) * Sq * H * D + int64_t(h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + 8 * r;
+    if (i >= Sq) continue;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      const float* a = acc + 4 * jn + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(ob + int64_t(i) * H * D + 8 * jn +
+                                         c0) =
+          __floats2bfloat162_rn(a[0] / den[r], a[1] / den[r]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+EncodeTiled lookup_encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return reinterpret_cast<EncodeTiled>(fn);
+}
+
+// A bf16 [B, S, heads, D] tensor as a 4-d map (d, head, position, batch)
+// whose box is 64 columns of one head over `rows` positions, 128-byte
+// swizzled; positions past S read as zeros.
+int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+               int D, int rows) {
+  static const EncodeTiled encode = lookup_encode_tiled();
+  if (encode == nullptr) return int(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2,
+                                 cuuint64_t(heads) * D * 2,
+                                 cuuint64_t(S) * heads * D * 2};
+  const cuuint32_t box[4] = {cuuint32_t(kSwizzleCols), 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int Sq, int Sk, int H, int KV, int causal, int window,
+                 int n_qtiles, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = encode_map(&tq, q, B, Sq, H, D, kWgBlockQ);
+  if (!err) err = encode_map(&tk, k, B, Sk, KV, D, kWgBlockK);
+  if (!err) err = encode_map(&tv, v, B, Sk, KV, D, kWgBlockK);
+  if (err) return err;
+  constexpr size_t smem = WgSmem<D>::kBytes;
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(B * H, n_qtiles);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, causal,
+      window, kLog2e / sqrtf(float(D)));
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace shareddb
 
@@ -290,4 +784,28 @@ extern "C" int shareddb_flash_attention(const void* q, const void* k,
                                    window, n_qtiles, stream);
   return launch_d<float>(q, k, v, o, B, Sq, Sk, H, KV, D, causal, window,
                          n_qtiles, stream);
+}
+
+// Dynamic shared memory of the tensor-core kernel at head dim D, bytes.
+extern "C" int shareddb_flash_attention_wgmma_smem(int D) {
+  using namespace shareddb;
+  return D == 64 ? int(WgSmem<64>::kBytes)
+                 : D == 128 ? int(WgSmem<128>::kBytes) : 0;
+}
+
+// bf16 q/k/v/o (16-byte aligned), D 64 or 128; n_qtiles = ceil(Sq/128).
+extern "C" int shareddb_flash_attention_wgmma(const void* q, const void* k,
+                                              const void* v, void* o, int B,
+                                              int Sq, int Sk, int H, int KV,
+                                              int D, int causal, int window,
+                                              int n_qtiles,
+                                              cudaStream_t stream) {
+  using namespace shareddb;
+  if (D == 64)
+    return launch_wgmma<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                            n_qtiles, stream);
+  if (D == 128)
+    return launch_wgmma<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                             n_qtiles, stream);
+  return int(cudaErrorInvalidValue);
 }

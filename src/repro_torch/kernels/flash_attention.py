@@ -1,14 +1,26 @@
 """Flash attention (causal / sliding-window, GQA): the LM server's prefill
 attention, every layer of every admission.
 
-The kernel is ``csrc/flash_attention.cu`` (it replaces the JAX package's
-``repro/kernels/flash_attention.py::flash_attention_pallas``): one thread
-block per (batch x head, 64-query tile) loops over the 64-key tiles that
-the tile's causal or window range reaches (``key_tile_range``), with the
-online softmax's running max, sum and accumulator in float32.  Unlike the
-TPU kernel it takes any ``Sq`` / ``Sk`` (ragged tails are masked) and it
-skips key tiles that no row of the query tile can see, as the model's
-``block_attention`` does.
+The kernels are in ``csrc/flash_attention.cu`` (they replace the JAX
+package's ``repro/kernels/flash_attention.py::flash_attention_pallas``).
+``route`` picks one from the dtype and the head dim alone:
+
+- ``"wgmma"`` (bfloat16, D 64 / 128, every dense LM config the port
+  serves): ``flash_attention_wgmma_kernel``, both products on the tensor
+  cores (wgmma), K / V in a TMA-fed ring of shared-memory stages; one
+  block per (batch x head, 128-query tile) over 64-key tiles, P rounded
+  to bfloat16 for P.V.
+- ``"simt"`` (float32 at any D, bfloat16 at D 16 / 32):
+  ``flash_attention_simt_kernel``, float32 multiply-adds on the CUDA
+  cores; one block per (batch x head, 64-query tile) over 64-key tiles.
+
+Both loop over the key tiles that the query tile's causal or window range
+reaches (``key_tile_range``, with the route's ``TILES``), with the online
+softmax's running max, sum and accumulator in float32.  Unlike the TPU
+kernel they take any ``Sq`` / ``Sk`` (ragged tails are masked) and skip
+key tiles that no row of the query tile can see, as the model's
+``block_attention`` does.  A route's kernel that fails to build or
+launch raises; the other route is never tried instead.
 
 The checks (``check_args``) hold on every device, so the CPU tests see
 the kernel's contract; on CPU tensors the wrapper then computes the plain
@@ -21,15 +33,25 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import ref
 
-BLOCK_Q = 64               # kBlockQ / kBlockK in csrc/flash_attention.cu
-BLOCK_K = 64
+# (query tile, key tile) of each route: kBlockQ / kBlockK and kWgBlockQ /
+# kWgBlockK in csrc/flash_attention.cu
+TILES = {"simt": (64, 64), "wgmma": (128, 64)}
+WGMMA_HEAD_DIMS = (64, 128)
 HEAD_DIMS = (16, 32, 64, 128)
-MAX_GRID_Y = 65535         # B * H rides gridDim.y
+MAX_GRID_Y = 65535         # simt: B * H rides gridDim.y
 
 
-def q_tiles(Sq: int) -> int:
-    """Query tiles of the launch grid (its x extent)."""
-    return -(-Sq // BLOCK_Q)
+def route(dtype, D: int) -> str:
+    """The kernel that a call of this dtype and head dim runs: "wgmma"
+    for bfloat16 at D 64 / 128, else "simt"."""
+    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
+        else "simt"
+
+
+def q_tiles(Sq: int, block_q: int) -> int:
+    """Query tiles (of ``block_q`` rows, the route's ``TILES[0]``) of the
+    launch grid."""
+    return -(-Sq // block_q)
 
 
 def kv_head(h: int, H: int, KV: int) -> int:
@@ -37,9 +59,10 @@ def kv_head(h: int, H: int, KV: int) -> int:
     return h // (H // KV)
 
 
-def key_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
-                   window: int) -> tuple:
-    """[lo, hi) of the key tiles that query tile ``qt`` visits.
+def key_tile_range(qt: int, Sq: int, Sk: int, causal: bool, window: int,
+                   block_q: int, block_k: int) -> tuple:
+    """[lo, hi) of the key tiles (of ``block_k`` keys) that query tile
+    ``qt`` (of ``block_q`` rows) visits; the route's ``TILES`` give both.
 
     Query i sits at position i + Sk - Sq.  A causal tile stops at its
     last row's position, a window tile starts ``window - 1`` before its
@@ -47,14 +70,14 @@ def key_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
     row that sees no key) visits every tile: that row averages all of v,
     as the reference does."""
     off = Sk - Sq
-    n_k = -(-Sk // BLOCK_K)
-    p0 = qt * BLOCK_Q + off
-    p1 = min(qt * BLOCK_Q + BLOCK_Q, Sq) - 1 + off
+    n_k = -(-Sk // block_k)
+    p0 = qt * block_q + off
+    p1 = min(qt * block_q + block_q, Sq) - 1 + off
     if causal and p0 < 0:
         return 0, n_k
     hi = min(Sk, p1 + 1) if causal else Sk
     lo = max(0, p0 - window + 1) if window > 0 else 0
-    return lo // BLOCK_K, -(-hi // BLOCK_K)
+    return lo // block_k, -(-hi // block_k)
 
 
 def check_args(q, k, v) -> None:
@@ -95,11 +118,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    kind = route(q.dtype, D)
+    n_q = q_tiles(Sq, TILES[kind][0])
     out = torch.empty_like(q)
-    code = _k.library().shareddb_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, D, int(bool(causal)), int(window),
-        int(q.dtype == torch.bfloat16), q_tiles(Sq), _k.stream_of(q))
+    if kind == "wgmma":
+        # TMA reads whole 16-byte units from each tensor's base
+        for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} is not 16-byte "
+                                 f"aligned")
+        code = _k.library().shareddb_flash_attention_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KV, D, int(bool(causal)), int(window),
+            n_q, _k.stream_of(q))
+    else:
+        code = _k.library().shareddb_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KV, D, int(bool(causal)), int(window),
+            int(q.dtype == torch.bfloat16), n_q, _k.stream_of(q))
     _k.LAUNCHES["flash_attention"] += 1
-    _k.check_launch(code, "flash_attention")
+    _k.FLASH_ROUTE_LAUNCHES[kind] += 1
+    _k.check_launch(code, f"flash_attention ({kind})")
     return out

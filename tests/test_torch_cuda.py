@@ -239,16 +239,24 @@ def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV,
                                        D, causal, window):
     """Ragged S, Sq < Sk, D 16 and 128, causal Sq > Sk (its first rows
     see no key and average v, finite), and the LM paths' prefill shapes
-    on standard-normal inputs (a soft softmax)."""
+    on standard-normal inputs (a soft softmax).  bfloat16 at D 64 / 128
+    runs the tensor-core kernel, the rest the CUDA-core kernel: the
+    per-route launch count shows which ran."""
     rng = np.random.default_rng(Sq * Sk + D)
     dt = getattr(torch, dtype)
     q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dt,
                                device=cuda_device)
                for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    kind = tfa.route(dt, D)
+    assert kind == ("wgmma" if dtype == "bfloat16" and D in (64, 128)
+                    else "simt")
     before = K.LAUNCHES["flash_attention"]
+    by_route = dict(K.FLASH_ROUTE_LAUNCHES)
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert K.LAUNCHES["flash_attention"] == before + 1
+    assert {r: n - by_route[r] for r, n in K.FLASH_ROUTE_LAUNCHES.items()} \
+        == {r: int(r == kind) for r in by_route}
     want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 1e-5 if dtype == "float32" else 2e-2
     assert got.dtype == dt and torch.isfinite(got).all()
@@ -256,14 +264,13 @@ def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV,
                                atol=5 * tol)
 
 
-@pytest.mark.cuda
-def test_cycle_server_admission_kernel_matches_plain(cuda_device):
-    """One admission of a bfloat16 smoke LM (GQA 4:2, D 16, a right-padded
-    prompt) on kernels="hopper" against kernels="torch" on the same
-    weights: the prefill logits and the inserted slot cache."""
+def _admission_kernel_matches_plain(dev, cfg, route):
+    """One admission of ``cfg`` (bfloat16, a right-padded prompt) on
+    kernels="hopper" against kernels="torch" on the same weights: the
+    prefill logits and the inserted slot cache, within 2e-2 of each
+    tensor's largest magnitude; every prefill layer ran ``route``."""
     from repro_torch.serving import CycleServer
-    cfg = dataclasses.replace(smoke_config("yi-6b"), n_kv=2)
-    kw = dict(capacity=2, max_seq=128, prefill_len=96, device=cuda_device)
+    kw = dict(capacity=2, max_seq=128, prefill_len=96, device=dev)
     srv = CycleServer(cfg, kernels="hopper", seed=0, **kw)
     twin = CycleServer(cfg, kernels="torch", params=srv.params, **kw)
     outs = []
@@ -277,10 +284,12 @@ def test_cycle_server_admission_kernel_matches_plain(cuda_device):
         s._prefill = rec
         s.submit(list(range(1, 71)), max_new_tokens=2)
         before = K.LAUNCHES["flash_attention"]
+        routed = K.FLASH_ROUTE_LAUNCHES[route]
         s.run_cycle()
         torch.cuda.synchronize()
-        assert K.LAUNCHES["flash_attention"] - before == \
-            (cfg.n_layers if s is srv else 0)
+        n = cfg.n_layers if s is srv else 0
+        assert K.LAUNCHES["flash_attention"] - before == n
+        assert K.FLASH_ROUTE_LAUNCHES[route] - routed == n
     (lg, c1), (tlg, tc1) = outs
 
     def close(a, b):
@@ -294,3 +303,21 @@ def test_cycle_server_admission_kernel_matches_plain(cuda_device):
         # the slot cache holds the prompt's K (the decode step then wrote
         # position 70, after its own token)
         close(srv.cache[key]["k"][:, 0, :70], twin.cache[key]["k"][:, 0, :70])
+
+
+@pytest.mark.cuda
+def test_cycle_server_admission_kernel_matches_plain(cuda_device):
+    """One admission of a bfloat16 smoke LM (GQA 4:2, D 16: the CUDA-core
+    kernel, a right-padded prompt) on kernels="hopper" against
+    kernels="torch" on the same weights: the prefill logits and the
+    inserted slot cache."""
+    cfg = dataclasses.replace(smoke_config("yi-6b"), n_kv=2)
+    _admission_kernel_matches_plain(cuda_device, cfg, "simt")
+
+
+@pytest.mark.cuda
+def test_cycle_server_admission_d128_kernel_matches_plain(cuda_device):
+    """The same admission at head dim 128 (GQA 4:2): the tensor-core
+    kernel."""
+    cfg = dataclasses.replace(smoke_config("yi-6b"), n_kv=2, head_dim=128)
+    _admission_kernel_matches_plain(cuda_device, cfg, "wgmma")

@@ -1,16 +1,23 @@
 """Port parity, flash attention: the plain version against the JAX
 package's oracle, its model-side ``block_attention`` and (at one small
-shape) the Pallas kernel in interpret mode; and the CUDA kernel's host
-half on the CPU — tile geometry, the key-tile range of each query tile,
-the kv-head map, the checks that raise, and the kernel's tile loop
-(online softmax over the visited key tiles, -1e30 for masked scores,
--inf past Sk) replayed in torch against the plain version on ragged,
-windowed and fully masked shapes.
+shape) the Pallas kernel in interpret mode; and the CUDA kernels' host
+half on the CPU — the route rule (dtype x head dim -> kernel), each
+route's tile geometry and key-tile range of each query tile, the kv-head
+map, the checks that raise, and each kernel's tile loop (online softmax
+over the visited key tiles, -1e30 for masked scores, -inf past Sk)
+replayed in torch against the plain version on ragged, windowed and
+fully masked shapes: the CUDA-core kernel's in float32, the tensor-core
+kernel's in bfloat16 with P rounded to bfloat16 where that kernel rounds
+it, and ``chip_smoke.py``'s per-row gate shown to pass that replay and
+to catch a key tile left out.
 
 Inputs are made with numpy from fixed seeds.  Tolerance: rtol 1e-5 and
 atol 5e-5 in float32, 2e-2 / 1e-1 in bfloat16, as the reference's own
 kernel test (tests/test_kernels.py) compares.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,10 +101,25 @@ def test_plain_version_equals_the_pallas_kernel():
     _close(got.numpy(), want)
 
 
-def test_tile_geometry_and_kv_head_map():
-    assert (fa.BLOCK_Q, fa.BLOCK_K) == (64, 64)
-    assert [fa.q_tiles(s) for s in (1, 64, 65, 512, 2048)] == \
+def test_route_rule():
+    """bfloat16 at D 64 / 128 takes the tensor-core kernel; float32 at
+    every D and bfloat16 at D 16 / 32 the CUDA-core kernel."""
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for D in fa.HEAD_DIMS:
+            want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) \
+                else "simt"
+            assert fa.route(dtype, D) == want, (dtype, D)
+    assert fa.TILES == {"simt": (64, 64), "wgmma": (128, 64)}
+
+
+@pytest.mark.parametrize("kind", ["simt", "wgmma"])
+def test_tile_geometry_and_kv_head_map(kind):
+    bq = fa.TILES[kind][0]
+    assert fa.TILES["simt"] == (64, 64)
+    assert [fa.q_tiles(s, 64) for s in (1, 64, 65, 512, 2048)] == \
         [1, 1, 2, 8, 32]
+    assert [fa.q_tiles(s, bq) for s in (1, 64, 65, 129, 512, 2048)] == \
+        {"simt": [1, 1, 2, 3, 8, 32], "wgmma": [1, 1, 1, 2, 4, 16]}[kind]
     # the Pallas kv index map: bh = b * H + h -> b * KV + h // (H // KV)
     for H, KV in ((32, 4), (32, 16), (8, 8), (4, 1)):
         g = H // KV
@@ -107,13 +129,14 @@ def test_tile_geometry_and_kv_head_map():
                 + (bh % H) // g
 
 
+@pytest.mark.parametrize("kind", ["simt", "wgmma"])
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
     (512, 512, True, 0), (2048, 2048, True, 1024), (24, 24, True, 0),
     (200, 200, True, 0), (70, 150, True, 0), (150, 70, True, 0),
     (130, 40, True, 8), (77, 130, False, 20), (128, 256, False, 0),
     (300, 300, True, 64), (100, 100, True, 1), (1, 300, True, 0)])
 def test_key_tile_range_covers_exactly_the_visible_keys(Sq, Sk, causal,
-                                                        window):
+                                                        window, kind):
     """Every key a row of the query tile may see lies in a visited tile;
     a visited tile holds a visible key unless the query tile holds a row
     that sees none (then every tile is visited, for its uniform average)."""
@@ -124,14 +147,15 @@ def test_key_tile_range_covers_exactly_the_visible_keys(Sq, Sk, causal,
         ok &= qpos >= kpos
     if window > 0:
         ok &= qpos - kpos < window
-    n_k = -(-Sk // fa.BLOCK_K)
-    for qt in range(fa.q_tiles(Sq)):
-        rows = ok[qt * fa.BLOCK_Q:(qt + 1) * fa.BLOCK_Q]
-        lo, hi = fa.key_tile_range(qt, Sq, Sk, causal, window)
+    bq, bk = fa.TILES[kind]
+    n_k = -(-Sk // bk)
+    for qt in range(fa.q_tiles(Sq, bq)):
+        rows = ok[qt * bq:(qt + 1) * bq]
+        lo, hi = fa.key_tile_range(qt, Sq, Sk, causal, window, bq, bk)
         assert 0 <= lo < hi <= n_k
         seen = rows.reshape(rows.shape[0], -1)
         tiles = {j for j in range(n_k)
-                 if seen[:, j * fa.BLOCK_K:(j + 1) * fa.BLOCK_K].any()}
+                 if seen[:, j * bk:(j + 1) * bk].any()}
         if not seen.any(axis=1).all():
             assert (lo, hi) == (0, n_k)
         else:
@@ -139,30 +163,48 @@ def test_key_tile_range_covers_exactly_the_visible_keys(Sq, Sk, causal,
             assert set(range(lo, hi)) <= tiles
 
 
-def _tile_loop(q, k, v, causal, window):
-    """The kernel's algorithm in torch: per (batch x head, query tile),
-    the online softmax over the key tiles of ``key_tile_range``, masked
-    scores at -1e30 and keys past Sk at -inf, running max from -1e30."""
+LOG2E = 1.4426950408889634          # kLog2e in csrc/flash_attention.cu
+
+
+def _tile_loop(q, k, v, causal, window, kind="simt", skip=None):
+    """A kernel's algorithm in torch: per (batch x head, query tile), the
+    online softmax over the key tiles of ``key_tile_range`` with the
+    route's ``TILES``, masked scores at -1e30 and keys past Sk at -inf,
+    running max from -1e30.  ``kind="wgmma"``, the tensor-core kernel:
+    query tiles in its launch order (last first), scores in the log2
+    domain (scale folded into log2 e, exp2), P rounded to bfloat16
+    before P.V and the row sum taken over the rounded values, as that
+    kernel sums them.  ``skip`` = (head, query tile, key tile): a planted
+    fault, that key tile left out of that query tile's loop."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    scale = 1.0 / D ** 0.5
+    bq, bk = fa.TILES[kind]
+    tensor_cores = kind == "wgmma"
+    if tensor_cores:
+        scale = torch.tensor(LOG2E) / torch.tensor(float(D)).sqrt()
+        exp = torch.exp2
+    else:
+        scale, exp = 1.0 / D ** 0.5, torch.exp
     out = torch.empty(B, Sq, H, D)
+    order = range(fa.q_tiles(Sq, bq))
     for b in range(B):
         for h in range(H):
             kvh = fa.kv_head(h, H, KV)
-            for qt in range(fa.q_tiles(Sq)):
-                q0 = qt * fa.BLOCK_Q
-                rows = torch.arange(q0, min(q0 + fa.BLOCK_Q, Sq))
+            for qt in (reversed(order) if tensor_cores else order):
+                q0 = qt * bq
+                rows = torch.arange(q0, min(q0 + bq, Sq))
                 qt_ = q[b, rows, h].float()
                 m = torch.full((len(rows),), -1e30)
                 den = torch.zeros(len(rows))
                 acc = torch.zeros(len(rows), D)
-                lo, hi = fa.key_tile_range(qt, Sq, Sk, causal, window)
+                lo, hi = fa.key_tile_range(qt, Sq, Sk, causal, window, bq, bk)
                 for j in range(lo, hi):
-                    keys = torch.arange(j * fa.BLOCK_K, (j + 1) * fa.BLOCK_K)
+                    if skip == (h, qt, j):
+                        continue
+                    keys = torch.arange(j * bk, (j + 1) * bk)
                     real = keys < Sk
-                    kk = torch.zeros(fa.BLOCK_K, D)
-                    vv = torch.zeros(fa.BLOCK_K, D)
+                    kk = torch.zeros(bk, D)
+                    vv = torch.zeros(bk, D)
                     kk[real] = k[b, keys[real], kvh].float()
                     vv[real] = v[b, keys[real], kvh].float()
                     s = (qt_ @ kk.T) * scale
@@ -175,8 +217,10 @@ def _tile_loop(q, k, v, causal, window):
                     s = torch.where(ok, s, torch.tensor(-1e30))
                     s = torch.where(real[None], s, torch.tensor(-np.inf))
                     m_new = torch.maximum(m, s.max(dim=1).values)
-                    p = torch.exp(s - m_new[:, None])
-                    corr = torch.exp(m - m_new)
+                    p = exp(s - m_new[:, None])
+                    if tensor_cores:
+                        p = p.bfloat16().float()
+                    corr = exp(m - m_new)
                     den = den * corr + p.sum(dim=1)
                     acc = acc * corr[:, None] + p @ vv
                     m = m_new
@@ -201,6 +245,38 @@ def test_kernel_tile_loop_equals_the_plain_version(shape):
                uniform[:, None].expand(-1, dead, -1, -1).numpy())
 
 
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 512, 4, 2, 128, True, 0),
+                                   (1, 1024, 1024, 2, 1, 128, True, 256)])
+def test_row_relative_gate_separates_roundoff_from_a_dropped_key_tile(
+        shape):
+    """chip_smoke.py holds the tensor-core kernel at the LM paths' shapes
+    on standard-normal inputs to FLASH_ROW_REL_TOL of each output row's
+    norm: its tile loop replayed in torch (bf16 P) stays under a quarter
+    of that, and the same loop with one key tile of one query tile left
+    out goes over ten times it."""
+    cs = _chip_smoke()
+    causal, window = shape[6], shape[7]
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(shape, np.float32, seed=9))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = _tile_loop(q, k, v, causal, window, kind="wgmma")
+    assert float(cs.row_rel_err(got, want).max()) < cs.FLASH_ROW_REL_TOL / 4
+    qt = fa.q_tiles(shape[1], fa.TILES["wgmma"][0]) - 1
+    lo, hi = fa.key_tile_range(qt, shape[1], shape[2], causal, window,
+                               *fa.TILES["wgmma"])
+    bad = _tile_loop(q, k, v, causal, window, kind="wgmma",
+                     skip=(1, qt, (lo + hi) // 2))
+    assert float(cs.row_rel_err(bad, want).max()) > 10 * cs.FLASH_ROW_REL_TOL
+
+
 def test_wrapper_checks_and_cpu_path():
     q, k, v = map(torch.from_numpy, _qkv((1, 8, 8, 4, 2, 16), np.float32))
     K.reset_launches()
@@ -208,6 +284,10 @@ def test_wrapper_checks_and_cpu_path():
     torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v),
                                rtol=0, atol=0)
     assert K.LAUNCHES["flash_attention"] == 0     # CPU: no launch
+    out = fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert out.dtype == torch.bfloat16
+    assert K.LAUNCHES["flash_attention"] == 0
+    assert K.FLASH_ROUTE_LAUNCHES == {"wgmma": 0, "simt": 0}
     bad = [
         ((q[0], k, v), "B,Sq,H,D"),
         ((q, k, v[:, :4]), "B,Sq,H,D"),
@@ -228,3 +308,28 @@ def test_wrapper_checks_and_cpu_path():
             fa.flash_attention(*args)
     with pytest.raises(ValueError, match="kernels"):
         block_attention(q, k, v, causal=True, kernels="pallas")
+
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("shape", EDGE + SHAPES[:1]
+                         + [(2, 256, 256, 8, 4, 64, True, 64)])
+def test_wgmma_tile_loop_equals_the_plain_version(shape, D):
+    """The tensor-core route's replay at bfloat16 tolerance (2e-2 / 1e-1)
+    on the ragged, Sq < Sk, Sq > Sk and window shapes, at its head dims."""
+    shape = shape[:5] + (D,) + shape[6:]
+    causal, window = shape[6], shape[7]
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(shape, np.float32, seed=7))
+    assert fa.route(q.dtype, D) == "wgmma"
+    got = _tile_loop(q, k, v, causal, window, "wgmma")
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    _close(got.float().numpy(), want.float().numpy(), f32=False)
+    Sq, Sk = shape[1], shape[2]
+    if causal and Sq > Sk:   # rows that see no key average all of v
+        dead = Sq - Sk
+        uniform = v.float().repeat_interleave(shape[3] // shape[4],
+                                              dim=2).mean(dim=1)
+        _close(got[:, :dead].float().numpy(),
+               uniform[:, None].expand(-1, dead, -1, -1).numpy(), f32=False)

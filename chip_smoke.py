@@ -14,7 +14,11 @@ capability 9.0+ and the CUDA toolkit.  It:
      tensor-core flash-attention kernel;
   3. holds each of the eight kernels against its plain PyTorch version on
      the card on small edge cases: padded tails, invalid rows, empty
-     buckets, an empty dirty set and a zero pane span, ragged block-join
+     buckets, an empty dirty set and a zero pane span, idle stages with
+     live probes, probe keys past either end of the bounds, pads at every
+     slot position, 16 stages and 16 joins in one fused launch, an
+     order_line-sized spine with dirty rows on tile seams, the reseed
+     beat's six scan shapes at full scale, ragged block-join
      sides past the kernel's staging chunk with invalid rows repeating a
      valid key, all-pad dirty sets and dirty rows at T-1; flash attention
      on the reference's five test shapes, ragged S (24, 200), Sq < Sk,
@@ -78,9 +82,11 @@ capability 9.0+ and the CUDA toolkit.  It:
   5. replays recorded kernel inputs (the main paths' own shapes and data)
      through each kernel and its plain version, the plain version first:
      agreement, then each call's time on the card (torch.profiler: all
-     device work of the call, and the hand-written kernel alone) and its
-     wall time (a pair of CUDA events per call), beside a bound computed
-     from the bytes and operations of those inputs; flash attention at
+     device work of the call, and the hand-written kernel alone), the
+     device ops it enqueues (fused_delta may enqueue at most one per join
+     beside its launch) and its wall time (a pair of CUDA events per
+     call), beside a bound computed from the bytes and operations of
+     those inputs; flash attention at
      three recorded calls (yi-6b's 512-token prefill, gemma3-27b's
      2048-token window-1024 and causal layers), each beside one PyTorch
      call of the same function (scaled_dot_product_attention, with the
@@ -162,6 +168,15 @@ SAMPLE_PER_BEAT = 12        # tickets checked against query-at-a-time
 FOLD_CAP = 16               # buy_request_address slots (fixed addresses)
 FOLD_MAX_S, FOLD_MAX_BEATS = 60.0, 200   # the fold must commit within
 FUSED_STEADY = {"fused_delta": 1, "groupby": 1}
+# (C, T, Q) of the reseed beat's six clockscan calls at full scale:
+# customer, item, author, order_line, orders, shopping_cart_line
+CLOCKSCAN_MAIN = ((2, 43200, 96), (3, 12048, 352), (1, 3524, 224),
+                  (1, 116640, 96), (2, 38880, 128), (1, 43200, 32))
+# device ms of the previous design of the redesigned kernels (clockscan a
+# warp per row, fused_delta a block per descriptor row and its gathers in
+# torch ops), as PERF.md §6 records them (NVIDIA H100 80GB HBM3, 700 W):
+# printed beside this run's
+PREVIOUS_DESIGN_MS = {"clockscan": 0.090982, "fused_delta": 0.090253}
 CHAINED_STEADY = {"scan": 7, "scan_delta": 7, "join_delta": 4, "groupby": 1}
 
 
@@ -216,7 +231,8 @@ def device_ms(fn, kernel, setup=None, reps=20):
     the mean of its events in the trace times its launches per call (the
     whole number nearest to its events per call).  ``setup`` runs before
     each call, outside the range.  The third value is the events of
-    ``kernel`` that the trace holds per call."""
+    ``kernel`` that the trace holds per call, the fourth the device ops
+    (kernels, copies, fills) that one whole call enqueues."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     for _ in range(3):
@@ -249,9 +265,11 @@ def device_ms(fn, kernel, setup=None, reps=20):
     own = [e.time_range.elapsed_us() for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA
            and kernel in e.name]
-    own_us = sum(own) / len(own) * round(len(own) / reps) if own else 0.0
+    launches = round(len(own) / reps)
+    own_us = sum(own) / len(own) * launches if own else 0.0
     other_us = sum(map(sum, whole)) / len(whole)
-    return (other_us + own_us) / 1e3, own_us / 1e3, len(own) / reps
+    return ((other_us + own_us) / 1e3, own_us / 1e3, len(own) / reps,
+            len(whole[0]) + launches)
 
 
 def bound_ms(nbytes, nops, ops_per_s=CUDA_CORE_OPS_PER_S):
@@ -314,8 +332,11 @@ def edge_cases(dev):
         return t(rng.integers(0, 2 ** 32, shape, dtype=np.uint64)
                  .astype(np.uint32).view(np.int32))
 
-    # clockscan: a padded tail (T % 256 != 0), invalid rows, 1..3 columns
-    for C, T, Q in ((1, 256, 32), (3, 515, 64), (2, 300, 416)):
+    # clockscan: a padded tail (T % 256 != 0), invalid rows, 1..3 columns;
+    # the reseed beat's six scans at full scale (CLOCKSCAN_MAIN); one row,
+    # one row past a warp's tile, 8191 rows
+    for C, T, Q in ((1, 256, 32), (3, 515, 64), (2, 300, 416),
+                    *CLOCKSCAN_MAIN, (2, 1, 64), (1, 33, 32), (3, 8191, 416)):
         cols = t(rng.integers(-50, 100, (C, T)))
         lo = t(rng.integers(-60, 50, (C, Q)))
         hi = lo + t(rng.integers(0, 80, (C, Q)))
@@ -347,8 +368,11 @@ def edge_cases(dev):
              ref.partitioned_join_ref(kl, ml, *parts, mr),
              f"partitioned_join {Tr}x{Tl}")
 
-    # fused_delta: mixed stages / joins, pane-seam dirty rows, and the
-    # dn == 0 / span == 0 identity
+    # fused_delta: mixed stages / joins, pane-seam dirty rows, the dn == 0
+    # / span == 0 identity, idle stages with live probes, probe keys past
+    # either end of the bounds, pads at every slot position, MAX_STAGES
+    # and MAX_JOINS, and an order_line-sized spine with dirty rows on the
+    # pane-tile and copy-tile seams
     def scan(T, C, Q, A, D, dn, span, seam=()):
         cols = t(rng.integers(0, 50, (C, T)))
         lo = t(rng.integers(0, 30, (C, Q)))
@@ -364,7 +388,7 @@ def edge_cases(dev):
             t(rng.random(T) < 0.9, torch.bool), words((T, Q // 32)),
             t(w0), t(span), t(rows), t(dn))
 
-    def join(Tl, Tr, D, dn, pseudo=False):
+    def join(Tl, Tr, D, dn, pseudo=False, seam=()):
         kr = t(rng.permutation(Tr))
         vr = t(rng.random(Tr) < 0.9, torch.bool)
         if pseudo:
@@ -375,11 +399,26 @@ def edge_cases(dev):
                      t([-2147483647]))
         else:
             parts = build_key_partitions(kr, vr, 2, Tr // 2 + 8)
-        rows = np.sort(rng.choice(Tl, dn, replace=False))
+        pool = [r for r in seam if r < Tl]
+        rest = [r for r in rng.choice(Tl, min(Tl, dn + len(pool)), False)
+                if r not in pool]
+        rows = np.sort(np.asarray(pool + rest, np.int64)[:dn])
         rows = np.concatenate([rows, np.full(D - dn, Tl)])
         return FusedJoinIn(t(rng.integers(0, Tr, Tl)), t(rows), t(dn),
                            *parts, t(rng.integers(-1, Tr, Tl)))
 
+    def route_edges(e):
+        """Probe keys below the first bound, above the last and at the
+        int32 extremes, on the first four dirty rows."""
+        lo_b, hi_b = int(e.bounds[0]), int(e.bounds[-1])
+        keys = e.keys.clone()
+        for r, k in zip(e.rows.long()[:4],
+                        (max(lo_b, -2 ** 31 + 1) - 1, -2 ** 31, 2 ** 31 - 1,
+                         min(hi_b, 2 ** 31 - 2) + 1)):
+            keys[r] = k
+        return e._replace(keys=keys)
+
+    OL = 116640
     cases = {
         "mixed": ((scan(300, 2, 64, 1, 8, 5, 1), scan(256, 3, 96, 2, 16, 0, 0),
                    scan(700, 1, 32, 1, 4, 4, 1)),
@@ -393,6 +432,27 @@ def edge_cases(dev):
         "block": ((scan(500, 1, 32, 1, 16, 3, 1),),
                   (join(500, 128, 16, 7, pseudo=True),
                    join(500, 100, 16, 2, pseudo=True))),
+        "idle stages, live probes": (
+            (scan(300, 2, 64, 1, 8, 0, 0), scan(700, 1, 32, 1, 4, 0, 0)),
+            (join(300, 128, 8, 5), join(256, 64, 8, 8, pseudo=True))),
+        "route edges": ((), (route_edges(join(400, 160, 8, 6)),
+                             route_edges(join(400, 160, 8, 6, pseudo=True)))),
+        # the first pad at every slot position; an all-pad set with dn 1
+        "pads": (tuple(scan(200, 1, 32, 1, 8, n, 1) for n in range(9))
+                 + (scan(200, 2, 64, 1, 8, 0, 1)._replace(dn=t(1)),),
+                 tuple(join(200, 64, 8, n, pseudo=n % 2 == 1)
+                       for n in range(9))
+                 + (join(200, 64, 8, 0)._replace(dn=t(1)),)),
+        "max stages and joins": (
+            tuple(scan(100 + 37 * s, 1 + s % 3, 32 * (1 + s % 4), 1, 8, s % 6,
+                       s % 2) for s in range(fused_delta.MAX_STAGES)),
+            tuple(join(100 + 53 * j, 64 + j, 8, j % 6, pseudo=j % 2 == 1)
+                  for j in range(fused_delta.MAX_JOINS))),
+        "order_line spine": (
+            (scan(OL, 1, 96, 1, 128, 6, 1,
+                  seam=(0, 255, 256, 1023, 1024, OL - 1)),),
+            (join(OL, 12048, 128, 8, seam=(0, 1023, 1024, 2047, 2048,
+                                           OL - 1)),)),
     }
     for name, (si, ji) in cases.items():
         want = ref.fused_delta_ref(si, ji)
@@ -1271,9 +1331,9 @@ def kernel_rows(calls, launches, attn):
         check(got, want)
         err = max_abs_err(got, want)
         b, by = bound_ms(*work)
-        ms, kernel_ms, per_call = device_ms(kern, KERNEL_SYMBOLS[name],
-                                            setup)
-        plain_ms, _, _ = device_ms(plain, KERNEL_SYMBOLS[name], setup)
+        ms, kernel_ms, per_call, ops = device_ms(kern, KERNEL_SYMBOLS[name],
+                                                 setup)
+        plain_ms = device_ms(plain, KERNEL_SYMBOLS[name], setup)[0]
         library_ms = None if library is None else \
             device_ms(library, "no kernel of this repository")[0]
         if per_call == 0:
@@ -1282,6 +1342,7 @@ def kernel_rows(calls, launches, attn):
                 "bound_ms": b, "bound_by": by, "library_ms": library_ms,
                 "calls_per_timing": calls, "per_launch_ms": ms / calls,
                 "kernel_ms": kernel_ms, "kernel_launches": per_call,
+                "device_ops": ops,
                 "wall_ms": wall_ms(kern, setup),
                 "plain_wall_ms": wall_ms(plain, setup)}
 
@@ -1337,7 +1398,8 @@ def kernel_rows(calls, launches, attn):
         (pj_bytes, pj_ops), calls=len(joins))
 
     # fused_delta: the last steady beat's launch; the work that its data
-    # needs — live panes, live dirty rows, live probes
+    # needs — live panes, live dirty rows, live probes — and every join's
+    # rid output (its carry read, the output written: 8 Tl bytes)
     scan_in, join_in = calls["fused_delta"][-1]
     fb, fo = 0, 0
     for e in scan_in:
@@ -1354,9 +1416,14 @@ def kernel_rows(calls, launches, attn):
         dn = int(e.dn)
         fb += e.rows.numel() * 4 + dn * (4 + e.bkeys.shape[1] * 8 + 4)
         fo += dn * e.bkeys.shape[1]
-    fb += 16 * (sum(-(-e.cols.shape[1] // min(256, e.cols.shape[1]))
-                    + e.rows.numel() for e in scan_in)
-                + sum(e.rows.numel() for e in join_in))
+    # the same launch counted as a descriptor-driven kernel without rid
+    # outputs (16 bytes of descriptor a pane tile, dirty slot and probe
+    # slot), the count of the previous design, for comparison
+    descriptor_bytes = fb + 16 * (
+        sum(-(-e.cols.shape[1] // min(256, e.cols.shape[1]))
+            + e.rows.numel() for e in scan_in)
+        + sum(e.rows.numel() for e in join_in))
+    fb += sum(8 * e.keys.shape[0] for e in join_in)
     recorded = [e.carry.clone() for e in scan_in]
 
     def restore_carries():
@@ -1366,6 +1433,10 @@ def kernel_rows(calls, launches, attn):
         lambda: ref.fused_delta_ref(scan_in, join_in),
         lambda g, w: same(g, w, "fused_delta (main path)"), (fb, fo),
         setup=restore_carries)
+    rows[-1]["descriptor_bound_ms"] = bound_ms(descriptor_bytes, fo)[0]
+    if rows[-1]["device_ops"] > 1 + len(join_in):
+        fail(f"fused_delta enqueues {rows[-1]['device_ops']} device ops a "
+             f"call, over 1 + {len(join_in)} joins")
 
     # bitmask_join: the fold path's migration beat (address ⋈ country)
     keys_l, mask_l, keys_r, mask_r, valid_r = calls["join_block"][-1]
@@ -1472,8 +1543,8 @@ def kernel_rows(calls, launches, attn):
             atol=1e-1):
         fail(f"flash_attention (simt, {calls_fa[0][0]}) disagrees with its "
              f"plain version")
-    rows[-1]["simt_ms"], rows[-1]["simt_kernel_ms"], _ = device_ms(
-        simt, FLASH_SIMT_SYMBOL)
+    rows[-1]["simt_ms"], rows[-1]["simt_kernel_ms"] = device_ms(
+        simt, FLASH_SIMT_SYMBOL)[:2]
     if sum(x["launches"] for x in shapes) != launches["flash_attention"]:
         fail("flash_attention: the recorded shapes do not cover every "
              "launch of the main path")
@@ -1647,6 +1718,13 @@ def main():
     calls = dict(rec.calls, **fold_rec.calls, **chained_rec.calls)
     rows = kernel_rows(calls, launches, attn)
     torch.cuda.synchronize()
+    for r in rows:
+        if r["name"] in PREVIOUS_DESIGN_MS:
+            print(f"{r['name']}: device ms {r['ms']:.6f} a set of "
+                  f"{r['calls_per_timing']} (kernel {r['kernel_ms']:.6f}, "
+                  f"wall {r['wall_ms']:.6f}, {r['device_ops']} device ops a "
+                  f"call) against the previous design's "
+                  f"{PREVIOUS_DESIGN_MS[r['name']]} (PERF.md §6)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

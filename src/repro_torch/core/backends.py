@@ -62,7 +62,13 @@ class FusedScanIn(NamedTuple):
 
 class FusedJoinIn(NamedTuple):
     """One carried (non-gather) join's inputs to the fused delta op.
-    Block-kind joins arrive as single-bucket pseudo-partitions."""
+    Block-kind joins arrive as single-bucket pseudo-partitions.
+
+    ``rows`` is the spine's ``_dirty_rows`` set: ascending, distinct, and
+    padded with the sentinel ``Tl`` (storage.apply_updates).  The hopper
+    kernel relies on that order: it writes each rid once, a dirty row's
+    by its probe and every other row's by a copy of ``rid_carry`` that
+    finds the dirty rows in its range by binary search."""
     keys: object          # int32[Tl] the spine's full fk column
     rows: object          # int32[D] dirty spine rows (sentinel == Tl)
     dn: object            # int32 0-d: live dirty-row count

@@ -25,6 +25,7 @@ kernels; ``FLASH_ROUTE_LAUNCHES`` splits flash_attention's by kernel;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -133,14 +134,15 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.shareddb_error_string.argtypes = [i]
             lib.shareddb_error_string.restype = ctypes.c_char_p
-            lib.shareddb_clockscan.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.shareddb_clockscan.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                               i, p]
             lib.shareddb_clockscan.restype = i
             lib.shareddb_groupby.argtypes = [p, p, p, p, p, i, i, i, p]
             lib.shareddb_groupby.restype = i
             lib.shareddb_partitioned_join.argtypes = [
                 p, p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.shareddb_partitioned_join.restype = i
-            lib.shareddb_fused_delta.argtypes = [p, i, p, p]
+            lib.shareddb_fused_delta.argtypes = [p, i, i, i, i, p, p]
             lib.shareddb_fused_delta.restype = i
             lib.shareddb_bitmask_join.argtypes = [p, p, p, p, p, p, p, i, i,
                                                   i, p]
@@ -168,6 +170,18 @@ def check_launch(code: int, name: str) -> None:
     if code != 0:
         msg = library().shareddb_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+
+# the persistent grids (clockscan, fused_delta) launch at most this many
+# blocks a streaming multiprocessor
+BLOCKS_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the persistent grids
+    are sized to it); read once per device, without a sync."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t):

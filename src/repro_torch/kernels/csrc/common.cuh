@@ -31,6 +31,42 @@ __device__ __forceinline__ bool range_match(const int32_t* __restrict__ cols,
   return ok;
 }
 
+// Lanes as rows: the word (32 query bits) of one row for the queries
+// [q0, q0 + 32) of a predicate matrix held as (lo, hi) pairs in shared
+// memory, pairs[c * q_stride + q].  Each lane compares its own row's
+// column values; all lanes read the same pair at once (a broadcast), so
+// no shuffle or ballot is needed to pack the word.  A row that is not
+// ``live`` (past the table or invalid) gives 0.
+__device__ __forceinline__ uint32_t row_word(const int32_t* __restrict__ cols,
+                                             int64_t col_stride, int64_t row,
+                                             bool live, const int2* pairs,
+                                             int q_stride, int q0, int C) {
+  if (!live) return 0u;
+  uint32_t bad = 0u;
+  for (int c = 0; c < C; ++c) {
+    const int32_t x = cols[c * col_stride + row];
+    const int2* p = pairs + c * q_stride + q0;
+#pragma unroll
+    for (int b = 0; b < kWarp; ++b) {
+      const int2 r = p[b];
+      bad |= (x < r.x || x > r.y) ? (1u << b) : 0u;
+    }
+  }
+  return ~bad;
+}
+
+// The first index in [0, n) of a non-decreasing array whose value is
+// >= v (n if none).
+__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ a,
+                                           int n, int64_t v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
 // The last index in [0, n) of an ascending array whose value is <= key,
 // clipped to [0, n-1]: searchsorted(side="right") - 1 then clip.
 __device__ __forceinline__ int route_bucket(const int32_t* __restrict__ bounds,

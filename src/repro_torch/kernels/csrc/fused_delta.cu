@@ -1,51 +1,74 @@
 // Fused delta heartbeat for Hopper: the whole incremental beat in ONE
-// launch.
+// launch, and nothing enqueued around it.
 //
 // Replaces repro/kernels/fused_delta.py::fused_delta_pallas (body
-// _mega_kernel and its XLA epilogue).  The launch walks the work
-// descriptor sdesc int32[N, 4] = (kind, owner, idx, gather) that
-// repro_torch/kernels/fused_delta.py builds on the device; descriptor row
-// i is thread block i:
+// _mega_kernel, its XLA prologue and its XLA epilogue).  The launch walks
+// a STATIC descriptor desc int32[N, 3] = (kind, owner, idx) that
+// repro_torch/kernels/fused_delta.py::launch_schedule builds on the
+// device once per geometry: the reference's schedule, reordered, plus the
+// rid COPY tiles.  Nothing in it depends on the beat's data: the row of
+// a DIRTY slot and the bucket of a PROBE slot are gathered here.
 //
-//   PANE  (0): pane tile `idx` (256 rows) of scan stage `owner`: the
-//              pane-width predicates (lo_p/hi_p, 32*A queries) against
-//              each row, written at word columns [w0, w0+A) of the
-//              carried words.  Skipped when span == 0.
-//   DIRTY (1): dirty-row slot `idx` of stage `owner`: row `gather` against
-//              the FULL window, all w words of the row rewritten.
-//              Skipped when dn == 0 or the slot is a pad (row >= T).
-//   PROBE (2): dirty-row slot `idx` of carried join `owner`: the spine
-//              row's key probes bucket `gather`; the max matching row
-//              (-1 if none) is written into the rid output at that row.
+//   PANE  (0): pane tile `idx` (256 rows) of scan stage `owner`, a BLOCK
+//              item: the pane-width predicates (lo_p/hi_p, 32*A queries)
+//              against each row, written at word columns [w0, w0+A) of
+//              the carried words.  Skipped when span == 0.
+//   DIRTY (1): dirty-row slot `idx` of stage `owner`, a WARP item: row
+//              rows[idx] against the FULL window, all w words of the row
+//              rewritten.  Skipped when dn == 0 or the slot is a pad
+//              (row < 0 or row >= T).
+//   PROBE (2): dirty-row slot `idx` of carried join `owner`, a WARP item:
+//              the spine row rows[idx]'s key is routed to its bucket over
+//              `bounds` (route_bucket) and probes it; the max matching
+//              row (-1 if none) is written into the rid output at that
+//              row.  Skipped when dn == 0 or the slot is a pad.
+//   COPY  (3): rid tile `idx` (1024 rows) of join `owner`, a WARP item:
+//              rid[i] = rid_carry[i] for every row of the tile that no
+//              live PROBE slot writes.
 //
-// The merge happens in the kernel, straight into the carries: PANE and
-// DIRTY blocks that touch the same (row, word) compute the same bits from
-// the same row and predicate columns, so their order does not matter, and
-// each rid slot has one writer.  The scan words are merged in place (the
-// reference donates that carry); the wrapper hands the rid outputs as
-// fresh copies of the rid carry.
+// Every rid element has exactly one writer: a join's dirty rows are
+// ascending, distinct and padded with the sentinel Tl (FusedJoinIn), so a
+// COPY tile finds the dirty rows that fall in it by binary search
+// (lower_bound) and skips them, and when dn == 0 it copies every row.
+// PANE and DIRTY items that touch the same (row, word) compute the same
+// bits from the same row and predicate columns (lo_p is lo's slice at
+// w0), so their order does not matter.  The scan words are merged in
+// place (the reference donates that carry); the rid outputs are fresh
+// tensors that the wrapper allocates and this kernel fills.
 //
 // Per-stage and per-join pointers travel in one FusedArgs struct passed
-// by value as a __grid_constant__ kernel parameter (the constant bank,
-// indexed by the descriptor's owner without a per-thread copy): no table
-// is copied to the device per beat.  w0/span/dn are device scalars, read
-// here, so the host never learns them.
+// by value as a __grid_constant__ kernel parameter; w0/span/dn are
+// pointers to the stages' and joins' own 0-d device tensors, read once per
+// block into shared memory, so the host never learns them and the
+// wrapper enqueues nothing but this launch.
+//
+// Work is sized to the beat, not to the descriptor: a grid of at most 4
+// blocks an SM (fused_delta.py::grid_blocks) walks the PANE items a block
+// at a time, a grid stride apart, then the warp items a warp at a time,
+// warp-major (item i goes to warp (i / blocks) % 8 of block i % blocks),
+// so that consecutive items land on different SMs.  An idle item costs
+// one descriptor load and a branch.  A live pane tile stages its lo_p/hi_p
+// as (lo, hi) pairs in shared memory; its 256 threads are its rows (lanes
+// as rows: coalesced column loads, each lane builds its own row's words,
+// common.cuh row_word).
 //
 // What bounds it: bytes — each live pane tile reads its rows' columns
 // and writes A words per row, each live dirty slot reads C values and Q
-// predicate pairs and writes w words, each live probe reads one bucket.
-// Steady beats leave most blocks with nothing to do; they exit at once.
+// predicate pairs and writes w words, each live probe reads one bucket,
+// and every join's rids are read once and written once (8*Tl bytes).
 #include "common.cuh"
 
 namespace shareddb {
 namespace {
 
-constexpr int kPane = 0, kDirty = 1, kProbe = 2;
+constexpr int kDirty = 1, kProbe = 2, kCopy = 3;   // kPane = 0
 constexpr int kPaneTile = 256;
+constexpr int kCopyTile = 1024;
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / kWarp;
 constexpr int kMaxStages = 16;
 constexpr int kMaxJoins = 16;
+static_assert(kPaneTile == kThreads, "a pane tile's rows are its threads");
 
 struct ScanArgs {
   const int32_t* cols;   // [C, T]
@@ -56,17 +79,22 @@ struct ScanArgs {
   const uint8_t* valid;  // [T]
   int32_t* carry;        // [T, Q/32], merged in place
   const int32_t* rows;   // [D] dirty rows, sentinel T pads
-  const int32_t* scal;   // {w0, span, dn}
-  int C, T, Q, A, D, nt;
+  const int32_t* w0;     // 0-d: the pane's first word column
+  const int32_t* span;   // 0-d: changed-word span (0 = no pane)
+  const int32_t* dn;     // 0-d: live dirty count
+  int C, T, Q, A, D;
 };
 
 struct JoinArgs {
-  const int32_t* keys;   // [Tl] spine fk column
-  const int32_t* rows;   // [D] dirty spine rows, sentinel Tl pads
-  const int32_t* bkeys;  // [P, B]
-  const int32_t* brows;  // [P, B]
-  int32_t* rid;          // [Tl] rid output (a copy of the carry)
-  const int32_t* dn;     // live dirty count
+  const int32_t* keys;       // [Tl] spine fk column
+  const int32_t* rows;       // [D] dirty spine rows: ascending, distinct,
+                             //     sentinel Tl pads
+  const int32_t* bkeys;      // [P, B]
+  const int32_t* brows;      // [P, B]
+  const int32_t* bounds;     // [P] bucket lower bounds
+  const int32_t* rid_carry;  // [Tl] the previous beat's rids
+  int32_t* rid;              // [Tl] rid output
+  const int32_t* dn;         // 0-d: live dirty count
   int Tl, D, P, B;
 };
 
@@ -76,69 +104,125 @@ struct FusedArgs {
   int ns, nj;
 };
 
-__device__ void pane_block(const ScanArgs& s, int tile) {
-  if (s.scal[1] <= 0) return;                        // span == 0: identity
+// A block item: the block's 256 threads are the tile's rows.  `pairs` is
+// the block's shared staging of the stage's pane predicates.
+__device__ void pane_tile(const ScanArgs& s, int w0, int tile, int2* pairs) {
+  __syncthreads();                       // the previous tile's pairs are read
+  const int np = s.C * s.A * kWarp;
+  for (int i = threadIdx.x; i < np; i += kThreads)
+    pairs[i] = make_int2(s.lo_p[i], s.hi_p[i]);
+  __syncthreads();
+  const int64_t row = int64_t(tile) * kPaneTile + threadIdx.x;
+  if (row >= s.T) return;
   const int w = s.Q / kWarp;
-  const int w0 = min(max(s.scal[0], 0), w - s.A);
-  const int lane = threadIdx.x % kWarp;
-  const int64_t tile_end = int64_t(tile + 1) * kPaneTile;
-  const int64_t end = tile_end < s.T ? tile_end : int64_t(s.T);
-  for (int64_t row = int64_t(tile) * kPaneTile + threadIdx.x / kWarp;
-       row < end; row += kWarpsPerBlock) {
-    const bool v = s.valid[row] != 0;
-    for (int a = 0; a < s.A; ++a) {
-      const bool ok = v && range_match(s.cols, s.T, row, s.lo_p, s.hi_p,
-                                       s.A * kWarp, a * kWarp + lane, s.C);
-      const uint32_t word = __ballot_sync(kFullMask, ok);
-      if (lane == 0) s.carry[row * w + w0 + a] = int32_t(word);
+  const bool live = s.valid[row] != 0;
+  for (int a = 0; a < s.A; ++a)
+    s.carry[row * w + w0 + a] = int32_t(
+        row_word(s.cols, s.T, row, live, pairs, s.A * kWarp, a * kWarp, s.C));
+}
+
+// A warp item: one dirty row against the full window, lanes as queries;
+// lane k % 32 keeps word k and the warp stores 32 consecutive words at once.
+__device__ void dirty_warp(const ScanArgs& s, int slot, int lane) {
+  const int32_t target = s.rows[slot];
+  if (target < 0 || target >= s.T) return;           // pad slot: dropped
+  const int w = s.Q / kWarp;
+  const bool v = s.valid[target] != 0;
+  uint32_t mine = 0;
+  for (int k = 0; k < w; ++k) {
+    const bool ok = v && range_match(s.cols, s.T, target, s.lo, s.hi, s.Q,
+                                     k * kWarp + lane, s.C);
+    const uint32_t word = __ballot_sync(kFullMask, ok);
+    if (k % kWarp == lane) mine = word;
+    if (k % kWarp == kWarp - 1 || k == w - 1) {
+      const int base = k - k % kWarp;
+      if (base + lane <= k)
+        s.carry[int64_t(target) * w + base + lane] = int32_t(mine);
     }
   }
 }
 
-__device__ void dirty_block(const ScanArgs& s, int slot, int row) {
-  if (s.scal[2] <= 0) return;                        // dn == 0: identity
-  const int32_t target = s.rows[slot];
-  if (target < 0 || target >= s.T) return;           // pad slot: dropped
-  const int w = s.Q / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const bool v = s.valid[row] != 0;
-  for (int k = threadIdx.x / kWarp; k < w; k += kWarpsPerBlock) {
-    const bool ok = v && range_match(s.cols, s.T, row, s.lo, s.hi, s.Q,
-                                     k * kWarp + lane, s.C);
-    const uint32_t word = __ballot_sync(kFullMask, ok);
-    if (lane == 0) s.carry[int64_t(target) * w + k] = int32_t(word);
-  }
-}
-
-__device__ void probe_block(const JoinArgs& j, int slot, int bucket) {
-  if (*j.dn <= 0) return;                            // dn == 0: identity
-  if (threadIdx.x >= kWarp) return;                  // one warp probes
+// A warp item: route the dirty spine row's key to its one bucket, then the
+// max live row of that bucket with an equal key (-1 if none).
+__device__ void probe_warp(const JoinArgs& j, int slot, int lane) {
   const int32_t target = j.rows[slot];
   if (target < 0 || target >= j.Tl) return;          // pad slot: dropped
   const int32_t key = j.keys[target];
-  const int rid = probe_bucket(j.bkeys, j.brows, bucket, j.B, key,
-                               threadIdx.x);
-  if (threadIdx.x == 0) j.rid[target] = rid;
+  const int b = route_bucket(j.bounds, j.P, key);
+  const int rid = probe_bucket(j.bkeys, j.brows, b, j.B, key, lane);
+  if (lane == 0) j.rid[target] = rid;
+}
+
+// Is row r one of rows[s0, s1)?  (rows ascending)
+__device__ __forceinline__ bool is_dirty(const int32_t* __restrict__ rows,
+                                         int s0, int s1, int64_t r) {
+  const int at = s0 + lower_bound(rows + s0, s1 - s0, r);
+  return at < s1 && rows[at] == r;
+}
+
+// A warp item: rid[i] = rid_carry[i] over one tile, 16 bytes a lane, the
+// rows that a live PROBE slot writes left out.
+__device__ void copy_warp(const JoinArgs& j, int tile, bool live, int lane) {
+  const int64_t a = int64_t(tile) * kCopyTile;
+  const int64_t b = min(a + kCopyTile, int64_t(j.Tl));
+  int s0 = 0, s1 = 0;
+  if (live) {
+    s0 = lower_bound(j.rows, j.D, a);
+    s1 = lower_bound(j.rows, j.D, b);
+  }
+  const bool vec = ((reinterpret_cast<uintptr_t>(j.rid_carry)
+                     | reinterpret_cast<uintptr_t>(j.rid)) & 15) == 0;
+  for (int64_t i = a + 4 * lane; i < b; i += 4 * kWarp) {
+    if (vec && i + 4 <= b && s0 == s1) {
+      *reinterpret_cast<int4*>(j.rid + i) =
+          *reinterpret_cast<const int4*>(j.rid_carry + i);
+      continue;
+    }
+    for (int e = 0; e < 4 && i + e < b; ++e)
+      if (s0 == s1 || !is_dirty(j.rows, s0, s1, i + e))
+        j.rid[i + e] = j.rid_carry[i + e];
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-fused_delta_kernel(const int32_t* __restrict__ sdesc,
-                   const __grid_constant__ FusedArgs args) {
-  const int32_t* d = sdesc + int64_t(blockIdx.x) * 4;
-  const int kind = d[0], owner = d[1], idx = d[2], gather = d[3];
-  if (kind == kPane) {
-    pane_block(args.s[owner], idx);
-  } else if (kind == kDirty) {
-    dirty_block(args.s[owner], idx, gather);
-  } else if (kind == kProbe) {
-    probe_block(args.j[owner], idx, gather);
+fused_delta_kernel(const int32_t* __restrict__ desc, int n_block,
+                   int n_items, const __grid_constant__ FusedArgs args) {
+  __shared__ int s_w0[kMaxStages], s_span[kMaxStages], s_sdn[kMaxStages];
+  __shared__ int s_jdn[kMaxJoins];
+  extern __shared__ int2 pairs[];
+  const int tid = threadIdx.x;
+  if (tid < args.ns) {
+    const ScanArgs& s = args.s[tid];
+    s_w0[tid] = min(max(*s.w0, 0), s.Q / kWarp - s.A);
+    s_span[tid] = *s.span;
+    s_sdn[tid] = *s.dn;
+  }
+  if (tid < args.nj) s_jdn[tid] = *args.j[tid].dn;
+  __syncthreads();
+  for (int it = blockIdx.x; it < n_block; it += gridDim.x) {
+    const int owner = desc[3 * it + 1];              // desc[3 * it] == kPane
+    if (s_span[owner] <= 0) continue;                // block-uniform
+    pane_tile(args.s[owner], s_w0[owner], desc[3 * it + 2], pairs);
+  }
+  const int lane = tid % kWarp;
+  for (int it = n_block + (tid / kWarp) * gridDim.x + blockIdx.x;
+       it < n_items; it += gridDim.x * kWarpsPerBlock) {
+    const int kind = desc[3 * it], owner = desc[3 * it + 1],
+              idx = desc[3 * it + 2];
+    if (kind == kDirty) {
+      if (s_sdn[owner] > 0) dirty_warp(args.s[owner], idx, lane);
+    } else if (kind == kProbe) {
+      if (s_jdn[owner] > 0) probe_warp(args.j[owner], idx, lane);
+    } else if (kind == kCopy) {
+      copy_warp(args.j[owner], idx, s_jdn[owner] > 0, lane);
+    }
   }
 }
 
 static_assert(sizeof(FusedArgs) <= 4096, "kernel parameter limit");
 
 // ---------------------------------------------------------------------------
-// The chained delta ops: the DIRTY and PROBE blocks as standalone launches
+// The chained delta ops: the DIRTY and PROBE items as standalone launches
 // ---------------------------------------------------------------------------
 //
 // delta_scan replaces repro/kernels/fused_delta.py::delta_scan_pallas and
@@ -203,12 +287,16 @@ delta_join_kernel(const int32_t* __restrict__ keys,
 }  // namespace shareddb
 
 // `args` points at a host FusedArgs; it is copied into the launch.
-extern "C" int shareddb_fused_delta(const int32_t* sdesc, int N,
+// `blocks` and `pane_smem` (the widest stage's pane pairs) come from
+// kernels/fused_delta.py; `pane_smem` <= 48 KB.
+extern "C" int shareddb_fused_delta(const int32_t* desc, int n_block,
+                                    int n_items, int blocks, int pane_smem,
                                     const void* args, cudaStream_t stream) {
   using namespace shareddb;
-  if (N == 0) return int(cudaGetLastError());
+  if (n_items == 0) return int(cudaGetLastError());
   const FusedArgs& a = *static_cast<const FusedArgs*>(args);
-  fused_delta_kernel<<<N, kThreads, 0, stream>>>(sdesc, a);
+  fused_delta_kernel<<<blocks, kThreads, pane_smem, stream>>>(
+      desc, n_block, n_items, a);
   return int(cudaGetLastError());
 }
 

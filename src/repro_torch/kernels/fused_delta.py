@@ -1,31 +1,42 @@
 """Fused delta heartbeat (the ``fused_delta`` op): the whole incremental
 beat — every predicated stage's admission pane and dirty-row rescan,
-every carried join's dirty-row probe — in ONE kernel launch.
+every carried join's dirty-row probe and rid merge — in ONE kernel
+launch, with nothing else enqueued.
 
 The kernel is ``csrc/fused_delta.cu`` (it replaces the JAX package's
-``repro/kernels/fused_delta.py::fused_delta_pallas``).  It walks the work
-descriptor ``sdesc int32[N, 4] = (kind, owner, idx, gather)`` built here,
-one thread block per row:
+``repro/kernels/fused_delta.py::fused_delta_pallas``).  It walks a static
+descriptor ``int32[N, 3] = (kind, owner, idx)``, ``launch_schedule``:
 
-  kind 0 (PANE)  — pane tile ``idx`` (PANE_TILE rows) of stage ``owner``
-  kind 1 (DIRTY) — dirty slot ``idx`` of stage ``owner``; ``gather`` is
-                   the slot's row id, clamped into the padded tile range
-  kind 2 (PROBE) — dirty slot ``idx`` of join ``owner``; ``gather`` is
-                   the routed bucket of the slot's key
+  kind 0 (PANE)  — pane tile ``idx`` (PANE_TILE rows) of stage ``owner``,
+                   taken by a whole block
+  kind 1 (DIRTY) — dirty slot ``idx`` of stage ``owner``: row
+                   ``rows[idx]``, read in the kernel; pads are skipped
+  kind 2 (PROBE) — dirty slot ``idx`` of join ``owner``: the kernel
+                   routes the row's key to its bucket over ``bounds``
+  kind 3 (COPY)  — rid tile ``idx`` (COPY_TILE rows) of join ``owner``:
+                   the carried rids of the rows no live PROBE writes
 
-``build_schedule`` / ``build_sdesc`` are the reference's, in torch: the
-schedule is pure geometry made with ``arange``/``full`` on the device and
-the gather column is a device gather/``searchsorted``, so the descriptor
-never crosses from the host and the beat never waits for it.
+It is ``build_schedule`` (the reference's schedule, in torch) reordered —
+the block items first, then the warp items — plus the COPY tiles; pure
+geometry, made on the device once per geometry and cached, so the
+descriptor never crosses from the host and nothing of it is rebuilt per
+beat.  The reference's runtime gather column (dirty row ids, routed
+buckets) is computed inside the kernel instead.  ``w0``/``span``/``dn``
+travel as pointers to their own 0-d tensors.  A grid of ``grid_blocks``
+blocks (at most ``kernels.BLOCKS_PER_SM`` a streaming multiprocessor)
+walks the items: a whole block per PANE tile, a warp per DIRTY / PROBE /
+COPY item.
 
 The kernel merges straight into the carries: the scan words in place
 (the reference donates that carry half, so each beat's words become the
-next beat's carry), the rids into fresh copies of the rid carry (its
-tensors are also the previous beat's in-flight results).
+next beat's carry), the rids into fresh tensors (the rid carry is also
+the previous beat's in-flight result), each rid written exactly once —
+by its PROBE slot if it is dirty, else by its COPY tile.  That rests on
+a join's dirty rows being ascending and distinct (``FusedJoinIn``).
 
 ``delta_scan`` and ``delta_join`` are the chained delta ops (a backend
 without ``fused_delta`` calls them per stage and per join): the DIRTY
-and PROBE blocks as standalone kernels in the same source (they replace
+and PROBE items as standalone kernels in the same source (they replace
 the reference's ``delta_scan_pallas`` and ``delta_join_pallas``).  They
 write one output row per slot, pad slots included, computed on the
 slot's row clamped into range; ``delta_join`` routes inside its kernel.
@@ -41,11 +52,16 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import ref
 
-PANE_TILE = 256
-MAX_STAGES = 16            # kMaxStages / kMaxJoins in csrc/fused_delta.cu
+PANE_TILE = 256            # kPaneTile in csrc/fused_delta.cu: a block's rows
+COPY_TILE = 1024           # kCopyTile: rids one warp copies
+MAX_STAGES = 16            # kMaxStages / kMaxJoins
 MAX_JOINS = 16
+# a pane tile's lo_p/hi_p pairs live in the block's shared memory:
+# 2 * C * 32 * A int32 <= 48 KB
+MAX_PANE_PREDICATES = 48 * 1024 // 8
+WARPS = 8                  # warps a block (kWarpsPerBlock)
 
-_PANE, _DIRTY, _PROBE = 0, 1, 2
+_PANE, _DIRTY, _PROBE, _COPY = 0, 1, 2, 3
 
 
 class ScanGeom(NamedTuple):
@@ -79,65 +95,70 @@ def join_geometry(e) -> JoinGeom:
     return JoinGeom(B=B, D=e.rows.shape[0], P=P)
 
 
+def copy_tiles(join_in) -> tuple:
+    """Each join's COPY tile count, ceil(Tl / COPY_TILE)."""
+    return tuple(-(-e.keys.shape[0] // COPY_TILE) for e in join_in)
+
+
+def _segment(kind, owner, n, device):
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    return torch.stack([torch.full_like(idx, kind),
+                        torch.full_like(idx, owner), idx], 1)
+
+
 @functools.lru_cache(maxsize=16)
 def build_schedule(sgeom, jgeom, device):
-    """The static part of the descriptor: int32[N, 3] rows of (kind,
-    owner, idx) — one pane tile / dirty slot / probe slot per block, in
-    stage order.  Pure geometry (``sgeom``/``jgeom`` are tuples), made on
-    ``device`` without a host copy and cached per geometry."""
+    """The reference's schedule: int32[N, 3] rows of (kind, owner, idx) —
+    one pane tile / dirty slot / probe slot each, in stage order.  Pure
+    geometry (``sgeom``/``jgeom`` are tuples), made on ``device`` without
+    a host copy and cached per geometry."""
     parts = []
-
-    def seg(kind, owner, n):
-        idx = torch.arange(n, dtype=torch.int32, device=device)
-        parts.append(torch.stack([torch.full_like(idx, kind),
-                                  torch.full_like(idx, owner), idx], 1))
-
     for s, g in enumerate(sgeom):
-        seg(_PANE, s, g.nt)
-        seg(_DIRTY, s, g.D)
+        parts.append(_segment(_PANE, s, g.nt, device))
+        parts.append(_segment(_DIRTY, s, g.D, device))
     for j, g in enumerate(jgeom):
-        seg(_PROBE, j, g.D)
+        parts.append(_segment(_PROBE, j, g.D, device))
     if not parts:
         return torch.zeros((0, 3), dtype=torch.int32, device=device)
     return torch.cat(parts)
 
 
-def build_sdesc(schedule, sgeom, jgeom, scan_rows, probe_buckets):
-    """The full descriptor int32[N, 4] = (kind, owner, idx, gather): the
-    schedule plus the runtime gather column — clamped dirty-row ids for
-    DIRTY rows, routed bucket indices for PROBE rows, zeros for PANE."""
-    dev = schedule.device
-    gathers = []
-    for g, rows in zip(sgeom, scan_rows):
-        gathers.append(torch.zeros((g.nt,), dtype=torch.int32, device=dev))
-        gathers.append(rows.clamp(0, g.nt * g.R - 1).to(torch.int32))
-    gathers += [b.to(torch.int32) for b in probe_buckets]
-    gather = torch.cat(gathers) if gathers else \
-        torch.zeros((0,), dtype=torch.int32, device=dev)
-    return torch.cat([schedule, gather[:, None]], dim=1)
+@functools.lru_cache(maxsize=16)
+def launch_schedule(sgeom, jgeom, ncopy, device):
+    """The kernel's descriptor and its block-item count: (int32[N, 3],
+    n_block).  ``build_schedule``'s rows reordered — every stage's PANE
+    tiles (block items) first, then the warp items: each join's COPY
+    tiles (``ncopy`` = ``copy_tiles``), each stage's DIRTY slots, each
+    join's PROBE slots.  Cached per geometry."""
+    sched = build_schedule(sgeom, jgeom, device)
+    panes, dirty, at = [], [], 0
+    for g in sgeom:
+        panes.append(sched[at:at + g.nt])
+        dirty.append(sched[at + g.nt:at + g.nt + g.D])
+        at += g.nt + g.D
+    copies = [_segment(_COPY, j, n, device) for j, n in enumerate(ncopy)]
+    desc = torch.cat(panes + copies + dirty + [sched[at:]])
+    return desc, sum(g.nt for g in sgeom)
 
 
-def route_probes(join_in):
-    """Each join's routed bucket per dirty slot (the PROBE gathers)."""
-    out = []
-    for e in join_in:
-        P = e.bkeys.shape[0]
-        kd = e.keys[e.rows.long().clamp(0, e.keys.shape[0] - 1)]
-        b = torch.searchsorted(e.bounds, kd, right=True) - 1
-        out.append(b.clamp(0, P - 1))
-    return out
+def grid_blocks(n_block: int, n_warp: int, sms: int) -> int:
+    """Blocks of one launch: enough for every block item or every warp
+    item, at most ``kernels.BLOCKS_PER_SM`` a streaming multiprocessor."""
+    want = max(n_block, -(-n_warp // WARPS), 1)
+    return min(want, sms * _k.BLOCKS_PER_SM)
 
 
 class _ScanArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in
                 ("cols", "lo", "hi", "lo_p", "hi_p", "valid", "carry",
-                 "rows", "scal")] + \
-               [(n, ctypes.c_int) for n in ("C", "T", "Q", "A", "D", "nt")]
+                 "rows", "w0", "span", "dn")] + \
+               [(n, ctypes.c_int) for n in ("C", "T", "Q", "A", "D")]
 
 
 class _JoinArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in
-                ("keys", "rows", "bkeys", "brows", "rid", "dn")] + \
+                ("keys", "rows", "bkeys", "brows", "bounds", "rid_carry",
+                 "rid", "dn")] + \
                [(n, ctypes.c_int) for n in ("Tl", "D", "P", "B")]
 
 
@@ -156,7 +177,8 @@ def _check_inputs(scan_in, join_in, dev):
         for t, name, nd in ((e.cols, "cols", 2), (e.lo, "lo", 2),
                             (e.hi, "hi", 2), (e.lo_p, "lo_p", 2),
                             (e.hi_p, "hi_p", 2), (e.carry, "carry", 2),
-                            (e.rows, "rows", 1)):
+                            (e.rows, "rows", 1), (e.w0, "w0", 0),
+                            (e.span, "span", 0), (e.dn, "dn", 0)):
             _k.require(t, i32, nd, f"scan_in[{s}].{name}", dev)
         _k.require(e.valid, torch.bool, 1, f"scan_in[{s}].valid", dev)
         C, T = e.cols.shape
@@ -165,20 +187,22 @@ def _check_inputs(scan_in, join_in, dev):
                 or e.lo_p.shape != e.hi_p.shape or e.lo_p.shape[0] != C
                 or e.lo_p.shape[1] % 32 or e.lo_p.shape[1] > Q
                 or e.carry.shape != (T, Q // 32) or e.valid.shape[0] != T
-                or C < 1):
+                or C < 1 or C * e.lo_p.shape[1] > MAX_PANE_PREDICATES):
             raise ValueError(f"fused_delta scan_in[{s}]: inconsistent "
                              f"shapes cols {tuple(e.cols.shape)} lo "
                              f"{tuple(e.lo.shape)} lo_p "
                              f"{tuple(e.lo_p.shape)} carry "
-                             f"{tuple(e.carry.shape)}")
+                             f"{tuple(e.carry.shape)} (pane predicates "
+                             f"C * 32A <= {MAX_PANE_PREDICATES})")
     for j, e in enumerate(join_in):
         for t, name, nd in ((e.keys, "keys", 1), (e.rows, "rows", 1),
                             (e.bkeys, "bkeys", 2), (e.brows, "brows", 2),
                             (e.bounds, "bounds", 1),
-                            (e.rid_carry, "rid_carry", 1)):
+                            (e.rid_carry, "rid_carry", 1), (e.dn, "dn", 0)):
             _k.require(t, i32, nd, f"join_in[{j}].{name}", dev)
         if (e.brows.shape != e.bkeys.shape
                 or e.bounds.shape[0] != e.bkeys.shape[0]
+                or e.bkeys.shape[0] < 1
                 or e.rid_carry.shape != e.keys.shape):
             raise ValueError(f"fused_delta join_in[{j}]: inconsistent "
                              f"shapes")
@@ -189,7 +213,7 @@ def fused_delta(scan_in, join_in):
     stage, merged rids per join); contract of kernels/ref.fused_delta_ref.
 
     On CUDA the words are the stages' ``carry`` tensors, merged in place,
-    and the rids are new tensors."""
+    and the rids are new tensors; the launch is the one device op."""
     scan_in, join_in = tuple(scan_in), tuple(join_in)
     if not scan_in and not join_in:
         return (), ()
@@ -199,15 +223,8 @@ def fused_delta(scan_in, join_in):
     _check_inputs(scan_in, join_in, dev)
     sgeom = tuple(scan_geometry(e) for e in scan_in)
     jgeom = tuple(join_geometry(e) for e in join_in)
-    schedule = build_schedule(sgeom, jgeom, dev)
-    sdesc = build_sdesc(schedule, sgeom, jgeom, [e.rows for e in scan_in],
-                        route_probes(join_in))
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    scal = torch.stack([torch.stack([e.w0, e.span, e.dn]).to(torch.int32)
-                        for e in scan_in]) if scan_in else zero
-    jdn = torch.stack([e.dn.to(torch.int32) for e in join_in]) \
-        if join_in else zero
-    rids = tuple(e.rid_carry.clone() for e in join_in)
+    desc, n_block = launch_schedule(sgeom, jgeom, copy_tiles(join_in), dev)
+    rids = tuple(torch.empty_like(e.rid_carry) for e in join_in)
 
     args = _FusedArgs(ns=len(scan_in), nj=len(join_in))
     for s, (g, e) in enumerate(zip(sgeom, scan_in)):
@@ -217,18 +234,22 @@ def fused_delta(scan_in, join_in):
         a.lo_p, a.hi_p = e.lo_p.data_ptr(), e.hi_p.data_ptr()
         a.valid = e.valid.view(torch.uint8).data_ptr()
         a.carry, a.rows = e.carry.data_ptr(), e.rows.data_ptr()
-        a.scal = scal.data_ptr() + 12 * s
-        a.C, a.T, a.Q, a.A, a.D, a.nt = g.C, e.cols.shape[1], g.Q, g.A, \
-            g.D, g.nt
+        a.w0, a.span, a.dn = e.w0.data_ptr(), e.span.data_ptr(), \
+            e.dn.data_ptr()
+        a.C, a.T, a.Q, a.A, a.D = g.C, e.cols.shape[1], g.Q, g.A, g.D
     for j, (g, e, rid) in enumerate(zip(jgeom, join_in, rids)):
         a = args.j[j]
         a.keys, a.rows = e.keys.data_ptr(), e.rows.data_ptr()
         a.bkeys, a.brows = e.bkeys.data_ptr(), e.brows.data_ptr()
-        a.rid, a.dn = rid.data_ptr(), jdn.data_ptr() + 4 * j
+        a.bounds, a.rid_carry = e.bounds.data_ptr(), e.rid_carry.data_ptr()
+        a.rid, a.dn = rid.data_ptr(), e.dn.data_ptr()
         a.Tl, a.D, a.P, a.B = e.keys.shape[0], g.D, g.P, g.B
+    n_items = desc.shape[0]
     code = _k.library().shareddb_fused_delta(
-        sdesc.data_ptr(), sdesc.shape[0], ctypes.byref(args),
-        _k.stream_of(sdesc))
+        desc.data_ptr(), n_block, n_items,
+        grid_blocks(n_block, n_items - n_block, _k.sm_count(dev)),
+        max((8 * g.C * 32 * g.A for g in sgeom), default=0),
+        ctypes.byref(args), _k.stream_of(desc))
     _k.LAUNCHES["fused_delta"] += 1
     _k.check_launch(code, "fused_delta")
     return tuple(e.carry for e in scan_in), rids

@@ -72,9 +72,10 @@ def _scan(rng, dev, T, C, Q, A, D, dn, span, seam=()):
         _t(rows, dev), _t(dn, dev))
 
 
-def _join(rng, dev, Tl, Tr, D, dn, pseudo=False):
+def _join(rng, dev, Tl, Tr, D, dn, pseudo=False, seam=()):
     """One FusedJoinIn over key partitions, or over the block join's
-    single-bucket pseudo-partitions."""
+    single-bucket pseudo-partitions; dirty rows include the ``seam``
+    rows, ascending, sentinel-padded to D slots."""
     kr = _t(rng.permutation(Tr), dev)
     vr = _t(rng.random(Tr) < 0.9, dev, torch.bool)
     if pseudo:
@@ -84,15 +85,88 @@ def _join(rng, dev, Tl, Tr, D, dn, pseudo=False):
                  _t([np.iinfo(np.int32).min], dev))
     else:
         parts = build_key_partitions(kr, vr, 2, Tr // 2 + 8)
-    rows = np.sort(rng.choice(Tl, dn, replace=False))
+    pool = [r for r in seam if r < Tl]
+    rest = [r for r in rng.choice(Tl, min(Tl, dn + len(pool)), replace=False)
+            if r not in pool]
+    rows = np.sort(np.asarray(pool + rest, np.int64)[:dn])
     rows = np.concatenate([rows, np.full(D - dn, Tl)])
     return FusedJoinIn(_t(rng.integers(0, Tr, Tl), dev), _t(rows, dev),
                        _t(dn, dev), *parts, _t(rng.integers(-1, Tr, Tl), dev))
 
 
+def _fused_case(case, rng, dev):
+    """(scan_in, join_in) of one fused_delta card case."""
+    i32 = np.iinfo(np.int32)
+    if case == "mixed":
+        return ((_scan(rng, dev, 300, 2, 64, 1, 8, 5, 1),
+                 _scan(rng, dev, 256, 3, 96, 2, 16, 0, 0),
+                 _scan(rng, dev, 700, 1, 32, 1, 4, 4, 1)),
+                (_join(rng, dev, 300, 128, 8, 3),
+                 _join(rng, dev, 256, 64, 8, 8, pseudo=True)))
+    if case == "seams":
+        return ((_scan(rng, dev, 300, 2, 64, 1, 8, 5, 1,
+                       seam=(0, 255, 256, 299)),),
+                (_join(rng, dev, 300, 64, 4, 2),))
+    if case == "block":   # P = 1, B = the PK capacity, live probes
+        return ((_scan(rng, dev, 500, 1, 32, 1, 16, 3, 1),),
+                (_join(rng, dev, 500, 128, 16, 7, pseudo=True),
+                 _join(rng, dev, 500, 100, 16, 2, pseudo=True)))
+    if case == "identity":
+        return ((_scan(rng, dev, 128, 2, 64, 2, 8, 0, 0),),
+                (_join(rng, dev, 128, 32, 4, 0),))
+    if case == "idle_stages_live_probes":   # span 0 and dn 0 everywhere
+        return ((_scan(rng, dev, 300, 2, 64, 1, 8, 0, 0),
+                 _scan(rng, dev, 700, 1, 32, 1, 4, 0, 0)),
+                (_join(rng, dev, 300, 128, 8, 5),
+                 _join(rng, dev, 256, 64, 8, 8, pseudo=True)))
+    if case == "route_edges":   # probe keys below the first bound, above
+        ji = []                 # the last, and at the int32 extremes
+        for pseudo in (False, True):
+            e = _join(rng, dev, 400, 160, 8, 6, pseudo=pseudo)
+            keys, rows = e.keys.clone(), e.rows.long()
+            lo_b, hi_b = int(e.bounds[0]), int(e.bounds[-1])
+            for r, k in zip(rows[:4], (max(lo_b, i32.min + 1) - 1, i32.min,
+                                       i32.max, min(hi_b, i32.max - 1) + 1)):
+                keys[r] = k
+            ji.append(e._replace(keys=keys))
+        return (), tuple(ji)
+    if case == "pads":   # the first pad at every slot position, and an
+        # all-pad set whose live count says 1
+        si = [_scan(rng, dev, 200, 1, 32, 1, 8, n, 1) for n in range(9)]
+        ji = [_join(rng, dev, 200, 64, 8, n, pseudo=n % 2 == 1)
+              for n in range(9)]
+        si.append(_scan(rng, dev, 200, 2, 64, 1, 8, 0, 1)._replace(
+            dn=_t(1, dev)))
+        ji.append(_join(rng, dev, 200, 64, 8, 0)._replace(dn=_t(1, dev)))
+        return tuple(si), tuple(ji)
+    if case == "max_stages_joins":   # MAX_STAGES and MAX_JOINS
+        return (tuple(_scan(rng, dev, 100 + 37 * s, 1 + s % 3,
+                            32 * (1 + s % 4), 1, 8, s % 6, s % 2)
+                      for s in range(tfd.MAX_STAGES)),
+                tuple(_join(rng, dev, 100 + 53 * j, 64 + j, 8, j % 6,
+                            pseudo=j % 2 == 1)
+                      for j in range(tfd.MAX_JOINS)))
+    if case == "order_line":   # a 116 640-row spine, dirty rows on the
+        # pane-tile and copy-tile seams
+        T = 116640
+        return ((_scan(rng, dev, T, 1, 96, 1, 128, 6, 1,
+                       seam=(0, 255, 256, 1023, 1024, T - 1)),),
+                (_join(rng, dev, T, 12048, 128, 8,
+                       seam=(0, 1023, 1024, 2047, 2048, T - 1)),))
+    raise KeyError(case)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,T,Q", [(1, 256, 32), (3, 515, 64), (2, 300, 416)])
+@pytest.mark.parametrize("C,T,Q", [
+    (1, 256, 32), (3, 515, 64), (2, 300, 416),
+    # the reseed beat's six scans at full scale (customer, item, author,
+    # order_line, orders, shopping_cart_line)
+    (2, 43200, 96), (3, 12048, 352), (1, 3524, 224), (1, 116640, 96),
+    (2, 38880, 128), (1, 43200, 32),
+    (2, 1, 64), (1, 33, 32), (3, 8191, 416)])
 def test_clockscan_matches_plain(cuda_device, C, T, Q):
+    """Ragged tails, invalid rows, one row, one row past a warp's tile,
+    and the main path's shapes."""
     rng = np.random.default_rng(C * T)
     dev = cuda_device
     cols = _t(rng.integers(-50, 100, (C, T)), dev)
@@ -136,37 +210,33 @@ def test_partitioned_join_matches_plain(cuda_device, Tr, Tl, W, frac, B,
         assert torch.equal(a, b)
 
 
+FUSED_CARD_CASES = ["mixed", "seams", "identity", "block",
+                    "idle_stages_live_probes", "route_edges", "pads",
+                    "max_stages_joins", "order_line"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mixed", "seams", "identity", "block"])
+@pytest.mark.parametrize("case", FUSED_CARD_CASES)
 def test_fused_delta_matches_plain(cuda_device, case):
-    """Mixed stages and joins in one launch, dirty rows on pane-tile
-    seams, and the span == 0 / dn == 0 identity."""
+    """Mixed stages and joins in one launch, dirty rows on pane-tile and
+    copy-tile seams, the span == 0 / dn == 0 identity, idle stages with
+    live probes, probe keys past either end of the bounds, pads at every
+    slot position, 16 stages and 16 joins, and an order_line-sized
+    spine; one launch each."""
     rng = np.random.default_rng(len(case))
-    dev = cuda_device
-    if case == "mixed":
-        si = (_scan(rng, dev, 300, 2, 64, 1, 8, 5, 1),
-              _scan(rng, dev, 256, 3, 96, 2, 16, 0, 0),
-              _scan(rng, dev, 700, 1, 32, 1, 4, 4, 1))
-        ji = (_join(rng, dev, 300, 128, 8, 3),
-              _join(rng, dev, 256, 64, 8, 8, pseudo=True))
-    elif case == "seams":
-        si = (_scan(rng, dev, 300, 2, 64, 1, 8, 5, 1,
-                    seam=(0, 255, 256, 299)),)
-        ji = (_join(rng, dev, 300, 64, 4, 2),)
-    elif case == "block":   # P = 1, B = the PK capacity, live probes
-        si = (_scan(rng, dev, 500, 1, 32, 1, 16, 3, 1),)
-        ji = (_join(rng, dev, 500, 128, 16, 7, pseudo=True),
-              _join(rng, dev, 500, 100, 16, 2, pseudo=True))
-    else:
-        si = (_scan(rng, dev, 128, 2, 64, 2, 8, 0, 0),)
-        ji = (_join(rng, dev, 128, 32, 4, 0),)
-    carry = si[0].carry.clone()
+    si, ji = _fused_case(case, rng, cuda_device)
+    carries = [e.carry.clone() for e in si]
     want_w, want_r = tref.fused_delta_ref(si, ji)   # out of place
+    before = K.LAUNCHES["fused_delta"]
     got_w, got_r = tfd.fused_delta(si, ji)          # words merge in place
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_delta"] == before + 1
     for a, b in zip(got_w + got_r, want_w + want_r):
         assert torch.equal(a, b)
+    if case in ("identity", "idle_stages_live_probes"):
+        for a, c in zip(got_w, carries):
+            assert torch.equal(a, c)
     if case == "identity":
-        assert torch.equal(got_w[0], carry)
         assert torch.equal(got_r[0], ji[0].rid_carry)
 
 

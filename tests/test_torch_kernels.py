@@ -256,6 +256,23 @@ def _both(scans, joins):
     return rs, rj, ts, tj
 
 
+def with_route_edges(j):
+    """A mk_join whose first four dirty rows' keys lie below the first
+    bound, at the int32 extremes and above the last bound."""
+    keys, rows, dn, bkeys, brows, bounds, rid_carry = j
+    i32 = np.iinfo(np.int32)
+    keys = keys.copy()
+    keys[rows[:4]] = (max(int(bounds[0]), i32.min + 1) - 1, i32.min, i32.max,
+                      min(int(bounds[-1]), i32.max - 1) + 1)
+    return (keys, rows, dn, bkeys, brows, bounds, rid_carry)
+
+
+def with_dn(entry, dn):
+    """A mk_scan / mk_join tuple whose live count says ``dn``."""
+    at = 10 if len(entry) == 11 else 2
+    return entry[:at] + (np.int32(dn),) + entry[at + 1:]
+
+
 FUSED_CASES = {
     # three stages (padded tail at T=300, exact tile, two-tile tail) + a
     # partitioned and a pseudo-partitioned probe in one launch
@@ -279,6 +296,17 @@ FUSED_CASES = {
     "block": ((mk_scan(200, 1, 32, 1, 8, 3, 1, 14),),
               (mk_join(200, 100, 8, 6, 15, pseudo=True),)),
     "join_only": ((), (mk_join(100, 50, 4, 4, 8),)),
+    # probe keys past either end of the bounds (the kernel routes them)
+    "route_edges": ((), (with_route_edges(mk_join(300, 120, 8, 6, 16)),
+                         with_route_edges(mk_join(300, 120, 8, 6, 17,
+                                                  pseudo=True)))),
+    # the first pad at every slot position; all-pad sets whose live count
+    # says 1
+    "pads": (tuple(mk_scan(100, 1, 32, 1, 8, n, 1, 20 + n) for n in range(9))
+             + (with_dn(mk_scan(100, 2, 64, 1, 8, 0, 1, 29), 1),),
+             tuple(mk_join(100, 40, 8, n, 30 + n, pseudo=n % 2 == 1)
+                   for n in range(9))
+             + (with_dn(mk_join(100, 40, 8, 0, 39), 1),)),
 }
 
 
@@ -308,6 +336,11 @@ def test_fused_delta_plain_matches_pallas_and_jnp(case):
 
 @pytest.mark.parametrize("case", sorted(FUSED_CASES))
 def test_fused_schedule_and_descriptor_equal_reference(case):
+    """The port's schedule is the reference's; the kernel's static launch
+    descriptor is that schedule reordered (block items first) plus the
+    COPY tiles; and the gathers the kernel makes itself (each DIRTY
+    slot's row, each PROBE slot's routed bucket), replayed in torch,
+    equal the reference's runtime gather column."""
     scans, joins = FUSED_CASES[case]
     rs, rj, ts, tj = _both(scans, joins)
     rsg = [rfd.scan_geometry(e) for e in rs]
@@ -319,6 +352,18 @@ def test_fused_schedule_and_descriptor_equal_reference(case):
     rsched = rfd.build_schedule(rsg, rjg)
     tsched = tfd.build_schedule(tsg, tjg, "cpu")
     np.testing.assert_array_equal(tsched.numpy(), rsched)
+    ncopy = tfd.copy_tiles(tj)
+    assert ncopy == tuple(-(-e.keys.shape[0] // tfd.COPY_TILE) for e in tj)
+    desc, n_block = tfd.launch_schedule(tsg, tjg, ncopy, "cpu")
+    d = desc.numpy()
+    assert n_block == sum(g.nt for g in tsg)
+    assert (d[:n_block, 0] == _PANE).all() and (d[n_block:, 0] != _PANE).all()
+    kept = d[d[:, 0] != _COPY]
+    assert sorted(map(tuple, kept)) == sorted(map(tuple, rsched))
+    copies = d[d[:, 0] == _COPY]
+    for j, n in enumerate(ncopy):
+        np.testing.assert_array_equal(copies[copies[:, 1] == j, 2],
+                                      np.arange(n))
     if not scans and not joins:
         return
     rbuckets = []
@@ -326,11 +371,221 @@ def test_fused_schedule_and_descriptor_equal_reference(case):
         kd = e.keys[jnp.clip(e.rows, 0, e.keys.shape[0] - 1)]
         b = jnp.searchsorted(e.bounds, kd, side="right").astype(jnp.int32)
         rbuckets.append(jnp.clip(b - 1, 0, g.P - 1))
-    rdesc = rfd.build_sdesc(rsched, rsg, rjg, [e.rows for e in rs],
-                            rbuckets)
-    tdesc = tfd.build_sdesc(tsched, tsg, tjg, [e.rows for e in ts],
-                            tfd.route_probes(tj))
-    np.testing.assert_array_equal(tdesc.numpy(), np.asarray(rdesc))
+    rdesc = np.asarray(rfd.build_sdesc(rsched, rsg, rjg,
+                                       [e.rows for e in rs], rbuckets))
+    gather = {}                     # (kind, owner, idx) -> reference gather
+    for (kind, owner, idx), g in zip(rdesc[:, :3], rdesc[:, 3]):
+        gather[(kind, owner, idx)] = g
+    for s, (g, e) in enumerate(zip(tsg, ts)):
+        T_ = e.cols.shape[1]
+        for idx in range(g.D):
+            row = int(e.rows[idx])              # the kernel's rows[idx]
+            want = gather[(_DIRTY, s, idx)]
+            if 0 <= row < T_:
+                assert row == want
+            else:                               # a pad: the kernel skips,
+                assert want >= T_ - 1           # the reference's drops
+    for j, (g, e) in enumerate(zip(tjg, tj)):
+        for idx in range(g.D):
+            row = min(max(int(e.rows[idx]), 0), e.keys.shape[0] - 1)
+            key = int(e.keys[row])
+            assert _route_bucket(e.bounds, key) == \
+                gather[(_PROBE, j, idx)]
+
+
+# ------------------------------------------------ the kernels' walks, replayed
+# What each CUDA kernel's grid does, in numpy: the wrappers' own geometry
+# (tile_geometry / grid_blocks / launch_schedule), every block and warp of
+# the grid and the items each takes, and exactly-once coverage of the
+# outputs.  The card tests hold the kernels themselves to the plain versions.
+POISON = np.uint32(0x5EADBEEF)
+_PANE, _DIRTY, _PROBE, _COPY = 0, 1, 2, 3
+
+
+def _route_bucket(bounds, key):
+    """csrc/common.cuh route_bucket: the last bound <= key, clipped."""
+    b = [int(x) for x in bounds]
+    lo, hi = 0, len(b)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if b[mid] <= key:
+            lo = mid + 1
+        else:
+            hi = mid
+    return min(max(lo - 1, 0), len(b) - 1)
+
+
+def _row_words(cols, rows, live, lo, hi, q0):
+    """csrc/common.cuh row_word, one lane per entry of ``rows``: the word
+    of queries [q0, q0 + 32) of each row (0 where not ``live``)."""
+    bad = np.zeros(len(rows), np.uint32)
+    for c in range(cols.shape[0]):
+        x = cols[c, rows]
+        for b in range(32):
+            miss = (x < lo[c, q0 + b]) | (x > hi[c, q0 + b])
+            bad |= np.where(miss, np.uint32(1 << b), np.uint32(0))
+    return np.where(live, ~bad, np.uint32(0))
+
+
+def _clockscan_walk(cols, lo, hi, valid, sms):
+    """clockscan_kernel's grid: blocks a grid stride apart over tiles of
+    32 * rt rows, warp (sub, phase) on rows of subtile ``sub`` and every
+    g-th word from ``phase``, the tile's words staged and stored in
+    16-byte pieces; every word written exactly once."""
+    C, T_ = cols.shape
+    W = lo.shape[1] // 32
+    rt, g = tcs.tile_geometry(W)
+    assert rt * g <= tcs.WARPS
+    blocks = tcs.grid_blocks(T_, W, sms)
+    tile_rows = 32 * rt
+    n_tiles = -(-T_ // tile_rows)
+    out = np.full(T_ * W, POISON, np.uint32)
+    writes = np.zeros(T_ * W, np.int64)
+    lane = np.arange(32)
+    for blk in range(blocks):
+        for tile in range(blk, n_tiles, blocks):
+            r0 = tile * tile_rows
+            nrows = min(tile_rows, T_ - r0)
+            buf = np.full(tile_rows * W, POISON, np.uint32)
+            for warp in range(tcs.WARPS):
+                sub, phase = warp % rt, warp // rt
+                if phase >= g or sub * 32 >= nrows:
+                    continue
+                rows = r0 + sub * 32 + lane
+                inr = rows < T_
+                safe = np.minimum(rows, T_ - 1)
+                live = inr & valid[safe]
+                for k in range(phase, W, g):
+                    words = _row_words(cols, safe, live, lo, hi, k * 32)
+                    buf[(sub * 32 + lane[inr]) * W + k] = words[inr]
+            n, base = nrows * W, r0 * W
+            assert base * 4 % 16 == 0                  # int4-aligned
+            out[base:base + n] = buf[:n]
+            writes[base:base + n] += 1
+    assert (writes == 1).all()
+    return out.reshape(T_, W)
+
+
+# the reseed beat's six scans (C, Q, T at full scale: customer, item,
+# author, order_line, orders, shopping_cart_line), T cut to <= 600
+CLOCKSCAN_TPCW = [(2, 96, 600), (3, 352, 448), (1, 224, 524), (1, 96, 577),
+                  (2, 128, 389), (1, 32, 600)]
+
+
+@pytest.mark.parametrize("C,Q,Tn", CLOCKSCAN_TPCW)
+def test_clockscan_walk_matches_plain(C, Q, Tn):
+    """The persistent tile walk at 4 blocks (several tiles a block) and
+    at one block per tile, ragged tails and invalid rows included."""
+    rng = np.random.default_rng(C * Q + Tn)
+    cols = rng.integers(-50, 100, (C, Tn)).astype(np.int32)
+    lo = rng.integers(-60, 50, (C, Q)).astype(np.int32)
+    hi = lo + rng.integers(0, 80, (C, Q)).astype(np.int32)
+    valid = rng.random(Tn) > 0.15
+    want = U(tref.clockscan_ref(*(torch.as_tensor(x)
+                                  for x in (cols, lo, hi, valid))))
+    np.testing.assert_array_equal(
+        want, np.asarray(rref.clockscan_ref(
+            *(jnp.asarray(x) for x in (cols, lo, hi, valid)))))
+    for sms in (1, 132):
+        np.testing.assert_array_equal(
+            _clockscan_walk(cols, lo, hi, valid, sms), want)
+
+
+def _fused_walk(ts, tj, sms):
+    """fused_delta_kernel's grid: the block items (PANE tiles) a grid
+    stride apart, then the warp items warp-major; every item taken once,
+    every rid written exactly once.  Returns (words, rids) as numpy."""
+    sgeom = tuple(tfd.scan_geometry(e) for e in ts)
+    jgeom = tuple(tfd.join_geometry(e) for e in tj)
+    desc, n_block = tfd.launch_schedule(sgeom, jgeom, tfd.copy_tiles(tj),
+                                        "cpu")
+    d = desc.numpy()
+    N = d.shape[0]
+    blocks = tfd.grid_blocks(n_block, N - n_block, sms)
+    sn = [{k: v.numpy() for k, v in e._asdict().items()} for e in ts]
+    jn = [{k: v.numpy() for k, v in e._asdict().items()} for e in tj]
+    words = [U(e.carry).copy() for e in ts]
+    rids = [np.full(e.keys.shape[0], POISON.view(np.int32)) for e in tj]
+    writes = [np.zeros(e.keys.shape[0], np.int64) for e in tj]
+    # what each block reads into shared memory first
+    w0 = [min(max(int(e["w0"]), 0), g.Q // 32 - g.A)
+          for e, g in zip(sn, sgeom)]
+    seen = np.zeros(N, np.int64)
+    for blk in range(blocks):
+        for it in range(blk, n_block, blocks):
+            seen[it] += 1
+            kind, s, tile = d[it]
+            assert kind == _PANE
+            e, g = sn[s], sgeom[s]
+            if int(e["span"]) <= 0:
+                continue
+            rows = tile * tfd.PANE_TILE + np.arange(tfd.PANE_TILE)
+            rows = rows[rows < e["cols"].shape[1]]    # threads past T
+            for a in range(g.A):
+                words[s][rows, w0[s] + a] = _row_words(
+                    e["cols"], rows, e["valid"][rows], e["lo_p"], e["hi_p"],
+                    a * 32)
+    for blk in range(blocks):
+        for warp in range(tfd.WARPS):
+            for it in range(n_block + warp * blocks + blk, N,
+                            blocks * tfd.WARPS):
+                seen[it] += 1
+                kind, o, idx = d[it]
+                if kind == _DIRTY and int(sn[o]["dn"]) > 0:
+                    e = sn[o]
+                    row = int(e["rows"][idx])
+                    if 0 <= row < e["cols"].shape[1]:
+                        for k in range(sgeom[o].Q // 32):  # lanes: queries
+                            words[o][row, k] = _row_words(
+                                e["cols"], [row], e["valid"][[row]], e["lo"],
+                                e["hi"], k * 32)[0]
+                elif kind == _PROBE and int(jn[o]["dn"]) > 0:
+                    e = jn[o]
+                    row = int(e["rows"][idx])
+                    if 0 <= row < e["keys"].shape[0]:
+                        key = int(e["keys"][row])
+                        b = _route_bucket(e["bounds"], key)
+                        hit = (e["bkeys"][b] == key) & (e["brows"][b] >= 0)
+                        rids[o][row] = e["brows"][b][hit].max() \
+                            if hit.any() else -1
+                        writes[o][row] += 1
+                elif kind == _COPY:
+                    e = jn[o]
+                    a = idx * tfd.COPY_TILE
+                    b = min(a + tfd.COPY_TILE, e["keys"].shape[0])
+                    i = np.arange(a, b)
+                    skip = np.zeros(len(i), bool)
+                    s0, s1 = np.searchsorted(e["rows"], [a, b])
+                    if int(e["dn"]) > 0 and s1 > s0:
+                        near = e["rows"][s0:s1]
+                        at = np.searchsorted(near, i)
+                        skip = (at < len(near)) & \
+                            (near[np.minimum(at, len(near) - 1)] == i)
+                    rids[o][i[~skip]] = e["rid_carry"][i[~skip]]
+                    writes[o][i[~skip]] += 1
+    assert (seen == 1).all()
+    for w in writes:
+        assert (w == 1).all()
+    return words, rids
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_walk_matches_pallas_and_jnp(case):
+    """The fused kernel's walk (PANE blocks, DIRTY / PROBE / COPY warps)
+    at 4 blocks and at the full card's grid equals the reference."""
+    scans, joins = FUSED_CASES[case]
+    rs, rj, ts, tj = _both(scans, joins)
+    want = [rref.fused_delta_ref(rs, rj)]
+    if case in FUSED_PALLAS:
+        want.append(rfd.fused_delta_pallas(rs, rj, interpret=True))
+    for sms in (1, 132):
+        wt, rt = _fused_walk(ts, tj, sms)
+        for wr, rr in want:
+            assert len(wt) == len(wr) and len(rt) == len(rr)
+            for a, b in zip(wt, wr):
+                np.testing.assert_array_equal(a, np.asarray(b))
+            for a, b in zip(rt, rr):
+                np.testing.assert_array_equal(a, np.asarray(b))
 
 
 def test_hopper_ops_are_kernel_wrappers_with_plain_cpu_results():

@@ -10,7 +10,8 @@ capability 9.0+ and the CUDA toolkit.  It:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the hand-written kernels from src/repro_torch/kernels/csrc
      into build/ (nvcc, one process per source, in parallel), and prints
-     ptxas's report and the HGMMA (wgmma) count in the SASS of the
+     ptxas's report (registers, stack and spills of partitioned_join and
+     delta_scan) and the HGMMA (wgmma) count in the SASS of the
      tensor-core flash-attention kernel;
   3. holds each of the eight kernels against its plain PyTorch version on
      the card on small edge cases: padded tails, invalid rows, empty
@@ -18,7 +19,10 @@ capability 9.0+ and the CUDA toolkit.  It:
      live probes, probe keys past either end of the bounds, pads at every
      slot position, 16 stages and 16 joins in one fused launch, an
      order_line-sized spine with dirty rows on tile seams, the reseed
-     beat's six scan shapes at full scale, ragged block-join
+     beat's six scan shapes and four partitioned joins at full scale,
+     duplicate key runs across buckets, keys at INT_SENTINEL - 1, 70 003
+     buckets, the chained beat's seven delta_scan stages in one launch
+     and 40 stages in two, ragged block-join
      sides past the kernel's staging chunk with invalid rows repeating a
      valid key, all-pad dirty sets and dirty rows at T-1; flash attention
      on the reference's five test shapes, ragged S (24, 200), Sq < Sk,
@@ -44,7 +48,8 @@ capability 9.0+ and the CUDA toolkit.  It:
          block join's and the cart join's spines;
        chained — a cold engine compiled with all 14 templates on
          ``hopper-chained`` (the hopper kernels without fused_delta, so the
-         delta beat chains scan / delta_scan / delta_join), replaying the
+         delta beat chains 7 pane scans, ONE delta_scan over the 7 stages
+         and 4 delta_joins), replaying the
          fold path's beats;
      on every beat the tickets must equal those of a twin engine with the
      same history on the plain ``torch`` backend and, on a sample, the
@@ -86,7 +91,8 @@ capability 9.0+ and the CUDA toolkit.  It:
      device ops it enqueues (fused_delta may enqueue at most one per join
      beside its launch) and its wall time (a pair of CUDA events per
      call), beside a bound computed from the bytes and operations of
-     those inputs; flash attention at
+     those inputs; partitioned_join and delta_scan once more with the
+     card's L2 cache flushed before every call; flash attention at
      three recorded calls (yi-6b's 512-token prefill, gemma3-27b's
      2048-token window-1024 and causal layers), each beside one PyTorch
      call of the same function (scaled_dot_product_attention, with the
@@ -172,12 +178,27 @@ FUSED_STEADY = {"fused_delta": 1, "groupby": 1}
 # customer, item, author, order_line, orders, shopping_cart_line
 CLOCKSCAN_MAIN = ((2, 43200, 96), (3, 12048, 352), (1, 3524, 224),
                   (1, 116640, 96), (2, 38880, 128), (1, 43200, 32))
-# device ms of the previous design of the redesigned kernels (clockscan a
-# warp per row, fused_delta a block per descriptor row and its gathers in
-# torch ops), as PERF.md §6 records them (NVIDIA H100 80GB HBM3, 700 W):
-# printed beside this run's
-PREVIOUS_DESIGN_MS = {"clockscan": 0.090982, "fused_delta": 0.090253}
-CHAINED_STEADY = {"scan": 7, "scan_delta": 7, "join_delta": 4, "groupby": 1}
+# device ms of a timed set of the previous design of each redesigned
+# SharedDB kernel, as PERF.md §6 records them (NVIDIA H100 80GB HBM3,
+# 700 W): clockscan a warp per row; fused_delta a block per descriptor
+# row with its gathers in torch ops; partitioned_join a warp per left row
+# scanning its whole bucket; delta_scan one launch per stage, 7 a chained
+# beat; printed beside this run's
+PREVIOUS_DESIGN_MS = {"clockscan": 0.090982, "fused_delta": 0.090253,
+                      "partitioned_join": 0.101247, "delta_scan": 0.010399}
+CHAINED_STEADY = {"scan": 7, "scan_delta": 1, "join_delta": 4, "groupby": 1}
+# (T, C, Q, D) of a chained steady beat's seven predicated stages at full
+# scale: customer, item, author, order_line, orders, shopping_cart_line,
+# address (14 templates, the index-less catalog)
+DELTA_SCAN_MAIN = ((43200, 2, 96, 128), (12048, 3, 352, 128),
+                   (3524, 1, 224, 128), (116640, 1, 96, 128),
+                   (38880, 2, 128, 128), (43200, 1, 32, 128),
+                   (51392, 1, 64, 128))
+# profiled windows device_ms tries before it takes a trace without any
+# event of the kernel as the trace's answer
+PROFILE_ATTEMPTS = 3
+# bytes written between two calls to flush the card's 50 MB L2 cache
+L2_FLUSH_BYTES = 128 * 2 ** 20
 
 
 def fail(msg):
@@ -217,7 +238,7 @@ def wall_ms(fn, setup=None, reps=30):
     return statistics.median(samples)
 
 
-def device_ms(fn, kernel, setup=None, reps=20):
+def device_ms(fn, kernel, setup=None, reps=20, launches_kernel=True):
     """Time on the card per call of ``fn``, from a torch.profiler trace:
     (all device work that the call launched, that of the kernels whose
     name holds ``kernel``, launches of those kernels per call).
@@ -232,7 +253,10 @@ def device_ms(fn, kernel, setup=None, reps=20):
     whole number nearest to its events per call).  ``setup`` runs before
     each call, outside the range.  The third value is the events of
     ``kernel`` that the trace holds per call, the fourth the device ops
-    (kernels, copies, fills) that one whole call enqueues."""
+    (kernels, copies, fills) that one whole call enqueues.  A trace that
+    holds no device event, or none of ``kernel`` where ``fn`` launches it
+    (``launches_kernel``), is taken again, up to PROFILE_ATTEMPTS
+    windows: now and then a trace comes back without them."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     for _ in range(3):
@@ -240,15 +264,24 @@ def device_ms(fn, kernel, setup=None, reps=20):
             setup()
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if setup is not None:
-                setup()
-            with record_function("chip_smoke.call"):
-                fn()
-        torch.cuda.synchronize()
-    events = prof.events()
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if setup is not None:
+                    setup()
+                with record_function("chip_smoke.call"):
+                    fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        names = [e.name for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names and (not launches_kernel
+                      or any(kernel in n for n in names)):
+            break
+        print(f"profiler: no device event{' of ' + kernel if names else ''}"
+              f" in the trace (attempt {attempt + 1} of "
+              f"{PROFILE_ATTEMPTS})")
 
     def linked(ev):
         yield from ev.kernels
@@ -270,6 +303,13 @@ def device_ms(fn, kernel, setup=None, reps=20):
     other_us = sum(map(sum, whole)) / len(whole)
     return ((other_us + own_us) / 1e3, own_us / 1e3, len(own) / reps,
             len(whole[0]) + launches)
+
+
+def cold_l2_ms(fn, name, flush):
+    """The kernel's own device time in one call of ``fn`` with the card's
+    L2 cache flushed before every call (``flush`` written over, outside
+    the timed range): what a caller that finds its inputs in HBM pays."""
+    return device_ms(fn, KERNEL_SYMBOLS[name], setup=flush.zero_)[1]
 
 
 def bound_ms(nbytes, nops, ops_per_s=CUDA_CORE_OPS_PER_S):
@@ -318,7 +358,8 @@ def same(a, b, what):
 def edge_cases(dev):
     import numpy as np
     import torch
-    from repro_torch.core.backends import FusedJoinIn, FusedScanIn
+    from repro_torch.core.backends import (DeltaScanIn, FusedJoinIn,
+                                           FusedScanIn)
     from repro_torch.core.storage import INT_SENTINEL, build_key_partitions
     from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
                                      partitioned_join, ref, shared_groupby)
@@ -353,20 +394,34 @@ def edge_cases(dev):
         same(c1, c2, "shared_groupby counts")
         if not torch.allclose(s1, s2, rtol=1e-6):
             fail("shared_groupby sums")
-    # partitioned_join: empty buckets, all-invalid, duplicates
-    for Tr, Tl, W, frac, B, extra in ((160, 120, 2, 0.8, 48, 0),
-                                      (130, 300, 1, 0.2, 7, 3),
-                                      (64, 64, 3, 0.0, 16, 1),
-                                      (257, 129, 13, 1.0, 32, 0)):
-        keys_r = t(rng.integers(-2, Tr, Tr))          # with duplicates
-        valid_r = t(rng.random(Tr) < frac, torch.bool)
-        P = -(-Tr // B) + extra
-        parts = build_key_partitions(keys_r, valid_r, P, B)
-        kl, ml, mr = t(rng.integers(-3, Tr + 3, Tl)), words((Tl, W)), \
-            words((Tr, W))
+    # partitioned_join: empty buckets, all-invalid right sides, duplicate
+    # runs across buckets (keys drawn from `span` values), left keys below
+    # the first bound, past the last and at INT_SENTINEL - 1; Tl 1, 31,
+    # 33, 129; W 1, 13, 40; a P whose bounds outgrow shared memory; the
+    # reseed beat's four joins at full scale (B 256, W 13)
+    for Tr, Tl, W, frac, B, extra, span in (
+            (160, 120, 2, 0.8, 48, 0, 0), (130, 300, 1, 0.2, 7, 3, 0),
+            (64, 64, 3, 0.0, 16, 1, 0), (257, 129, 13, 1.0, 32, 0, 0),
+            (200, 129, 13, 0.9, 8, 0, 12), (130, 33, 1, 0.2, 7, 3, 0),
+            (64, 31, 40, 0.0, 16, 1, 0), (5, 1, 13, 1.0, 2, 2, 0),
+            (100, 129, 40, 0.8, 16, 2, 30), (70000, 4097, 2, 0.9, 1, 3, 0),
+            (3524, 12048, 13, 0.95, 256, 0, 0),
+            (38880, 116640, 13, 0.95, 256, 0, 0),
+            (12048, 116640, 13, 0.95, 256, 1, 0),
+            (12048, 43200, 13, 0.95, 256, 1, 0)):
+        keys_r = rng.integers(-2, span or Tr, Tr)     # with duplicates
+        keys_r[:min(2, Tr)] = INT_SENTINEL - 1
+        valid_r = rng.random(Tr) < frac
+        kl = rng.choice(np.concatenate([keys_r, keys_r + 1]), Tl)
+        edges = [INT_SENTINEL - 1, int(keys_r.min()) - 5, -2 ** 31,
+                 INT_SENTINEL, int(keys_r.max()) + 1]
+        kl[:min(Tl, 5)] = edges[:Tl]
+        parts = build_key_partitions(t(keys_r), t(valid_r, torch.bool),
+                                     -(-Tr // B) + extra, B)
+        kl, ml, mr = t(kl), words((Tl, W)), words((Tr, W))
         same(partitioned_join.partitioned_join(kl, ml, *parts, mr),
              ref.partitioned_join_ref(kl, ml, *parts, mr),
-             f"partitioned_join {Tr}x{Tl}")
+             f"partitioned_join {Tr}x{Tl}x{W} P={parts[0].shape[0]}")
 
     # fused_delta: mixed stages / joins, pane-seam dirty rows, the dn == 0
     # / span == 0 identity, idle stages with live probes, probe keys past
@@ -485,16 +540,28 @@ def edge_cases(dev):
         rows = np.sort(np.concatenate([[T - 1], rng.permutation(T - 1)])[:dn])
         return t(np.concatenate([rows, np.full(D - dn, T)]))
 
-    for T, C, Q, D, dn in ((300, 2, 64, 16, 5), (257, 3, 96, 8, 0),
-                           (1000, 1, 416, 128, 4), (64, 2, 32, 8, 8)):
-        cols = t(rng.integers(0, 50, (C, T)))
+    def stage(T, C, Q, D, dn):
         lo = t(rng.integers(0, 30, (C, Q)))
-        hi = lo + t(rng.integers(0, 30, (C, Q)))
-        valid = t(rng.random(T) < 0.9, torch.bool)
-        rows = dirty(T, D, dn)
-        same(fused_delta.delta_scan(cols, lo, hi, valid, rows),
-             ref.delta_scan_ref(cols, lo, hi, valid, rows),
-             f"delta_scan T={T} D={D} dn={dn}")
+        return DeltaScanIn(t(rng.integers(0, 50, (C, T))), lo,
+                           lo + t(rng.integers(0, 30, (C, Q))),
+                           t(rng.random(T) < 0.9, torch.bool), dirty(T, D, dn))
+
+    # delta_scan: one stage a call, then each set in one grouped call:
+    # the four stages together, the chained beat's seven at full scale,
+    # and more stages than one launch's argument block holds (D 0 among
+    # them, in two launches)
+    small = [stage(*x) for x in ((300, 2, 64, 16, 5), (257, 3, 96, 8, 0),
+                                 (1000, 1, 416, 128, 4), (64, 2, 32, 8, 8))]
+    chained = [stage(T, C, Q, D, 3 + 2 * i)
+               for i, (T, C, Q, D) in enumerate(DELTA_SCAN_MAIN)]
+    many = [stage(40 + 7 * s, 1 + s % 3, 32 * (1 + s % 4), 4 * (s % 4),
+                  min(s % 5, 4 * (s % 4)))
+            for s in range(fused_delta.DELTA_SCAN_STAGES + 8)]
+    for name, group in [(f"stage {i}", [e]) for i, e in enumerate(small)] \
+            + [("4 stages", small), ("chained beat", chained),
+               (f"{len(many)} stages", many)]:
+        same(fused_delta.delta_scan(group), ref.delta_scans_ref(group),
+             f"delta_scan {name}")
     for Tl, Tr, D, dn, pseudo in ((300, 160, 16, 5, False),
                                   (128, 64, 8, 0, False),
                                   (5000, 128, 128, 6, True),
@@ -1313,6 +1380,8 @@ def kernel_rows(calls, launches, attn):
     from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
                                      partitioned_join, ref, shared_groupby)
     rows = []
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=calls["scan"][0][0].device)
 
     def measure(name, kern, plain, check, work, setup=None, library=None,
                 calls=1):
@@ -1333,9 +1402,11 @@ def kernel_rows(calls, launches, attn):
         b, by = bound_ms(*work)
         ms, kernel_ms, per_call, ops = device_ms(kern, KERNEL_SYMBOLS[name],
                                                  setup)
-        plain_ms = device_ms(plain, KERNEL_SYMBOLS[name], setup)[0]
+        plain_ms = device_ms(plain, KERNEL_SYMBOLS[name], setup,
+                             launches_kernel=False)[0]
         library_ms = None if library is None else \
-            device_ms(library, "no kernel of this repository")[0]
+            device_ms(library, "no kernel of this repository",
+                      launches_kernel=False)[0]
         if per_call == 0:
             fail(f"{name}: the profiler saw no launch of the kernel")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1385,8 +1456,12 @@ def kernel_rows(calls, launches, attn):
         lambda: ref.shared_groupby_ref(codes, vals, mask, G), gb_check,
         (nbytes(codes, vals, mask) + 2 * G * Q * 4, 2 * set_bits))
 
-    # partitioned_join: the reseed beat's four probes
+    # partitioned_join: the reseed beat's four probes, whose buckets must
+    # be laid out as the kernel's binary search needs
     joins = calls["join_partitioned"][:4]
+    if not all(partitioned_join.buckets_ordered(a[2], a[3]) for a in joins):
+        fail("partitioned_join: recorded buckets not in build_key_partitions'"
+             " order")
     pj_bytes = sum(nbytes(*a) + a[0].numel() * 4 + nbytes(a[1])
                    for a in joins)
     pj_ops = sum(a[0].numel() * (a[2].shape[1] + a[1].shape[1]
@@ -1396,6 +1471,9 @@ def kernel_rows(calls, launches, attn):
         lambda: [ref.partitioned_join_ref(*a) for a in joins],
         lambda g, w: same(g, w, "partitioned_join (main path)"),
         (pj_bytes, pj_ops), calls=len(joins))
+    rows[-1]["cold_l2_kernel_ms"] = sum(
+        cold_l2_ms(lambda a=a: partitioned_join.partitioned_join(*a),
+                   "partitioned_join", flush) for a in joins)
 
     # fused_delta: the last steady beat's launch; the work that its data
     # needs — live panes, live dirty rows, live probes — and every join's
@@ -1449,19 +1527,22 @@ def kernel_rows(calls, launches, attn):
         (nbytes(keys_l, mask_l, keys_r, mask_r, valid_r) + Tl * 4
          + nbytes(mask_l), Tl * keys_r.numel() + Tl * W))
 
-    # delta_scan / delta_join: the 7 and 4 calls of one chained steady
-    # beat; every slot (pads too) is computed, on its clamped row
-    ds = calls["scan_delta"]
-    ds_bytes = sum(a[4].numel() * (4 + a[0].shape[0] * 4 + 1
-                                   + a[1].shape[1] // 8)
-                   + nbytes(a[1], a[2]) for a in ds)
-    ds_ops = sum(2 * a[4].numel() * a[0].shape[0] * a[1].shape[1]
-                 for a in ds)
-    row("delta_scan",
-        lambda: [fused_delta.delta_scan(*a) for a in ds],
-        lambda: [ref.delta_scan_ref(*a) for a in ds],
+    # delta_scan / delta_join: one chained steady beat's grouped call over
+    # its 7 stages and its 4 probe calls; every slot (pads too) is
+    # computed, on its clamped row
+    ds, = calls["scan_delta"][-1]
+    ds_bytes = sum(e.rows.numel() * (4 + e.cols.shape[0] * 4 + 1
+                                     + e.lo.shape[1] // 8)
+                   + nbytes(e.lo, e.hi) for e in ds)
+    ds_ops = sum(2 * e.rows.numel() * e.cols.shape[0] * e.lo.shape[1]
+                 for e in ds)
+    row("delta_scan", lambda: fused_delta.delta_scan(ds),
+        lambda: ref.delta_scans_ref(ds),
         lambda g, w: same(g, w, "delta_scan (chained path)"),
-        (ds_bytes, ds_ops), calls=len(ds))
+        (ds_bytes, ds_ops))
+    rows[-1]["stages"] = len(ds)
+    rows[-1]["cold_l2_kernel_ms"] = cold_l2_ms(
+        lambda: fused_delta.delta_scan(ds), "delta_scan", flush)
     dj = calls["join_delta"]
     dj_bytes = sum(a[1].numel() * (4 + 4 + a[2].shape[1] * 8 + 4)
                    + nbytes(a[4]) for a in dj)
@@ -1570,6 +1651,20 @@ def print_lm_summary(summary, log):
               f"{prof['wall_ms']:.3f} ms wall under the profiler)")
 
 
+def ptxas_report(lib, names):
+    """ptxas's registers, stack frame and spills of the named kernels, as
+    the build's ``ptxas.log`` holds them."""
+    log = (lib.parent / "ptxas.log").read_text().splitlines()
+    for name in names:
+        sym = KERNEL_SYMBOLS[name]
+        for i, line in enumerate(log):
+            if "Compiling entry" in line and sym in line:
+                props = "; ".join(x.split("ptxas info    :")[-1].strip()
+                                  for x in log[i + 1:i + 4]
+                                  if "spill" in x or "registers" in x)
+                print(f"ptxas, {sym}: {props}")
+
+
 def flash_build_report(lib):
     """The tensor-core flash-attention kernel as built: ptxas's registers
     and spills and its dynamic shared memory per head dim, and the HGMMA
@@ -1638,6 +1733,7 @@ def main():
     for line in (lib.parent / "ptxas.log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("ptxas:", line.split("ptxas info    :")[-1].strip())
+    ptxas_report(lib, ("partitioned_join", "delta_scan"))
     flash_build_report(lib)
 
     t0 = time.perf_counter()

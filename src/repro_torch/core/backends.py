@@ -12,7 +12,9 @@ when the cycles are built.  Two backends ship:
 Backend surface (the shared-operator hot loops):
 
   scan(cols, lo, hi, valid)                 -> int32[T, W]    (ClockScan)
-  scan_delta(cols, lo, hi, valid, rows)     -> int32[D, W]    (dirty rows)
+  scan_delta(scan_in)                       -> (int32[D, W], ...)
+      (dirty rows; ``scan_in`` a tuple of DeltaScanIn, every stage of a
+      beat in one op, one output per stage)
   join_block(kl, ml, kr, mr, valid_r)       -> (rid, mask)    (block join)
   join_partitioned(kl, ml, bkeys, brows,
                    bounds, mr)              -> (rid, mask)    (bucketed join)
@@ -37,6 +39,19 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.device import resolve_device
+
+
+class DeltaScanIn(NamedTuple):
+    """One predicated scan stage's inputs to the ``scan_delta`` op: its
+    dirty rows against the full window.  ``rows`` is the stage table's
+    dirty-row set padded with the capacity sentinel; every slot gets a
+    row of words, a pad slot those of its row clamped into range (the
+    caller's scatter drops them)."""
+    cols: object          # int32[C, T] predicated columns
+    lo: object            # int32[C, Q] full-window predicate lows
+    hi: object            # int32[C, Q] full-window predicate highs
+    valid: object         # bool[T]
+    rows: object          # int32[D] dirty rows (sentinel == T pads)
 
 
 class FusedScanIn(NamedTuple):
@@ -152,7 +167,7 @@ def _torch_backend() -> OperatorBackend:
         name="torch", scan=ref.clockscan_ref,
         join_block=ref.bitmask_join_ref,
         join_partitioned=ref.partitioned_join_ref,
-        groupby=ref.shared_groupby_ref, scan_delta=ref.delta_scan_ref,
+        groupby=ref.shared_groupby_ref, scan_delta=ref.delta_scans_ref,
         join_delta=ref.delta_join_ref, fused_delta=ref.fused_delta_ref)
 
 

@@ -50,8 +50,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import dataquery as dq
 from repro_torch.core import operators as ops
-from repro_torch.core.backends import (FusedJoinIn, FusedScanIn,
-                                       OperatorBackend)
+from repro_torch.core.backends import (DeltaScanIn, FusedJoinIn,
+                                       FusedScanIn, OperatorBackend)
 from repro_torch.core.device import resolve_device, upload
 from repro_torch.core.plan import CompiledPlan, GroupAgg
 from repro_torch.core.storage import (INT_SENTINEL, apply_updates,
@@ -582,6 +582,7 @@ def build_delta_cycle(lowered: LoweredPlan, backend: OperatorBackend,
         scan_masks, new_carry = {}, {}
         delta_over = torch.zeros((), dtype=torch.int32, device=device)
         fused_scan_in, fused_stages = [], []
+        panes, delta_in = [], []
         for st, covered, pidx in zip(lowered.scans, scan_covered,
                                      scan_pidx):
             tbl = storage[st.table]
@@ -611,12 +612,17 @@ def build_delta_cycle(lowered: LoweredPlan, backend: OperatorBackend,
                 continue
             pane = backend.scan(cols, lo_a, hi_a, tbl["_valid"])
             at = (w0.long() + torch.arange(A, device=device)).expand(T, A)
-            m = carry["scan"][st.table].scatter(1, at, pane)
-            dwords = backend.scan_delta(cols, lo, hi, tbl["_valid"], dr)
-            m = scatter_dirty_rows(m, dr, dwords,
-                                   cat.schemas[st.table].capacity)
-            new_carry[st.table] = m
-            scan_masks[st.table] = F.pad(m, (st.wlo, W - st.whi))
+            panes.append((st, carry["scan"][st.table].scatter(1, at, pane)))
+            delta_in.append(DeltaScanIn(cols, lo, hi, tbl["_valid"], dr))
+
+        # the chained path: every stage's dirty-row rescan in ONE op
+        if delta_in:
+            dwords = backend.scan_delta(tuple(delta_in))
+            for (st, m), e, d in zip(panes, delta_in, dwords):
+                m = scatter_dirty_rows(m, e.rows, d,
+                                       cat.schemas[st.table].capacity)
+                new_carry[st.table] = m
+                scan_masks[st.table] = F.pad(m, (st.wlo, W - st.whi))
 
         fused_join_in = []
         if delta_joins:

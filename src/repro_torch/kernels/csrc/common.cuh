@@ -95,4 +95,27 @@ __device__ __forceinline__ int probe_bucket(const int32_t* __restrict__ bkeys,
   return __reduce_max_sync(kFullMask, best);
 }
 
+// One lane: the max row of bucket b (B entries) whose key equals `key`
+// and whose row id is live (>= 0), or -1 — probe_bucket's answer by a
+// binary search, for buckets laid out as storage.build_key_partitions
+// lays them out: live rows first, sorted by key with row ids ascending
+// among equal keys, then invalid rows and padding (row -1).  The
+// predicate "row >= 0 && key <= k" then holds on a prefix of the bucket,
+// and the last entry of that prefix is the max live row of key k when its
+// key is k.  log2(B) + 1 steps of two independent loads each.
+__device__ __forceinline__ int search_bucket(const int32_t* __restrict__ bkeys,
+                                             const int32_t* __restrict__ brows,
+                                             int64_t b, int B, int32_t key) {
+  const int32_t* k = bkeys + b * B;
+  const int32_t* r = brows + b * B;
+  int lo = 0, hi = B;        // the predicate holds on [0, lo), not on [hi, B)
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int32_t row = __ldg(r + mid), kk = __ldg(k + mid);
+    if (row >= 0 && kk <= key) lo = mid + 1; else hi = mid;
+  }
+  if (lo == 0) return -1;
+  return __ldg(k + lo - 1) == key ? __ldg(r + lo - 1) : -1;
+}
+
 }  // namespace shareddb

@@ -121,25 +121,36 @@ __device__ void pane_tile(const ScanArgs& s, int w0, int tile, int2* pairs) {
         row_word(s.cols, s.T, row, live, pairs, s.A * kWarp, a * kWarp, s.C));
 }
 
-// A warp item: one dirty row against the full window, lanes as queries;
-// lane k % 32 keeps word k and the warp stores 32 consecutive words at once.
-__device__ void dirty_warp(const ScanArgs& s, int slot, int lane) {
-  const int32_t target = s.rows[slot];
-  if (target < 0 || target >= s.T) return;           // pad slot: dropped
-  const int w = s.Q / kWarp;
-  const bool v = s.valid[target] != 0;
+// One warp: the Q/32 words of one row against the full window [C, Q]
+// into dst[0, Q/32), lanes as queries (__ballot_sync packs each word);
+// lane k % 32 keeps word k and the warp stores 32 consecutive words at
+// once.  A row that is not valid gives 0 words.
+__device__ void full_window_words(const int32_t* __restrict__ cols, int T,
+                                  int64_t row, bool v,
+                                  const int32_t* __restrict__ lo,
+                                  const int32_t* __restrict__ hi, int Q, int C,
+                                  int32_t* __restrict__ dst, int lane) {
+  const int w = Q / kWarp;
   uint32_t mine = 0;
   for (int k = 0; k < w; ++k) {
-    const bool ok = v && range_match(s.cols, s.T, target, s.lo, s.hi, s.Q,
-                                     k * kWarp + lane, s.C);
+    const bool ok = v && range_match(cols, T, row, lo, hi, Q,
+                                     k * kWarp + lane, C);
     const uint32_t word = __ballot_sync(kFullMask, ok);
     if (k % kWarp == lane) mine = word;
     if (k % kWarp == kWarp - 1 || k == w - 1) {
       const int base = k - k % kWarp;
-      if (base + lane <= k)
-        s.carry[int64_t(target) * w + base + lane] = int32_t(mine);
+      if (base + lane <= k) dst[base + lane] = int32_t(mine);
     }
   }
+}
+
+// A warp item: one dirty row against the full window, into its carry row.
+__device__ void dirty_warp(const ScanArgs& s, int slot, int lane) {
+  const int32_t target = s.rows[slot];
+  if (target < 0 || target >= s.T) return;           // pad slot: dropped
+  full_window_words(s.cols, s.T, target, s.valid[target] != 0, s.lo, s.hi,
+                    s.Q, s.C, s.carry + int64_t(target) * (s.Q / kWarp),
+                    lane);
 }
 
 // A warp item: route the dirty spine row's key to its one bucket, then the
@@ -227,38 +238,65 @@ static_assert(sizeof(FusedArgs) <= 4096, "kernel parameter limit");
 //
 // delta_scan replaces repro/kernels/fused_delta.py::delta_scan_pallas and
 // delta_join replaces ::delta_join_pallas: the backend's scan_delta and
-// join_delta, which a backend without fused_delta chains per stage and
-// per join.  Unlike the fused blocks they have no live count and write
-// no carry: they write ONE output row per slot, pad slots included,
-// computed on the slot's row clamped into [0, T-1] (the caller's scatter
-// drops the pads), as kernels/ref.py's delta_scan_ref / delta_join_ref
-// do.  delta_join routes its key to a bucket inside the kernel (the
-// reference routes in XLA before its kernel).
+// join_delta, which a backend without fused_delta chains after the pane
+// scans.  Unlike the fused blocks they have no live count and write no
+// carry: they write ONE output row per slot, pad slots included, computed
+// on the slot's row clamped into [0, T-1] (the caller's scatter drops the
+// pads), as kernels/ref.py's delta_scan_ref / delta_join_ref do.
+// delta_join routes its key to a bucket inside the kernel (the reference
+// routes in XLA before its kernel).
+//
+// delta_scan takes every stage of a beat in ONE launch (the reference
+// launches once per stage): the stages' rescans are independent, and a
+// launch costs ~1.5 us on an H100 whatever it does (PERF.md), against
+// ~12 ns of bytes for a chained beat's seven stages.  The stages travel in one
+// DeltaScanArgs block passed by value (a __grid_constant__ parameter),
+// with the prefix sums of their slot counts; a warp takes one slot at a
+// time of the flat slot range, a grid stride apart, and finds its stage
+// in that prefix (warp-uniform, <= kMaxDeltaStages steps).  More stages
+// than one block holds go in more launches (kernels/fused_delta.py).
 //
 // What bounds them: bytes — D gathered rows' predicate columns, the
 // [C, Q] predicate matrices and D*Q/32 output words for the scan; D
 // bucket panes of B (key, row) pairs for the probe.  Both are a few
 // hundred KB at most on the path; launch latency dominates.
 
-// One block per dirty slot: the slot's clamped row against the FULL
-// window, one warp per output word at a time (__ballot_sync packs it).
+constexpr int kMaxDeltaStages = 32;
+
+struct DeltaStage {
+  const int32_t* cols;   // [C, T]
+  const int32_t* lo;     // [C, Q]
+  const int32_t* hi;
+  const uint8_t* valid;  // [T]
+  const int32_t* rows;   // [D] dirty rows, pads clamp
+  int32_t* out;          // [D, Q/32]
+  int C, T, Q;
+};
+
+struct DeltaScanArgs {
+  DeltaStage s[kMaxDeltaStages];
+  int start[kMaxDeltaStages + 1];  // stage i owns slots [start[i], start[i+1])
+  int ns;
+};
+
+static_assert(sizeof(DeltaScanArgs) <= 4096, "kernel parameter limit");
+
+// A warp per slot of the flat range of every stage's slots: the slot's
+// clamped row against its stage's FULL window.
 __global__ void __launch_bounds__(kThreads)
-delta_scan_kernel(const int32_t* __restrict__ cols,
-                  const int32_t* __restrict__ lo,
-                  const int32_t* __restrict__ hi,
-                  const uint8_t* __restrict__ valid,
-                  const int32_t* __restrict__ rows,
-                  int32_t* __restrict__ out, int C, int T, int Q) {
-  const int slot = blockIdx.x;
-  const int64_t row = min(max(rows[slot], 0), T - 1);
-  const int w = Q / kWarp;
+delta_scan_kernel(const __grid_constant__ DeltaScanArgs args) {
   const int lane = threadIdx.x % kWarp;
-  const bool v = valid[row] != 0;
-  for (int k = threadIdx.x / kWarp; k < w; k += kWarpsPerBlock) {
-    const bool ok = v && range_match(cols, T, row, lo, hi, Q,
-                                     k * kWarp + lane, C);
-    const uint32_t word = __ballot_sync(kFullMask, ok);
-    if (lane == 0) out[int64_t(slot) * w + k] = int32_t(word);
+  const int total = args.start[args.ns];
+  for (int slot = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+       slot < total; slot += gridDim.x * kWarpsPerBlock) {
+    int i = 0;
+    while (args.start[i + 1] <= slot) ++i;
+    const DeltaStage& st = args.s[i];
+    const int k = slot - args.start[i];
+    const int64_t row = min(max(st.rows[k], 0), st.T - 1);
+    full_window_words(st.cols, st.T, row, st.valid[row] != 0, st.lo, st.hi,
+                      st.Q, st.C, st.out + int64_t(k) * (st.Q / kWarp),
+                      lane);
   }
 }
 
@@ -300,14 +338,14 @@ extern "C" int shareddb_fused_delta(const int32_t* desc, int n_block,
   return int(cudaGetLastError());
 }
 
-extern "C" int shareddb_delta_scan(const int32_t* cols, const int32_t* lo,
-                                   const int32_t* hi, const uint8_t* valid,
-                                   const int32_t* rows, int32_t* out, int C,
-                                   int T, int Q, int D, cudaStream_t stream) {
+// `args` points at a host DeltaScanArgs of at most kMaxDeltaStages
+// stages and a slot or more; it is copied into the launch.  `blocks` comes
+// from kernels/fused_delta.py::delta_scan_blocks.
+extern "C" int shareddb_delta_scan(const void* args, int blocks,
+                                   cudaStream_t stream) {
   using namespace shareddb;
-  if (D == 0) return int(cudaGetLastError());
-  delta_scan_kernel<<<D, kThreads, 0, stream>>>(cols, lo, hi, valid, rows,
-                                                out, C, T, Q);
+  delta_scan_kernel<<<blocks, kThreads, 0, stream>>>(
+      *static_cast<const DeltaScanArgs*>(args));
   return int(cudaGetLastError());
 }
 

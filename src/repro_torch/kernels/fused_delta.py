@@ -35,11 +35,15 @@ by its PROBE slot if it is dirty, else by its COPY tile.  That rests on
 a join's dirty rows being ascending and distinct (``FusedJoinIn``).
 
 ``delta_scan`` and ``delta_join`` are the chained delta ops (a backend
-without ``fused_delta`` calls them per stage and per join): the DIRTY
-and PROBE items as standalone kernels in the same source (they replace
-the reference's ``delta_scan_pallas`` and ``delta_join_pallas``).  They
-write one output row per slot, pad slots included, computed on the
-slot's row clamped into range; ``delta_join`` routes inside its kernel.
+without ``fused_delta`` calls ``delta_scan`` once a beat over every
+stage and ``delta_join`` per join): the DIRTY and PROBE items as
+standalone kernels in the same source (they replace the reference's
+``delta_scan_pallas`` and ``delta_join_pallas``).  They write one output
+row per slot, pad slots included, computed on the slot's row clamped
+into range; ``delta_join`` routes inside its kernel.  ``delta_scan``
+takes a tuple of ``backends.DeltaScanIn`` and covers up to
+``DELTA_SCAN_STAGES`` stages a launch, a warp per slot of their flat
+slot range (``delta_scan_blocks``).
 """
 from __future__ import annotations
 
@@ -60,6 +64,8 @@ MAX_JOINS = 16
 # 2 * C * 32 * A int32 <= 48 KB
 MAX_PANE_PREDICATES = 48 * 1024 // 8
 WARPS = 8                  # warps a block (kWarpsPerBlock)
+DELTA_SCAN_STAGES = 32     # kMaxDeltaStages: stages one delta_scan launch
+                           # takes in its argument block
 
 _PANE, _DIRTY, _PROBE, _COPY = 0, 1, 2, 3
 
@@ -255,33 +261,89 @@ def fused_delta(scan_in, join_in):
     return tuple(e.carry for e in scan_in), rids
 
 
-def delta_scan(cols, lo, hi, valid, rows):
-    """cols int32[C,T]; lo/hi int32[C,Q]; valid bool[T]; rows int32[D]
-    -> int32[D, Q/32]; contract of kernels/ref.delta_scan_ref."""
-    if cols.device.type == "cpu":
-        return ref.delta_scan_ref(cols, lo, hi, valid, rows)
-    dev = cols.device
-    for t, name in ((cols, "cols"), (lo, "lo"), (hi, "hi")):
-        _k.require(t, torch.int32, 2, name, dev)
-    _k.require(valid, torch.bool, 1, "valid", dev)
-    _k.require(rows, torch.int32, 1, "rows", dev)
-    C, T = cols.shape
-    Q = lo.shape[1]
-    if (hi.shape != lo.shape or lo.shape[0] != C or valid.shape[0] != T
-            or Q % 32 or C < 1 or T < 1):
-        raise ValueError(f"delta_scan: cols {tuple(cols.shape)}, lo "
-                         f"{tuple(lo.shape)}, hi {tuple(hi.shape)}, valid "
-                         f"{tuple(valid.shape)}: want C >= 1, T >= 1, "
-                         f"Q % 32 == 0")
-    D = rows.shape[0]
-    out = torch.empty((D, Q // 32), dtype=torch.int32, device=dev)
-    code = _k.library().shareddb_delta_scan(
-        cols.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        valid.view(torch.uint8).data_ptr(), rows.data_ptr(), out.data_ptr(),
-        C, T, Q, D, _k.stream_of(cols))
-    _k.LAUNCHES["delta_scan"] += 1
-    _k.check_launch(code, "delta_scan")
-    return out
+class _DeltaStage(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in
+                ("cols", "lo", "hi", "valid", "rows", "out")] + \
+               [(n, ctypes.c_int) for n in ("C", "T", "Q")]
+
+
+class _DeltaScanArgs(ctypes.Structure):
+    _fields_ = [("s", _DeltaStage * DELTA_SCAN_STAGES),
+                ("start", ctypes.c_int * (DELTA_SCAN_STAGES + 1)),
+                ("ns", ctypes.c_int)]
+
+
+def delta_scan_blocks(slots: int, sms: int) -> int:
+    """Blocks of one delta_scan launch over ``slots`` slots (a warp
+    each): at most ``kernels.BLOCKS_PER_SM`` a streaming multiprocessor."""
+    return max(1, min(-(-slots // WARPS), sms * _k.BLOCKS_PER_SM))
+
+
+def delta_scan_groups(slots) -> list:
+    """The launches of one ``delta_scan`` call, from each stage's slot
+    count: (first stage, stage-start prefix sums) per launch, at most
+    ``DELTA_SCAN_STAGES`` consecutive stages each; a group without a
+    slot launches nothing."""
+    groups = []
+    for g0 in range(0, len(slots), DELTA_SCAN_STAGES):
+        start = [0]
+        for d in slots[g0:g0 + DELTA_SCAN_STAGES]:
+            start.append(start[-1] + d)
+        if start[-1]:
+            groups.append((g0, start))
+    return groups
+
+
+def _check_delta_scan(i, e, dev):
+    for t, name in ((e.cols, "cols"), (e.lo, "lo"), (e.hi, "hi")):
+        _k.require(t, torch.int32, 2, f"scan_in[{i}].{name}", dev)
+    _k.require(e.valid, torch.bool, 1, f"scan_in[{i}].valid", dev)
+    _k.require(e.rows, torch.int32, 1, f"scan_in[{i}].rows", dev)
+    C, T = e.cols.shape
+    Q = e.lo.shape[1]
+    if (e.hi.shape != e.lo.shape or e.lo.shape[0] != C
+            or e.valid.shape[0] != T or Q % 32 or C < 1 or T < 1):
+        raise ValueError(f"delta_scan scan_in[{i}]: cols "
+                         f"{tuple(e.cols.shape)}, lo {tuple(e.lo.shape)}, hi "
+                         f"{tuple(e.hi.shape)}, valid {tuple(e.valid.shape)}:"
+                         f" want C >= 1, T >= 1, Q % 32 == 0")
+
+
+def delta_scan(scan_in):
+    """A tuple of backends.DeltaScanIn (cols int32[C,T]; lo/hi
+    int32[C,Q]; valid bool[T]; rows int32[D]) -> a tuple of int32[D,
+    Q/32], one per stage; contract of kernels/ref.delta_scans_ref.  On
+    CUDA: one launch per ``DELTA_SCAN_STAGES`` stages holding a slot."""
+    scan_in = tuple(scan_in)
+    if not scan_in:
+        return ()
+    dev = scan_in[0].cols.device
+    if dev.type == "cpu":
+        return ref.delta_scans_ref(scan_in)
+    for i, e in enumerate(scan_in):
+        _check_delta_scan(i, e, dev)
+    outs = tuple(torch.empty((e.rows.shape[0], e.lo.shape[1] // 32),
+                             dtype=torch.int32, device=dev) for e in scan_in)
+    groups = delta_scan_groups([e.rows.shape[0] for e in scan_in])
+    for g0, start in groups:
+        args = _DeltaScanArgs(ns=len(start) - 1)
+        for i, (e, out) in enumerate(zip(scan_in[g0:g0 + len(start) - 1],
+                                         outs[g0:])):
+            a = args.s[i]
+            a.cols, a.lo, a.hi = e.cols.data_ptr(), e.lo.data_ptr(), \
+                e.hi.data_ptr()
+            a.valid = e.valid.view(torch.uint8).data_ptr()
+            a.rows, a.out = e.rows.data_ptr(), out.data_ptr()
+            a.C, a.T = e.cols.shape
+            a.Q = e.lo.shape[1]
+        args.start[:len(start)] = start
+        code = _k.library().shareddb_delta_scan(
+            ctypes.byref(args),
+            delta_scan_blocks(start[-1], _k.sm_count(dev)),
+            _k.stream_of(scan_in[0].cols))
+        _k.LAUNCHES["delta_scan"] += 1
+        _k.check_launch(code, "delta_scan")
+    return outs
 
 
 def delta_join(keys_l, rows, bucket_keys, bucket_rows, bounds):

@@ -5,8 +5,11 @@ probes ONE range bucket of the right side's key partitions
 The kernel is ``csrc/partitioned_join.cu`` (it replaces the JAX
 package's ``repro/kernels/partitioned_join.py::partitioned_join_pallas``):
 routing (a binary search over the bucket bounds), the probe of the one
-bucket and the ``mask_l & mask_r[rid]`` intersection run fused, one warp
-per left row; the reference's [Tl, B] candidate panes are never built.
+bucket (a binary search inside it: the buckets come sorted) and the
+``mask_l & mask_r[rid]`` intersection run fused, one lane per left row
+and a warp per 32 consecutive rows, on a persistent grid of
+``grid_blocks`` blocks; the reference's [Tl, B] candidate panes are never
+built.
 """
 from __future__ import annotations
 
@@ -15,10 +18,38 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import ref
 
+WARPS = 8                  # warps a block (kWarpsPerBlock)
+CHUNK = 32                 # left rows a warp owns at a time: one a lane
+BATCH = 8                  # kBatch: intersect words a lane has in flight
+
+
+def grid_blocks(Tl: int, sms: int) -> int:
+    """Blocks of one launch: enough for every warp's chunk of CHUNK rows,
+    at most ``kernels.BLOCKS_PER_SM`` a streaming multiprocessor."""
+    return max(1, min(-(-Tl // (CHUNK * WARPS)), sms * _k.BLOCKS_PER_SM))
+
+
+def buckets_ordered(bucket_keys, bucket_rows) -> bool:
+    """Whether every bucket is laid out as the kernel's binary search
+    needs, as ``storage.build_key_partitions`` lays it out: its live rows
+    (row >= 0) first, by key ascending and row ids ascending among equal
+    keys, then rows -1 only.  Plain torch; it synchronises (a bool)."""
+    live = bucket_rows >= 0
+    k, r = bucket_keys.long(), bucket_rows.long()
+    prefix = live[:, 1:] <= live[:, :-1]
+    ascending = (k[:, 1:] > k[:, :-1]) | \
+        ((k[:, 1:] == k[:, :-1]) & (r[:, 1:] > r[:, :-1]))
+    return bool((prefix & (ascending | ~live[:, 1:])).all())
+
 
 def partitioned_join(keys_l, mask_l, bucket_keys, bucket_rows, bounds,
                      mask_r):
-    """-> (rid int32[Tl] (-1 = no match), combined int32[Tl, W])."""
+    """-> (rid int32[Tl] (-1 = no match), combined int32[Tl, W]).
+
+    Precondition (not checked): the buckets are laid out as
+    ``storage.build_key_partitions`` lays them out (``buckets_ordered``),
+    which the kernel's binary search inside a bucket rests on; the plain
+    version scans the bucket and does not need it."""
     if keys_l.device.type == "cpu":
         return ref.partitioned_join_ref(keys_l, mask_l, bucket_keys,
                                         bucket_rows, bounds, mask_r)
@@ -42,11 +73,13 @@ def partitioned_join(keys_l, mask_l, bucket_keys, bucket_rows, bounds,
             f"mask_r {tuple(mask_r.shape)}")
     rid = torch.empty((Tl,), dtype=torch.int32, device=dev)
     out = torch.empty((Tl, W), dtype=torch.int32, device=dev)
+    if Tl == 0:
+        return rid, out
     code = _k.library().shareddb_partitioned_join(
         keys_l.data_ptr(), mask_l.data_ptr(), bucket_keys.data_ptr(),
         bucket_rows.data_ptr(), bounds.data_ptr(), mask_r.data_ptr(),
         rid.data_ptr(), out.data_ptr(), Tl, W, P, B, Tr,
-        _k.stream_of(keys_l))
+        grid_blocks(Tl, _k.sm_count(dev)), _k.stream_of(keys_l))
     _k.LAUNCHES["partitioned_join"] += 1
     _k.check_launch(code, "partitioned_join")
     return rid, out

@@ -36,6 +36,13 @@ def delta_scan_ref(cols, lo, hi, valid, rows):
     return clockscan_ref(cols[:, safe], lo, hi, valid[safe])
 
 
+def delta_scans_ref(scan_in):
+    """The ``scan_delta`` op: ``delta_scan_ref`` over a tuple of
+    backends.DeltaScanIn, one stage each -> a tuple of int32[D_s,
+    Q_s/32]."""
+    return tuple(delta_scan_ref(*e) for e in scan_in)
+
+
 def _route(bounds, keys, P: int):
     """Each key's ONE candidate bucket: the last whose bound <= key
     (``searchsorted(side="right") - 1``, clipped)."""

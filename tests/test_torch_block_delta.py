@@ -130,11 +130,14 @@ def test_delta_scan_plain_matches_pallas_and_jnp(case):
         np.testing.assert_array_equal(
             np.asarray(delta_scan_pallas(*jargs, interpret=True)), want)
     targs = [T(x) for x in (cols, lo, hi, valid, rows)]
-    for fn in (tref.delta_scan_ref, tfd.delta_scan,
-               tb.get_backend("hopper").scan_delta):
-        got = fn(*targs)
+    # the scan_delta op takes a tuple of stages and returns one output each
+    grouped = [fn((tb.DeltaScanIn(*targs),)) for fn in (
+        tref.delta_scans_ref, tfd.delta_scan,
+        tb.get_backend("hopper").scan_delta)]
+    for got in [tref.delta_scan_ref(*targs)] + [g[0] for g in grouped]:
         assert got.shape == (D, Q // 32)
         np.testing.assert_array_equal(U(got), want)
+    assert all(len(g) == 1 for g in grouped)
     # every pad slot is the clamped row T-1's words
     for k in range(dn, D):
         np.testing.assert_array_equal(want[k], want[-1])
@@ -166,3 +169,111 @@ def test_delta_join_plain_matches_pallas_and_jnp(case):
             np.testing.assert_array_equal(got.numpy(), want)
         if last and dn:     # the dirty row T-1 finds its match
             assert want[int(np.flatnonzero(rows == Tl - 1)[0])] >= 0
+
+
+# -------------------------------------------- the grouped delta_scan grid
+POISON = np.uint32(0x5EADBEEF)
+
+
+def _full_window_word(cols, row, valid, lo, hi, k):
+    """csrc/fused_delta.cu full_window_words, word k of one row: the
+    ballot of lanes q = 32k + lane over the full window."""
+    q = np.arange(32 * k, 32 * k + 32)
+    ok = np.full(32, bool(valid[row]))
+    for c in range(cols.shape[0]):
+        ok &= (lo[c, q] <= cols[c, row]) & (cols[c, row] <= hi[c, q])
+    return np.uint32(sum(1 << b for b in range(32) if ok[b]))
+
+
+def _delta_scan_walk(stages, sms):
+    """delta_scan_kernel's launches: ``delta_scan_groups`` of at most
+    DELTA_SCAN_STAGES stages; in each, a warp per slot of the group's flat
+    slot range, a grid stride apart, its stage found in the prefix sums,
+    the slot's row clamped into range.  Every output word is written
+    exactly once.  Returns (outputs, launches)."""
+    outs = [np.full((len(s[4]), s[1].shape[1] // 32), POISON)
+            for s in stages]
+    writes = [np.zeros(o.shape, np.int64) for o in outs]
+    groups = tfd.delta_scan_groups([len(s[4]) for s in stages])
+    for g0, start in groups:
+        assert len(start) - 1 <= tfd.DELTA_SCAN_STAGES
+        blocks = tfd.delta_scan_blocks(start[-1], sms)
+        assert blocks <= sms * 4
+        for blk in range(blocks):
+            for warp in range(tfd.WARPS):
+                for slot in range(blk * tfd.WARPS + warp, start[-1],
+                                  blocks * tfd.WARPS):
+                    i = 0
+                    while start[i + 1] <= slot:
+                        i += 1
+                    cols, lo, hi, valid, rows = stages[g0 + i]
+                    k = slot - start[i]
+                    row = min(max(int(rows[k]), 0), cols.shape[1] - 1)
+                    for w in range(lo.shape[1] // 32):
+                        outs[g0 + i][k, w] = _full_window_word(
+                            cols, row, valid, lo, hi, w)
+                        writes[g0 + i][k, w] += 1
+    for w in writes:
+        assert (w == 1).all()
+    return outs, len(groups)
+
+
+def _stage(rng, Tn, C, Q, D, dn):
+    cols = rng.integers(0, 50, (C, Tn)).astype(np.int32)
+    lo = rng.integers(0, 30, (C, Q)).astype(np.int32)
+    hi = lo + rng.integers(0, 30, (C, Q)).astype(np.int32)
+    valid = rng.random(Tn) < 0.9
+    return cols, lo, hi, valid, _dirty_rows(rng, Tn, D, dn, dn % 2 == 1)
+
+
+# (T, C, Q, D, dn) a stage: one stage; the chained beat's seven stage
+# kinds at a small T (customer, item, author, order_line, orders,
+# shopping_cart_line, address: their C and Q, D cut to 4-16); and more
+# stages than one launch's argument block holds, empty dirty sets and
+# D 0 among them
+GROUPED_CASES = {
+    "one_stage": [(300, 2, 64, 16, 5)],
+    "chained_beat": [(200, 2, 96, 16, 3), (150, 3, 352, 8, 2),
+                     (60, 1, 224, 4, 0), (300, 1, 96, 16, 16),
+                     (120, 2, 128, 8, 1), (200, 1, 32, 16, 4),
+                     (90, 1, 32, 8, 8)],
+    "over_one_launch": [(40 + 7 * s, 1 + s % 3, 32 * (1 + s % 4),
+                         4 * (s % 4), min(s % 5, 4 * (s % 4)))
+                        for s in range(tfd.DELTA_SCAN_STAGES + 8)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_grouped_delta_scan_walk_matches_pallas_and_jnp(case):
+    """The one-launch delta_scan over every stage of a beat, replayed at
+    one block and at the full card's grid: each stage's words equal
+    ``delta_scan_ref``, the JAX jnp reference and (stages of D <= 16, the
+    first eight) the Pallas kernel in interpret mode, pad slots included;
+    the scan_delta op of both backends returns the same tuple on CPU."""
+    rng = np.random.default_rng(len(case))
+    stages = [_stage(rng, *shape) for shape in GROUPED_CASES[case]]
+    dn = [shape[4] for shape in GROUPED_CASES[case]]
+    want = []
+    for i, s in enumerate(stages):
+        jargs = [jnp.asarray(x) for x in s]
+        w = np.asarray(rref.delta_scan_ref(*jargs))
+        if len(s[4]) <= 16 and i < 8 and len(s[4]):
+            np.testing.assert_array_equal(
+                np.asarray(delta_scan_pallas(*jargs, interpret=True)), w)
+        want.append(w)
+    tin = tuple(tb.DeltaScanIn(*(T(x) for x in s)) for s in stages)
+    for fn in (tref.delta_scans_ref, tfd.delta_scan,
+               tb.get_backend("hopper").scan_delta):
+        got = fn(tin)
+        assert len(got) == len(stages)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(U(g), w)
+    n_launch = -(-len(stages) // tfd.DELTA_SCAN_STAGES)
+    for sms in (1, 132):
+        outs, launches = _delta_scan_walk(stages, sms)
+        assert launches == n_launch
+        for o, w, d in zip(outs, want, dn):
+            np.testing.assert_array_equal(o, w)
+            if d < len(o):          # pads carry the clamped row T-1's words
+                np.testing.assert_array_equal(o[d:], np.broadcast_to(
+                    o[-1], o[d:].shape))

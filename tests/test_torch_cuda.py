@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.configs import smoke_config
-from repro_torch.core.backends import FusedJoinIn, FusedScanIn
+from repro_torch.core.backends import DeltaScanIn, FusedJoinIn, FusedScanIn
 from repro_torch.core.storage import INT_SENTINEL, build_key_partitions
 from repro_torch.kernels import bitmask_join as tbj
 from repro_torch.kernels import clockscan as tcs
@@ -210,6 +210,137 @@ def test_partitioned_join_matches_plain(cuda_device, Tr, Tl, W, frac, B,
         assert torch.equal(a, b)
 
 
+def _pj_world(rng, dev, Tr, Tl, W, frac, B, extra, krange=None):
+    """Key partitions of Tr right rows (distinct keys, or keys drawn from
+    ``krange`` values: duplicate runs across buckets) and Tl left rows
+    whose keys hit, miss, fall below the first bound, past the last and
+    at INT_SENTINEL - 1."""
+    keys_r = (rng.permutation(Tr * 3)[:Tr] - 2 if krange is None
+              else rng.integers(0, krange, Tr)).astype(np.int64)
+    keys_r[:min(2, Tr)] = INT_SENTINEL - 1
+    valid_r = rng.random(Tr) < frac
+    keys_l = rng.choice(np.concatenate([keys_r, keys_r + 1]), Tl)
+    edges = [INT_SENTINEL - 1, int(keys_r.min()) - 5, -2 ** 31, INT_SENTINEL,
+             int(keys_r[valid_r].max()) + 1 if valid_r.any() else 7]
+    keys_l[:min(Tl, len(edges))] = edges[:Tl]
+    parts = build_key_partitions(_t(keys_r, dev), _t(valid_r, dev, torch.bool),
+                                 -(-Tr // B) + extra, B)
+    return (_t(keys_l, dev), _words(rng, (Tl, W), dev), *parts,
+            _words(rng, (Tr, W), dev))
+
+
+# the reseed beat's four partitioned joins at full scale (TPC-W, 10 000
+# items / 28 800 customers): (Tl, Tr, P) of item x author, order_line x
+# orders, order_line x item, shopping_cart_line x item; B 256, W 13
+PJ_TPCW = ((12048, 3524, 14), (116640, 38880, 152), (116640, 12048, 48),
+           (43200, 12048, 48))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tl,Tr,P", PJ_TPCW)
+def test_partitioned_join_matches_plain_at_tpcw_shapes(cuda_device, Tl, Tr,
+                                                      P):
+    rng = np.random.default_rng(Tl + P)
+    args = _pj_world(rng, cuda_device, Tr, Tl, 13, 0.9, 256,
+                     P - -(-Tr // 256))
+    assert args[2].shape == (P, 256)
+    for a, b in zip(tpj.partitioned_join(*args),
+                    tref.partitioned_join_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tr,Tl,W,frac,B,extra,krange", [
+    (200, 129, 13, 0.9, 8, 0, 12),      # duplicate runs across buckets
+    (130, 33, 1, 0.2, 7, 3, None),      # empty buckets
+    (64, 31, 40, 0.0, 16, 1, None),     # all-invalid right side
+    (5, 1, 13, 1.0, 2, 2, None),        # one left row
+    (100, 129, 40, 0.8, 16, 2, 30),
+    (70000, 4097, 2, 0.9, 1, 3, None),  # P 70 003: bounds of 280 KB
+])
+def test_partitioned_join_edge_cases(cuda_device, Tr, Tl, W, frac, B, extra,
+                                     krange):
+    """Tl of 1, 31, 33, 129 and past a block's chunks; W 1, 13, 40; a P
+    whose bounds would not fit in a block's shared memory."""
+    rng = np.random.default_rng(Tr + Tl + W)
+    args = _pj_world(rng, cuda_device, Tr, Tl, W, frac, B, extra, krange)
+    assert tpj.buckets_ordered(args[2], args[3])
+    before = K.LAUNCHES["partitioned_join"]
+    for a, b in zip(tpj.partitioned_join(*args),
+                    tref.partitioned_join_ref(*args)):
+        assert torch.equal(a, b)
+    assert K.LAUNCHES["partitioned_join"] == before + 1
+
+
+def _delta_stage(rng, dev, T, C, Q, D, dn):
+    """One DeltaScanIn: dn sorted dirty rows (row T-1 among them when dn
+    is odd), sentinel-padded to D slots."""
+    cols = _t(rng.integers(0, 50, (C, T)), dev)
+    lo = _t(rng.integers(0, 30, (C, Q)), dev)
+    hi = lo + _t(rng.integers(0, 30, (C, Q)), dev)
+    pool = [T - 1] if dn % 2 else []
+    rows = np.sort(np.concatenate([pool, rng.permutation(T - 1)])[:dn])
+    return DeltaScanIn(cols, lo, hi, _t(rng.random(T) < 0.9, dev, torch.bool),
+                       _t(np.concatenate([rows, np.full(D - dn, T)]), dev))
+
+
+# (T, C, Q, D) of a chained steady beat's seven predicated stages at full
+# scale: customer, item, author, order_line, orders, shopping_cart_line,
+# address (14 templates, the index-less catalog)
+DELTA_TPCW = ((43200, 2, 96, 128), (12048, 3, 352, 128), (3524, 1, 224, 128),
+              (116640, 1, 96, 128), (38880, 2, 128, 128),
+              (43200, 1, 32, 128), (51392, 1, 64, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chained_beat", "over_one_launch"])
+def test_grouped_delta_scan_matches_plain(cuda_device, case):
+    """One launch over the chained beat's seven stages (live dirty rows
+    and pads); more stages than one argument block holds, D 0 among
+    them, in ceil(n / DELTA_SCAN_STAGES) launches."""
+    rng = np.random.default_rng(len(case))
+    if case == "chained_beat":
+        shapes = [(T, C, Q, D, 3 + 2 * i) for i, (T, C, Q, D)
+                  in enumerate(DELTA_TPCW)]
+    else:
+        shapes = [(40 + 7 * s, 1 + s % 3, 32 * (1 + s % 4), 4 * (s % 4),
+                   min(s % 5, 4 * (s % 4)))
+                  for s in range(tfd.DELTA_SCAN_STAGES + 8)]
+    stages = tuple(_delta_stage(rng, cuda_device, *x) for x in shapes)
+    before = K.LAUNCHES["delta_scan"]
+    got = tfd.delta_scan(stages)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["delta_scan"] == before + -(-len(stages)
+                                                  // tfd.DELTA_SCAN_STAGES)
+    want = tref.delta_scans_ref(stages)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_partitioned_join_and_delta_scan_never_synchronise(cuda_device):
+    """Both wrappers enqueue their launch without a host sync (the
+    heartbeat's dispatch runs under sync-debug "error")."""
+    rng = np.random.default_rng(16)
+    pj = _pj_world(rng, cuda_device, 38880, 116640, 13, 0.9, 256, 0)
+    ds = tuple(_delta_stage(rng, cuda_device, T, C, Q, D, 5)
+               for T, C, Q, D in DELTA_TPCW)
+    tpj.partitioned_join(*pj)                   # build and load first
+    tfd.delta_scan(ds)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_pj = tpj.partitioned_join(*pj)
+        got_ds = tfd.delta_scan(ds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got_pj, tref.partitioned_join_ref(*pj)):
+        assert torch.equal(a, b)
+    for a, b in zip(got_ds, tref.delta_scans_ref(ds)):
+        assert torch.equal(a, b)
+
+
 FUSED_CARD_CASES = ["mixed", "seams", "identity", "block",
                     "idle_stages_live_probes", "route_edges", "pads",
                     "max_stages_joins", "order_line"]
@@ -276,8 +407,8 @@ def test_delta_scan_matches_plain(cuda_device, T, C, Q, D, dn):
     valid = _t(rng.random(T) < 0.9, dev, torch.bool)
     rows = np.sort(np.concatenate([[T - 1], rng.permutation(T - 1)])[:dn])
     rows = _t(np.concatenate([rows, np.full(D - dn, T)]), dev)
-    assert torch.equal(tfd.delta_scan(cols, lo, hi, valid, rows),
-                       tref.delta_scan_ref(cols, lo, hi, valid, rows))
+    got, = tfd.delta_scan((DeltaScanIn(cols, lo, hi, valid, rows),))
+    assert torch.equal(got, tref.delta_scan_ref(cols, lo, hi, valid, rows))
 
 
 @pytest.mark.cuda

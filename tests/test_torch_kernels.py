@@ -588,6 +588,213 @@ def test_fused_walk_matches_pallas_and_jnp(case):
                 np.testing.assert_array_equal(a, np.asarray(b))
 
 
+def _search_bucket(bk, br, key):
+    """csrc/common.cuh search_bucket: binary search for the last entry
+    with row >= 0 and key <= ``key``; its row if its key is ``key``."""
+    lo, hi = 0, len(bk)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if br[mid] >= 0 and bk[mid] <= key:
+            lo = mid + 1
+        else:
+            hi = mid
+    return int(br[lo - 1]) if lo and bk[lo - 1] == key else -1
+
+
+def _partitioned_join_walk(keys_l, mask_l, bkeys, brows, bounds, mask_r,
+                           sms):
+    """partitioned_join_kernel's grid: warps a grid stride apart over
+    chunks of 32 left rows; each lane routes and binary-searches its own
+    row, then the lanes walk the chunk's flat [rows x W] range together,
+    BATCH words a lane at a time, each word taking its row's rid from the
+    owning lane (the shuffle).  Every rid and output word is written
+    exactly once."""
+    Tl, W = mask_l.shape
+    Tr = mask_r.shape[0]
+    blocks = tpj.grid_blocks(Tl, sms)
+    assert blocks <= sms * 4
+    rid = np.full(Tl, POISON.view(np.int32))
+    out = np.full(Tl * W, POISON, np.uint32)
+    rid_writes = np.zeros(Tl, np.int64)
+    out_writes = np.zeros(Tl * W, np.int64)
+    flat_l, flat_r = mask_l.reshape(-1), mask_r.reshape(-1)
+    chunks = -(-Tl // tpj.CHUNK)
+    lane = np.arange(tpj.CHUNK)
+    for blk in range(blocks):
+        for warp in range(tpj.WARPS):
+            for c in range(blk * tpj.WARPS + warp, chunks,
+                           blocks * tpj.WARPS):
+                r0 = c * tpj.CHUNK
+                n = min(tpj.CHUNK, Tl - r0)
+                lane_rid = np.full(tpj.CHUNK, -1)
+                for ln in range(n):
+                    key = int(keys_l[r0 + ln])
+                    b = _route_bucket(bounds, key)
+                    lane_rid[ln] = _search_bucket(bkeys[b], brows[b], key)
+                    rid[r0 + ln] = lane_rid[ln]
+                    rid_writes[r0 + ln] += 1
+                base, nw = r0 * W, n * W
+                for e0 in range(0, nw, tpj.CHUNK * tpj.BATCH):  # uniform
+                    for u in range(tpj.BATCH):
+                        e = e0 + u * tpj.CHUNK + lane
+                        lr = np.minimum(e // W, n - 1)
+                        src = lane_rid[lr]              # __shfl_sync
+                        on = e < nw
+                        r = np.clip(src, 0, Tr - 1)
+                        words = flat_l[base + e[on]] & flat_r[
+                            r[on] * W + (e - lr * W)[on]]
+                        out[base + e[on]] = np.where(src[on] >= 0, words, 0)
+                        out_writes[base + e[on]] += 1
+    assert (rid_writes == 1).all() and (out_writes == 1).all()
+    return rid, out.reshape(Tl, W)
+
+
+# (seed, Tr, Tl, W, valid_frac, B, extra buckets, right key range (None:
+# distinct keys), Pallas in interpret mode); every case also probes keys
+# below the first bound, past the last one and at INT_SENTINEL - 1
+PJ_WALK_CASES = {
+    "dup_runs_span_buckets": (0, 200, 129, 13, 0.9, 8, 0, 12, True),
+    "empty_buckets": (1, 130, 33, 1, 0.2, 7, 3, None, False),
+    "all_invalid_right": (2, 64, 31, 40, 0.0, 16, 1, None, True),
+    "w40_sentinel_minus_one": (3, 100, 129, 40, 0.8, 16, 2, 30, False),
+    "one_left_row": (4, 5, 1, 13, 1.0, 2, 2, None, True),
+    "tpcw_bucket_256": (5, 300, 33, 13, 0.9, 256, 1, None, False),
+    "tl31_w1": (6, 90, 31, 1, 0.7, 4, 0, 20, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PJ_WALK_CASES))
+def test_partitioned_join_walk_matches_pallas_and_jnp(case):
+    """The redesigned partitioned join (lanes as rows, route and binary
+    search per lane, warp-chunk intersect) replayed at one block and at
+    the full card's grid equals the plain version, the JAX jnp reference
+    and, on the marked cases, the Pallas kernel in interpret mode; its
+    bucket layout is the one ``buckets_ordered`` accepts."""
+    seed, Tr, Tl, W, frac, B, extra, krange, pallas = PJ_WALK_CASES[case]
+    rng = np.random.default_rng(seed)
+    if krange is None:
+        keys_r = (rng.permutation(Tr * 3)[:Tr] - 2).astype(np.int32)
+    else:                   # duplicate runs, longer than a bucket
+        keys_r = rng.integers(0, krange, Tr).astype(np.int32)
+    valid_r = rng.random(Tr) < frac
+    keys_r[:min(2, Tr)] = INT_SENTINEL - 1
+    keys_l = rng.choice(np.concatenate([keys_r, keys_r + 1]), Tl) \
+        .astype(np.int32)
+    edges = [INT_SENTINEL - 1, int(keys_r.min()) - 5, -2 ** 31,
+             INT_SENTINEL, int(keys_r[valid_r].max()) + 1
+             if valid_r.any() else 7]
+    keys_l[:min(Tl, len(edges))] = edges[:Tl]
+    mask_l, mask_r = _words(rng, (Tl, W)), _words(rng, (Tr, W))
+    P = -(-Tr // B) + extra
+    parts = ref_partitions(jnp.asarray(keys_r), jnp.asarray(valid_r), P, B)
+    jargs = (jnp.asarray(keys_l), jnp.asarray(mask_l), *parts,
+             jnp.asarray(mask_r))
+    want_rid, want_mask = (np.asarray(x)
+                           for x in rref.partitioned_join_ref(*jargs))
+    if pallas:
+        prid, pmask = partitioned_join_pallas(*jargs)
+        np.testing.assert_array_equal(np.asarray(prid), want_rid)
+        np.testing.assert_array_equal(np.asarray(pmask), want_mask)
+    tparts = build_key_partitions(torch.as_tensor(keys_r),
+                                  torch.as_tensor(valid_r), P, B)
+    assert tpj.buckets_ordered(tparts[0], tparts[1])
+    rid, mask = tref.partitioned_join_ref(torch.as_tensor(keys_l),
+                                          T(mask_l), *tparts, T(mask_r))
+    np.testing.assert_array_equal(rid.numpy(), want_rid)
+    np.testing.assert_array_equal(U(mask), want_mask)
+    bk, br, bounds = (x.numpy() for x in tparts)
+    for sms in (1, 132):
+        wrid, wmask = _partitioned_join_walk(keys_l, mask_l, bk, br, bounds,
+                                             mask_r, sms)
+        np.testing.assert_array_equal(wrid, want_rid)
+        np.testing.assert_array_equal(wmask, want_mask)
+    if case == "dup_runs_span_buckets":       # a run crosses a bucket edge
+        assert any(bk[b, -1] == bk[b + 1, 0] and br[b + 1, 0] >= 0
+                   for b in range(P - 1))
+
+
+def test_buckets_ordered_rejects_what_the_binary_search_cannot_read():
+    """``buckets_ordered`` accepts build_key_partitions' layout and
+    refuses a bucket whose live rows are out of key order, whose equal
+    keys have descending rows, or with a live row after a pad."""
+    keys = torch.tensor([3, 1, 3, 2, 9, 3], dtype=torch.int32)
+    valid = torch.tensor([True, True, True, True, False, True])
+    bk, br, _ = build_key_partitions(keys, valid, 2, 4)
+    assert tpj.buckets_ordered(bk, br)
+    for b, (i, j) in ((bk, (0, 1)), (br, (1, 2))):
+        bad_k, bad_r = bk.clone(), br.clone()
+        x = bad_k if b is bk else bad_r
+        x[0, i], x[0, j] = x[0, j].clone(), x[0, i].clone()
+        assert not tpj.buckets_ordered(bad_k, bad_r)
+    gap = br.clone()
+    gap[1, 0], gap[1, 1] = -1, gap[1, 0].clone()
+    assert not tpj.buckets_ordered(bk, gap)
+
+
+def test_partitions_reaching_the_join_are_ordered_for_its_search():
+    """Every bucket set that reaches ``join_partitioned`` on an index-less
+    engine — the reseed, beats after inserts, deletes and key updates on
+    the join targets (partition refreshes), a fold's migration beat and
+    the beats after it — is laid out as the kernel's binary search needs."""
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.serving import QueryCycleServer
+    from repro_torch.workloads import tpcw
+
+    base_be = tb.get_backend("torch")
+    seen = []
+
+    def recorded(kl, ml, bkeys, brows, bounds, mr):
+        seen.append(tpj.buckets_ordered(bkeys, brows))
+        return base_be.join_partitioned(kl, ml, bkeys, brows, bounds, mr)
+    tb.register_backend(dataclasses.replace(
+        base_be, name="torch-partition-order-test",
+        join_partitioned=recorded))
+    si, sc = 64, 128
+    catalog = tpcw.make_catalog(si, sc, dense_pk_index=False)
+    templates, caps = tpcw.make_templates(catalog.schemas["item"].capacity)
+    base = compile_plan(catalog, templates[:10],
+                        {t.name: caps[t.name] for t in templates[:10]})
+    data = tpcw.generate_data(np.random.default_rng(0), si, sc)
+    eng = SharedDBEngine(base, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                         kernels="torch-partition-order-test", device="cpu",
+                         delta_joins=False)
+    server = QueryCycleServer(eng, background_folds=False)
+    rng = np.random.default_rng(3)
+    rebuilt = set()
+    for beat in range(6):
+        if beat == 3:
+            out = server.register_template(templates[10], caps["order_lines"])
+            assert out["status"] == "folding"
+        if beat:
+            # inserts (a duplicate item key among them), deletes and key
+            # updates on the partitioned joins' PK tables
+            server.submit_update("item", "insert", {
+                "i_id": si + beat, "i_a_id": beat, "i_subject": 1,
+                "i_title": 2, "i_pub_date": 11500, "i_cost": 10,
+                "i_srp": 20, "i_stock": 5, "i_related1": 0})
+            server.submit_update("item", "insert", {
+                "i_id": beat, "i_a_id": 1, "i_subject": 1, "i_title": 2,
+                "i_pub_date": 11500, "i_cost": 10, "i_srp": 20,
+                "i_stock": 5, "i_related1": 0})
+            server.submit_update("item", "delete",
+                                 {"key": int(rng.integers(0, si))})
+            server.submit_update("author", "update", {
+                "key": int(rng.integers(0, si // 4)), "col": "a_id",
+                "val": int(rng.integers(0, si // 4))})
+            server.submit_update("orders", "delete",
+                                 {"key": int(rng.integers(0, sc))})
+        server.submit("best_sellers", {0: (0, 2 ** 30), 1: (0, 100)})
+        server.submit("get_book", {0: (beat, beat + 3)})
+        if beat > 3:
+            server.submit("order_lines", {0: (beat, beat)})
+        server.heartbeat()
+        rebuilt |= {t for t, v in eng.last_parts_rebuilt.items() if v}
+    assert eng.folds_done == 1
+    assert {"item", "author", "orders"} <= rebuilt
+    assert len(seen) >= 6 * 3 and all(seen)
+
+
 def test_hopper_ops_are_kernel_wrappers_with_plain_cpu_results():
     """Every op of the ``hopper`` backend is a kernel wrapper of
     ``repro_torch.kernels`` that returns its plain version's result on CPU
@@ -608,7 +815,9 @@ def test_hopper_ops_are_kernel_wrappers_with_plain_cpu_results():
     scan_in, join_in = _both(FUSED_CASES["block"][0],
                              FUSED_CASES["block"][1])[2:]
     args = {"scan": (cols, lo, hi, valid),
-            "scan_delta": (cols, lo, hi, valid, rows),
+            "scan_delta": ((tb.DeltaScanIn(cols, lo, hi, valid, rows),
+                            tb.DeltaScanIn(cols[:1], lo[:1], hi[:1], valid,
+                                           rows[:3])),),
             "join_block": (keys_l, mask_l, keys_r, mask_r, valid_r),
             "join_partitioned": (keys_l, mask_l, *parts, mask_r),
             "join_delta": (keys_l, rows, *parts),

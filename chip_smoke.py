@@ -10,9 +10,9 @@ capability 9.0+ and the CUDA toolkit.  It:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the hand-written kernels from src/repro_torch/kernels/csrc
      into build/ (nvcc, one process per source, in parallel), and prints
-     ptxas's report (registers, stack and spills of partitioned_join and
-     delta_scan) and the HGMMA (wgmma) count in the SASS of the
-     tensor-core flash-attention kernel;
+     ptxas's report (registers, stack and spills of partitioned_join,
+     delta_scan, bitmask_join and delta_join) and the HGMMA (wgmma)
+     count in the SASS of the tensor-core flash-attention kernel;
   3. holds each of the eight kernels against its plain PyTorch version on
      the card on small edge cases: padded tails, invalid rows, empty
      buckets, an empty dirty set and a zero pane span, idle stages with
@@ -21,9 +21,11 @@ capability 9.0+ and the CUDA toolkit.  It:
      order_line-sized spine with dirty rows on tile seams, the reseed
      beat's six scan shapes and four partitioned joins at full scale,
      duplicate key runs across buckets, keys at INT_SENTINEL - 1, 70 003
-     buckets, the chained beat's seven delta_scan stages in one launch
-     and 40 stages in two, ragged block-join
-     sides past the kernel's staging chunk with invalid rows repeating a
+     buckets, the chained beat's seven delta_scan stages and four
+     delta_join probes in one launch each and 40 stages / joins in two,
+     ragged block-join sides staged in shared memory (past 48 KB of it
+     too) and past it (the chunked path), an unaligned left mask, the
+     fold's block join at full scale, invalid right rows repeating a
      valid key, all-pad dirty sets and dirty rows at T-1; flash attention
      on the reference's five test shapes, ragged S (24, 200), Sq < Sk,
      D 16 and 128, causal Sq > Sk (rows that see no key), and the LM
@@ -49,7 +51,7 @@ capability 9.0+ and the CUDA toolkit.  It:
        chained — a cold engine compiled with all 14 templates on
          ``hopper-chained`` (the hopper kernels without fused_delta, so the
          delta beat chains 7 pane scans, ONE delta_scan over the 7 stages
-         and 4 delta_joins), replaying the
+         and ONE delta_join over the 4 partitioned joins), replaying the
          fold path's beats;
      on every beat the tickets must equal those of a twin engine with the
      same history on the plain ``torch`` backend and, on a sample, the
@@ -91,10 +93,14 @@ capability 9.0+ and the CUDA toolkit.  It:
      device ops it enqueues (fused_delta may enqueue at most one per join
      beside its launch) and its wall time (a pair of CUDA events per
      call), beside a bound computed from the bytes and operations of
-     those inputs; partitioned_join and delta_scan once more with the
-     card's L2 cache flushed before every call; flash attention at
-     three recorded calls (yi-6b's 512-token prefill, gemma3-27b's
-     2048-token window-1024 and causal layers), each beside one PyTorch
+     those inputs; partitioned_join, bitmask_join, delta_scan and
+     delta_join once more with the card's L2 cache flushed before every
+     call; bitmask_join once more with its right side's rows shuffled
+     (staged out of key order: rids by the scan); the recorded
+     delta_join buckets must be in the layout its binary search needs;
+     flash attention at three recorded calls (yi-6b's 512-token
+     prefill, gemma3-27b's 2048-token window-1024 and causal layers),
+     each beside one PyTorch
      call of the same function (scaled_dot_product_attention, with the
      causal and window band as a boolean mask at the window layer; timed
      here only), and its CUDA-core kernel once at yi-6b's call;
@@ -183,10 +189,13 @@ CLOCKSCAN_MAIN = ((2, 43200, 96), (3, 12048, 352), (1, 3524, 224),
 # 700 W): clockscan a warp per row; fused_delta a block per descriptor
 # row with its gathers in torch ops; partitioned_join a warp per left row
 # scanning its whole bucket; delta_scan one launch per stage, 7 a chained
-# beat; printed beside this run's
+# beat; bitmask_join a block of 256 left rows, a word a thread; delta_join
+# one launch per join, 4 a chained beat, a warp per slot scanning its
+# bucket; printed beside this run's
 PREVIOUS_DESIGN_MS = {"clockscan": 0.090982, "fused_delta": 0.090253,
-                      "partitioned_join": 0.101247, "delta_scan": 0.010399}
-CHAINED_STEADY = {"scan": 7, "scan_delta": 1, "join_delta": 4, "groupby": 1}
+                      "partitioned_join": 0.101247, "delta_scan": 0.010399,
+                      "bitmask_join": 0.010078, "delta_join": 0.009237}
+CHAINED_STEADY = {"scan": 7, "scan_delta": 1, "join_delta": 1, "groupby": 1}
 # (T, C, Q, D) of a chained steady beat's seven predicated stages at full
 # scale: customer, item, author, order_line, orders, shopping_cart_line,
 # address (14 templates, the index-less catalog)
@@ -194,6 +203,10 @@ DELTA_SCAN_MAIN = ((43200, 2, 96, 128), (12048, 3, 352, 128),
                    (3524, 1, 224, 128), (116640, 1, 96, 128),
                    (38880, 2, 128, 128), (43200, 1, 32, 128),
                    (51392, 1, 64, 128))
+# (Tl, Tr, P) of its four partitioned joins (item x author, order_line x
+# orders, order_line x item, shopping_cart_line x item), B 256, D 128
+DELTA_JOIN_MAIN = ((12048, 3524, 14), (116640, 38880, 152),
+                   (116640, 12048, 48), (43200, 12048, 48))
 # profiled windows device_ms tries before it takes a trace without any
 # event of the kernel as the trace's answer
 PROFILE_ATTEMPTS = 3
@@ -358,8 +371,8 @@ def same(a, b, what):
 def edge_cases(dev):
     import numpy as np
     import torch
-    from repro_torch.core.backends import (DeltaScanIn, FusedJoinIn,
-                                           FusedScanIn)
+    from repro_torch.core.backends import (DeltaJoinIn, DeltaScanIn,
+                                           FusedJoinIn, FusedScanIn)
     from repro_torch.core.storage import INT_SENTINEL, build_key_partitions
     from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
                                      partitioned_join, ref, shared_groupby)
@@ -517,11 +530,20 @@ def edge_cases(dev):
             same(got[0][0], si[0].carry, "fused_delta span==0/dn==0 words")
             same(got[1][0], ji[0].rid_carry, "fused_delta dn==0 rids")
 
-    # bitmask_join: ragged sides, Tr past the 1024 of the reference's tests
-    # and past the kernel's 2048-row staging chunk, invalid right rows
-    # that repeat a valid key (right keys are unique among VALID rows)
-    for Tl, Tr, W in ((300, 100, 3), (777, 1500, 14), (200, 2500, 2),
-                      (1, 1, 1), (51392, 128, 14)):
+    # bitmask_join: ragged sides, Tr past the 1024 of the reference's
+    # tests; right sides staged in shared memory (their keys shuffled, so
+    # rids by the scan; past 48 KB of it: 500 x 24, 1500 x 14) and too
+    # large for it (500 x 60 words, 12 000 x 1 and 2048 x 14, past
+    # STAGE_BYTES: the chunked path); invalid right rows that repeat a
+    # valid key (right keys are unique among VALID rows); the fold's
+    # migration shape at full scale; an unaligned mask_l (a view some
+    # words into a buffer) on both paths
+    for Tl, Tr, W, off in ((300, 100, 3, 0), (777, 1500, 14, 0),
+                           (200, 2500, 2, 0), (300, 500, 24, 0),
+                           (2100, 500, 60, 0), (300, 12000, 1, 0),
+                           (1, 1, 1, 0),
+                           (51392, 128, 14, 0), (1000, 128, 14, 1),
+                           (1000, 2048, 14, 3)):
         keys_r = rng.permutation(Tr * 3)[:Tr]
         valid_r = rng.random(Tr) > 0.25
         inv, val = np.flatnonzero(~valid_r), np.flatnonzero(valid_r)
@@ -529,10 +551,21 @@ def edge_cases(dev):
         keys_r[inv[:n]] = keys_r[rng.choice(val, n, replace=False)]
         kl = rng.choice(Tr * 4, Tl)
         kl[:min(Tl, n)] = keys_r[inv[:min(Tl, n)]]
-        args = (t(kl), words((Tl, W)), t(keys_r), words((Tr, W)),
-                t(valid_r, torch.bool))
+        ml = words((Tl * W + off,))[off:].view(Tl, W)
+        args = (t(kl), ml, t(keys_r), words((Tr, W)), t(valid_r, torch.bool))
         same(bitmask_join.bitmask_join(*args), ref.bitmask_join_ref(*args),
-             f"bitmask_join {Tl}x{Tr}x{W}")
+             f"bitmask_join {Tl}x{Tr}x{W} offset {off}")
+    # a PK side holding its live rows in key order ahead of its free rows
+    # (the fold's country: 92 of 128), searched as staged, without a sort
+    for Tl, Tr, W, live in ((51392, 128, 14, 92), (1000, 512, 3, 512),
+                            (33, 64, 1, 0)):
+        keys_r = np.zeros(Tr, np.int64)
+        keys_r[:live] = np.sort(rng.choice(4 * Tr, live, replace=False))
+        kl = rng.choice(np.concatenate([keys_r, keys_r + 1, [-2 ** 31]]), Tl)
+        args = (t(kl), words((Tl, W)), t(keys_r), words((Tr, W)),
+                t(np.arange(Tr) < live, torch.bool))
+        same(bitmask_join.bitmask_join(*args), ref.bitmask_join_ref(*args),
+             f"bitmask_join {Tl}x{Tr}x{W}, {live} live rows in key order")
 
     # delta_scan / delta_join: pad slots clamp to row T-1, all-pad and
     # full dirty sets, the last row dirty
@@ -562,14 +595,37 @@ def edge_cases(dev):
                (f"{len(many)} stages", many)]:
         same(fused_delta.delta_scan(group), ref.delta_scans_ref(group),
              f"delta_scan {name}")
-    for Tl, Tr, D, dn, pseudo in ((300, 160, 16, 5, False),
-                                  (128, 64, 8, 0, False),
-                                  (5000, 128, 128, 6, True),
-                                  (64, 100, 8, 8, True)):
-        e = join(Tl, Tr, D, dn, pseudo=pseudo)
-        args = (e.keys, dirty(Tl, D, dn), e.bkeys, e.brows, e.bounds)
-        same(fused_delta.delta_join(*args), ref.delta_join_ref(*args),
-             f"delta_join Tl={Tl} D={D} dn={dn} pseudo={pseudo}")
+    # delta_join: one join a call (P buckets of B, or one bucket of the
+    # whole right side), then each set in one grouped call: the four
+    # together, the chained beat's four at full scale and more joins than
+    # one argument block holds (duplicate-key runs across buckets, D 0
+    # among them); the buckets in build_key_partitions' layout, as its
+    # binary search needs
+    def probe(Tl, Tr, D, dn, P, B, span=0):
+        keys_r = rng.permutation(Tr * 3)[:Tr] - 2 if not span \
+            else rng.integers(0, span, Tr)
+        kl = rng.choice(np.concatenate([keys_r, keys_r + 1]), Tl)
+        kl[-3:] = [int(keys_r.min()) - 5, -2 ** 31, INT_SENTINEL - 1]
+        parts = build_key_partitions(t(keys_r), t(rng.random(Tr) < 0.9,
+                                                   torch.bool), P, B)
+        if not partitioned_join.buckets_ordered(parts[0], parts[1]):
+            fail("delta_join edge case: buckets not in the searched layout")
+        return DeltaJoinIn(t(kl), dirty(Tl, D, dn), *parts)
+
+    small = [probe(300, 160, 16, 5, 2, 88), probe(128, 64, 8, 0, 2, 40),
+             probe(5000, 128, 128, 6, 1, 128), probe(64, 100, 8, 8, 1, 100)]
+    chained = [probe(Tl, Tr, 128, 3 + 2 * i, P, 256)
+               for i, (Tl, Tr, P) in enumerate(DELTA_JOIN_MAIN)]
+    many = [probe(40 + 9 * j, 30 + 5 * j, 4 * (j % 4),
+                  min(j % 5, 4 * (j % 4)),
+                  -(-(30 + 5 * j) // (8 + 8 * (j % 3))), 8 + 8 * (j % 3),
+                  12 if j % 7 == 0 else 0)
+            for j in range(fused_delta.DELTA_JOINS + 8)]
+    for name, group in [(f"join {i}", [e]) for i, e in enumerate(small)] \
+            + [("4 joins", small), ("chained beat", chained),
+               (f"{len(many)} joins", many)]:
+        same(fused_delta.delta_join(group), ref.delta_joins_ref(group),
+             f"delta_join {name}")
     flash_edge_cases(dev, rng)
     torch.cuda.synchronize()
 
@@ -1030,7 +1086,7 @@ def chained_path(dev, scale_i, scale_c, fold, recorder):
     on ``torch`` replay the fold path's beats; from the fold's migration
     beat on, the tickets must equal the folded engine's.  The last
     unprofiled steady beat before the profiled one records its delta_scan /
-    delta_join inputs."""
+    delta_join inputs (one grouped call each)."""
     import numpy as np
     from repro_torch.core import backends as B
     from repro_torch.core.baseline import QueryAtATimeEngine
@@ -1375,6 +1431,7 @@ def kernel_rows(calls, launches, attn):
     """Compare and time each kernel on recorded main-path inputs (``attn``:
     per LM path, the q, k, v and options of the first prefill call of each
     (causal, window) in its profiled beat)."""
+    import numpy as np
     import torch
     from repro_torch.core.dataquery import popcount
     from repro_torch.kernels import (bitmask_join, clockscan, fused_delta,
@@ -1526,9 +1583,24 @@ def kernel_rows(calls, launches, attn):
         lambda g, w: same(g, w, "bitmask_join (fold path)"),
         (nbytes(keys_l, mask_l, keys_r, mask_r, valid_r) + Tl * 4
          + nbytes(mask_l), Tl * keys_r.numel() + Tl * W))
+    rows[-1]["staged"] = bitmask_join.stage_bytes(keys_r.numel(), W) > 0
+    # the same call with the right side's rows shuffled: its staged rows
+    # are then out of key order and the lanes find rids by the scan
+    perm = torch.as_tensor(np.random.default_rng(SEED).permutation(
+        keys_r.numel()), device=keys_r.device)
+    shuffled = (keys_l, mask_l, keys_r[perm].contiguous(),
+                mask_r[perm].contiguous(), valid_r[perm].contiguous())
+    same(bitmask_join.bitmask_join(*shuffled),
+         ref.bitmask_join_ref(*shuffled), "bitmask_join (fold path, shuffled)")
+    rows[-1]["shuffled_kernel_ms"] = device_ms(
+        lambda: bitmask_join.bitmask_join(*shuffled),
+        KERNEL_SYMBOLS["bitmask_join"])[1]
+    rows[-1]["cold_l2_kernel_ms"] = cold_l2_ms(
+        lambda: bitmask_join.bitmask_join(keys_l, mask_l, keys_r, mask_r,
+                                          valid_r), "bitmask_join", flush)
 
-    # delta_scan / delta_join: one chained steady beat's grouped call over
-    # its 7 stages and its 4 probe calls; every slot (pads too) is
+    # delta_scan / delta_join: one chained steady beat's grouped calls over
+    # its 7 stages and its 4 partitioned joins; every slot (pads too) is
     # computed, on its clamped row
     ds, = calls["scan_delta"][-1]
     ds_bytes = sum(e.rows.numel() * (4 + e.cols.shape[0] * 4 + 1
@@ -1543,17 +1615,29 @@ def kernel_rows(calls, launches, attn):
     rows[-1]["stages"] = len(ds)
     rows[-1]["cold_l2_kernel_ms"] = cold_l2_ms(
         lambda: fused_delta.delta_scan(ds), "delta_scan", flush)
-    dj = calls["join_delta"]
-    dj_bytes = sum(a[1].numel() * (4 + 4 + a[2].shape[1] * 8 + 4)
-                   + nbytes(a[4]) for a in dj)
-    dj_ops = sum(a[1].numel() * (a[2].shape[1]
-                                 + max(1, a[2].shape[0]).bit_length())
-                 for a in dj)
-    row("delta_join",
-        lambda: [fused_delta.delta_join(*a) for a in dj],
-        lambda: [ref.delta_join_ref(*a) for a in dj],
+    # delta_join's binary search needs build_key_partitions' layout: held
+    # on every recorded call's buckets
+    for (join_in,) in calls["join_delta"]:
+        if not all(partitioned_join.buckets_ordered(e.bkeys, e.brows)
+                   for e in join_in):
+            fail("delta_join: recorded buckets not in build_key_partitions'"
+                 " order")
+    # what each slot needs of the sorted layout: its row, key and rid,
+    # and the (key, row) pairs of its bucket's binary search (log2 B + 1
+    # steps); each join's bounds once; a compare a route and a search step
+    dj, = calls["join_delta"][-1]
+    dj_bytes = sum(e.rows.numel() * (12 + 8 * e.bkeys.shape[1].bit_length())
+                   + nbytes(e.bounds) for e in dj)
+    dj_ops = sum(e.rows.numel() * (e.bkeys.shape[0].bit_length()
+                                   + e.bkeys.shape[1].bit_length())
+                 for e in dj)
+    row("delta_join", lambda: fused_delta.delta_join(dj),
+        lambda: ref.delta_joins_ref(dj),
         lambda g, w: same(g, w, "delta_join (chained path)"),
-        (dj_bytes, dj_ops), calls=len(dj))
+        (dj_bytes, dj_ops))
+    rows[-1]["joins"] = len(dj)
+    rows[-1]["cold_l2_kernel_ms"] = cold_l2_ms(
+        lambda: fused_delta.delta_join(dj), "delta_join", flush)
 
     # flash_attention: the first recorded prefill call of yi-6b (B 1, S
     # 512, H 32, KV 4, D 128, bf16, causal) is the row; gemma3-27b's
@@ -1662,7 +1746,10 @@ def ptxas_report(lib, names):
                 props = "; ".join(x.split("ptxas info    :")[-1].strip()
                                   for x in log[i + 1:i + 4]
                                   if "spill" in x or "registers" in x)
-                print(f"ptxas, {sym}: {props}")
+                # a template's instances: <true> / <false>
+                inst = ("<true>" if "ILb1E" in line
+                        else "<false>" if "ILb0E" in line else "")
+                print(f"ptxas, {sym}{inst}: {props}")
 
 
 def flash_build_report(lib):
@@ -1733,7 +1820,8 @@ def main():
     for line in (lib.parent / "ptxas.log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("ptxas:", line.split("ptxas info    :")[-1].strip())
-    ptxas_report(lib, ("partitioned_join", "delta_scan"))
+    ptxas_report(lib, ("partitioned_join", "delta_scan", "bitmask_join",
+                       "delta_join"))
     flash_build_report(lib)
 
     t0 = time.perf_counter()

@@ -18,8 +18,9 @@ Backend surface (the shared-operator hot loops):
   join_block(kl, ml, kr, mr, valid_r)       -> (rid, mask)    (block join)
   join_partitioned(kl, ml, bkeys, brows,
                    bounds, mr)              -> (rid, mask)    (bucketed join)
-  join_delta(kl, rows, bkeys, brows,
-             bounds)                        -> rid int32[D]   (dirty probe)
+  join_delta(join_in)                       -> (int32[D], ...)
+      (dirty-row probes; ``join_in`` a tuple of DeltaJoinIn, every
+      partitioned join of a beat in one op, one rid vector per join)
   groupby(codes, vals, mask, n_groups)      -> (count, sum)
   fused_delta(scan_in, join_in)             -> (words, rids)  (OPTIONAL:
       the whole delta beat in ONE op; None keeps the chained
@@ -52,6 +53,21 @@ class DeltaScanIn(NamedTuple):
     hi: object            # int32[C, Q] full-window predicate highs
     valid: object         # bool[T]
     rows: object          # int32[D] dirty rows (sentinel == T pads)
+
+
+class DeltaJoinIn(NamedTuple):
+    """One partitioned join's inputs to the ``join_delta`` op: its spine's
+    dirty rows probed against the PK side's key partitions.  ``rows`` is
+    the spine's dirty-row set padded with the capacity sentinel; every
+    slot gets a rid, a pad slot that of its row clamped into range (the
+    caller's scatter drops them).  The buckets are
+    ``storage.build_key_partitions``' layout (the hopper kernel's binary
+    search rests on it: ``partitioned_join.buckets_ordered``)."""
+    keys: object          # int32[Tl] the spine's full fk column
+    rows: object          # int32[D] dirty spine rows (sentinel == Tl pads)
+    bkeys: object         # int32[P, B] bucket keys
+    brows: object         # int32[P, B] bucket row ids (-1 pad)
+    bounds: object        # int32[P] bucket lower bounds
 
 
 class FusedScanIn(NamedTuple):
@@ -168,7 +184,7 @@ def _torch_backend() -> OperatorBackend:
         join_block=ref.bitmask_join_ref,
         join_partitioned=ref.partitioned_join_ref,
         groupby=ref.shared_groupby_ref, scan_delta=ref.delta_scans_ref,
-        join_delta=ref.delta_join_ref, fused_delta=ref.fused_delta_ref)
+        join_delta=ref.delta_joins_ref, fused_delta=ref.fused_delta_ref)
 
 
 register_backend(_torch_backend())

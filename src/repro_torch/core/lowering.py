@@ -50,8 +50,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import dataquery as dq
 from repro_torch.core import operators as ops
-from repro_torch.core.backends import (DeltaScanIn, FusedJoinIn,
-                                       FusedScanIn, OperatorBackend)
+from repro_torch.core.backends import (DeltaJoinIn, DeltaScanIn,
+                                       FusedJoinIn, FusedScanIn,
+                                       OperatorBackend)
 from repro_torch.core.device import resolve_device, upload
 from repro_torch.core.plan import CompiledPlan, GroupAgg
 from repro_torch.core.storage import (INT_SENTINEL, apply_updates,
@@ -700,6 +701,17 @@ def _build_post_scan(lowered: LoweredPlan, backend: OperatorBackend,
         #    already merged them); the intersection is always recomputed.
         spine_masks = dict(scan_masks)
         join_rids = {}
+        # the chained path: every partitioned join's dirty-row probe in ONE
+        # op, before the joins (a probe reads storage and partitions only)
+        delta_rids = {}
+        if rid_carry is not None and fused_rids is None:
+            probed = [st for st in lowered.joins if st.kind == "partitioned"]
+            if probed:
+                rids = backend.join_delta(tuple(
+                    DeltaJoinIn(storage[st.spine][st.fk_col],
+                                storage[st.spine]["_dirty_rows"],
+                                *partitions[st.pk_table]) for st in probed))
+                delta_rids = {st.key: r for st, r in zip(probed, rids)}
         for st, sub in zip(lowered.joins, join_subs):
             tbl = storage[st.spine]
             m = spine_masks[st.spine]
@@ -714,9 +726,7 @@ def _build_post_scan(lowered: LoweredPlan, backend: OperatorBackend,
                 cap = cat.schemas[st.spine].capacity
                 dr = tbl["_dirty_rows"]
                 if st.kind == "partitioned":
-                    bkeys, brows, bounds = partitions[st.pk_table]
-                    rid_d = backend.join_delta(tbl[st.fk_col], dr,
-                                               bkeys, brows, bounds)
+                    rid_d = delta_rids[st.key]
                 else:  # block: dirty-row key-equality probe (tiny PK)
                     pk_tbl = storage[st.pk_table]
                     kd = tbl[st.fk_col][dr.long().clamp(0, cap - 1)]

@@ -144,13 +144,12 @@ def library() -> ctypes.CDLL:
             lib.shareddb_partitioned_join.restype = i
             lib.shareddb_fused_delta.argtypes = [p, i, i, i, i, p, p]
             lib.shareddb_fused_delta.restype = i
-            lib.shareddb_bitmask_join.argtypes = [p, p, p, p, p, p, p, i, i,
-                                                  i, p]
+            lib.shareddb_bitmask_join.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_uint64, p]
             lib.shareddb_bitmask_join.restype = i
             lib.shareddb_delta_scan.argtypes = [p, i, p]
             lib.shareddb_delta_scan.restype = i
-            lib.shareddb_delta_join.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                i, p]
+            lib.shareddb_delta_join.argtypes = [p, i, p]
             lib.shareddb_delta_join.restype = i
             lib.shareddb_flash_attention.argtypes = [p, p, p, p, i, i, i, i,
                                                      i, i, i, i, i, i, p]
@@ -172,7 +171,8 @@ def check_launch(code: int, name: str) -> None:
 
 
 # the persistent grids (clockscan, fused_delta, partitioned_join,
-# delta_scan) launch at most this many blocks a streaming multiprocessor
+# bitmask_join, delta_scan, delta_join) launch at most this many blocks a
+# streaming multiprocessor
 BLOCKS_PER_SM = 4
 
 

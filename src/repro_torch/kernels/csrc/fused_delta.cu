@@ -240,28 +240,51 @@ static_assert(sizeof(FusedArgs) <= 4096, "kernel parameter limit");
 // delta_join replaces ::delta_join_pallas: the backend's scan_delta and
 // join_delta, which a backend without fused_delta chains after the pane
 // scans.  Unlike the fused blocks they have no live count and write no
-// carry: they write ONE output row per slot, pad slots included, computed
-// on the slot's row clamped into [0, T-1] (the caller's scatter drops the
+// carry: they write ONE output per slot, pad slots included, computed on
+// the slot's row clamped into [0, T-1] (the caller's scatter drops the
 // pads), as kernels/ref.py's delta_scan_ref / delta_join_ref do.
 // delta_join routes its key to a bucket inside the kernel (the reference
 // routes in XLA before its kernel).
 //
-// delta_scan takes every stage of a beat in ONE launch (the reference
-// launches once per stage): the stages' rescans are independent, and a
-// launch costs ~1.5 us on an H100 whatever it does (PERF.md), against
-// ~12 ns of bytes for a chained beat's seven stages.  The stages travel in one
-// DeltaScanArgs block passed by value (a __grid_constant__ parameter),
-// with the prefix sums of their slot counts; a warp takes one slot at a
-// time of the flat slot range, a grid stride apart, and finds its stage
-// in that prefix (warp-uniform, <= kMaxDeltaStages steps).  More stages
-// than one block holds go in more launches (kernels/fused_delta.py).
+// Each takes every stage / join of a beat in ONE launch (the reference
+// launches once per stage and once per join): the rescans and probes are
+// independent, and a launch costs ~2.5 us of device time on an H100
+// whatever it does (PERF.md section 6), against ~12 ns of bytes for a
+// chained beat's seven stages and ~80 ns for its four probes.  The stages
+// (joins) travel in one DeltaScanArgs (DeltaJoinArgs) block passed by
+// value (a __grid_constant__ parameter), with the prefix sums of their
+// slot counts; each slot of the flat slot range finds its stage (join) in
+// that prefix (<= 32 steps).  More than one block holds go in more
+// launches (kernels/fused_delta.py delta_scan_groups / delta_join_groups).
+//
+// delta_scan gives a WARP to a slot: its Q/32 words come from 32 lanes as
+// queries (full_window_words).  delta_join gives a LANE to a slot: the
+// lane clamps the row, routes the key over `bounds` (route_bucket) and
+// binary-searches the bucket (common.cuh search_bucket, log2 B + 1
+// steps) instead of a warp scanning all B entries (probe_bucket, which
+// fused_delta's PROBE items keep: their block-join pseudo-partitions are
+// in row order).  Each lane's answer waits on one chain of dependent
+// loads (row, key, ~log2 P route steps, ~log2 B search steps) through
+// L1 and L2; copying the bounds into shared memory first, or asking for
+// the bounds' and the bucket's lines in L1 ahead of the steps, made the
+// chained beat's call slower on an H100 (PERF.md section 6).
+//
+// delta_join's precondition: the buckets are laid out as
+// storage.build_key_partitions lays them out (live rows first, by key,
+// row ids ascending among equal keys, then rows -1), the chained path's
+// only source of them (lowering._build_post_scan probes block joins with
+// storage.locate_rows_by_key); the kernel does not check it
+// (kernels/partitioned_join.py buckets_ordered does, in the tests and in
+// chip_smoke.py).
 //
 // What bounds them: bytes — D gathered rows' predicate columns, the
-// [C, Q] predicate matrices and D*Q/32 output words for the scan; D
-// bucket panes of B (key, row) pairs for the probe.  Both are a few
-// hundred KB at most on the path; launch latency dominates.
+// [C, Q] predicate matrices and D*Q/32 output words for the scan; D keys,
+// route and search steps and D rids for the probe.  Both are a few
+// hundred KB at most on the path, so a launch's floor and, for
+// delta_join, its chain of dependent loads are all of it.
 
 constexpr int kMaxDeltaStages = 32;
+constexpr int kMaxDeltaJoins = 32;
 
 struct DeltaStage {
   const int32_t* cols;   // [C, T]
@@ -280,6 +303,24 @@ struct DeltaScanArgs {
 };
 
 static_assert(sizeof(DeltaScanArgs) <= 4096, "kernel parameter limit");
+
+struct DeltaJoin {
+  const int32_t* keys;    // [Tl] spine fk column
+  const int32_t* rows;    // [D] dirty spine rows, pads clamp
+  const int32_t* bkeys;   // [P, B] build_key_partitions' layout
+  const int32_t* brows;   // [P, B]
+  const int32_t* bounds;  // [P] bucket lower bounds, ascending
+  int32_t* out;           // [D] rids
+  int Tl, P, B;
+};
+
+struct DeltaJoinArgs {
+  DeltaJoin j[kMaxDeltaJoins];
+  int start[kMaxDeltaJoins + 1];   // join i owns slots [start[i], start[i+1])
+  int nj;
+};
+
+static_assert(sizeof(DeltaJoinArgs) <= 4096, "kernel parameter limit");
 
 // A warp per slot of the flat range of every stage's slots: the slot's
 // clamped row against its stage's FULL window.
@@ -300,25 +341,24 @@ delta_scan_kernel(const __grid_constant__ DeltaScanArgs args) {
   }
 }
 
-// One warp per dirty slot: route the clamped spine row's key to its one
-// bucket (searchsorted right, -1, clip), then the max live row of that
-// bucket with an equal key (-1 if none).
+// A lane per slot of the flat range of every join's slots: route the
+// clamped spine row's key to its one bucket (searchsorted right, -1,
+// clip), then the max live row of that bucket with an equal key (-1 if
+// none) by a binary search of the sorted bucket.
 __global__ void __launch_bounds__(kThreads)
-delta_join_kernel(const int32_t* __restrict__ keys,
-                  const int32_t* __restrict__ rows,
-                  const int32_t* __restrict__ bkeys,
-                  const int32_t* __restrict__ brows,
-                  const int32_t* __restrict__ bounds,
-                  int32_t* __restrict__ rid_out, int Tl, int D, int P,
-                  int B) {
-  const int slot = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (slot >= D) return;                             // whole warps exit
-  const int lane = threadIdx.x % kWarp;
-  const int64_t row = min(max(rows[slot], 0), Tl - 1);
-  const int32_t key = keys[row];
-  const int b = route_bucket(bounds, P, key);
-  const int rid = probe_bucket(bkeys, brows, b, B, key, lane);
-  if (lane == 0) rid_out[slot] = rid;
+delta_join_kernel(const __grid_constant__ DeltaJoinArgs args) {
+  const int total = args.start[args.nj];
+  for (int slot = blockIdx.x * kThreads + threadIdx.x; slot < total;
+       slot += gridDim.x * kThreads) {
+    int i = 0;
+    while (args.start[i + 1] <= slot) ++i;
+    const DeltaJoin& j = args.j[i];
+    const int k = slot - args.start[i];
+    const int32_t key = __ldg(j.keys + min(max(__ldg(j.rows + k), 0),
+                                           j.Tl - 1));
+    j.out[k] = search_bucket(j.bkeys, j.brows,
+                             route_bucket(j.bounds, j.P, key), j.B, key);
+  }
 }
 
 }  // namespace
@@ -349,15 +389,13 @@ extern "C" int shareddb_delta_scan(const void* args, int blocks,
   return int(cudaGetLastError());
 }
 
-extern "C" int shareddb_delta_join(const int32_t* keys, const int32_t* rows,
-                                   const int32_t* bkeys, const int32_t* brows,
-                                   const int32_t* bounds, int32_t* rid_out,
-                                   int Tl, int D, int P, int B,
+// `args` points at a host DeltaJoinArgs of at most kMaxDeltaJoins joins
+// and a slot or more; it is copied into the launch.  `blocks` comes from
+// kernels/fused_delta.py::delta_join_blocks.
+extern "C" int shareddb_delta_join(const void* args, int blocks,
                                    cudaStream_t stream) {
   using namespace shareddb;
-  if (D == 0) return int(cudaGetLastError());
-  const int blocks = (D + kWarpsPerBlock - 1) / kWarpsPerBlock;
   delta_join_kernel<<<blocks, kThreads, 0, stream>>>(
-      keys, rows, bkeys, brows, bounds, rid_out, Tl, D, P, B);
+      *static_cast<const DeltaJoinArgs*>(args));
   return int(cudaGetLastError());
 }

@@ -35,15 +35,20 @@ by its PROBE slot if it is dirty, else by its COPY tile.  That rests on
 a join's dirty rows being ascending and distinct (``FusedJoinIn``).
 
 ``delta_scan`` and ``delta_join`` are the chained delta ops (a backend
-without ``fused_delta`` calls ``delta_scan`` once a beat over every
-stage and ``delta_join`` per join): the DIRTY and PROBE items as
-standalone kernels in the same source (they replace the reference's
+without ``fused_delta`` calls each once a beat, over every stage and
+every partitioned join): the DIRTY and PROBE items as standalone
+kernels in the same source (they replace the reference's
 ``delta_scan_pallas`` and ``delta_join_pallas``).  They write one output
 row per slot, pad slots included, computed on the slot's row clamped
 into range; ``delta_join`` routes inside its kernel.  ``delta_scan``
 takes a tuple of ``backends.DeltaScanIn`` and covers up to
 ``DELTA_SCAN_STAGES`` stages a launch, a warp per slot of their flat
-slot range (``delta_scan_blocks``).
+slot range (``delta_scan_blocks``); ``delta_join`` takes a tuple of
+``backends.DeltaJoinIn`` and covers up to ``DELTA_JOINS`` joins a
+launch, a lane per slot (``delta_join_blocks``), each routing its key
+and binary-searching its bucket, so its buckets must be in
+``storage.build_key_partitions``' layout
+(``partitioned_join.buckets_ordered``).
 """
 from __future__ import annotations
 
@@ -66,6 +71,9 @@ MAX_PANE_PREDICATES = 48 * 1024 // 8
 WARPS = 8                  # warps a block (kWarpsPerBlock)
 DELTA_SCAN_STAGES = 32     # kMaxDeltaStages: stages one delta_scan launch
                            # takes in its argument block
+DELTA_JOINS = 32           # kMaxDeltaJoins: joins one delta_join launch
+                           # takes in its argument block
+THREADS = 256              # threads a block (kThreads)
 
 _PANE, _DIRTY, _PROBE, _COPY = 0, 1, 2, 3
 
@@ -279,19 +287,37 @@ def delta_scan_blocks(slots: int, sms: int) -> int:
     return max(1, min(-(-slots // WARPS), sms * _k.BLOCKS_PER_SM))
 
 
+def _groups(slots, per_launch: int) -> list:
+    groups = []
+    for g0 in range(0, len(slots), per_launch):
+        start = [0]
+        for d in slots[g0:g0 + per_launch]:
+            start.append(start[-1] + d)
+        if start[-1]:
+            groups.append((g0, start))
+    return groups
+
+
 def delta_scan_groups(slots) -> list:
     """The launches of one ``delta_scan`` call, from each stage's slot
     count: (first stage, stage-start prefix sums) per launch, at most
     ``DELTA_SCAN_STAGES`` consecutive stages each; a group without a
     slot launches nothing."""
-    groups = []
-    for g0 in range(0, len(slots), DELTA_SCAN_STAGES):
-        start = [0]
-        for d in slots[g0:g0 + DELTA_SCAN_STAGES]:
-            start.append(start[-1] + d)
-        if start[-1]:
-            groups.append((g0, start))
-    return groups
+    return _groups(slots, DELTA_SCAN_STAGES)
+
+
+def delta_join_groups(slots) -> list:
+    """The launches of one ``delta_join`` call, from each join's slot
+    count: (first join, join-start prefix sums) per launch, at most
+    ``DELTA_JOINS`` consecutive joins each; a group without a slot
+    launches nothing."""
+    return _groups(slots, DELTA_JOINS)
+
+
+def delta_join_blocks(slots: int, sms: int) -> int:
+    """Blocks of one delta_join launch over ``slots`` slots (a lane
+    each): at most ``kernels.BLOCKS_PER_SM`` a streaming multiprocessor."""
+    return max(1, min(-(-slots // THREADS), sms * _k.BLOCKS_PER_SM))
 
 
 def _check_delta_scan(i, e, dev):
@@ -346,32 +372,68 @@ def delta_scan(scan_in):
     return outs
 
 
-def delta_join(keys_l, rows, bucket_keys, bucket_rows, bounds):
-    """keys_l int32[Tl]; rows int32[D]; buckets int32[P, B]; bounds
-    int32[P] -> rid int32[D]; contract of kernels/ref.delta_join_ref."""
-    if keys_l.device.type == "cpu":
-        return ref.delta_join_ref(keys_l, rows, bucket_keys, bucket_rows,
-                                  bounds)
-    dev = keys_l.device
-    _k.require(keys_l, torch.int32, 1, "keys_l", dev)
-    _k.require(rows, torch.int32, 1, "rows", dev)
-    _k.require(bucket_keys, torch.int32, 2, "bucket_keys", dev)
-    _k.require(bucket_rows, torch.int32, 2, "bucket_rows", dev)
-    _k.require(bounds, torch.int32, 1, "bounds", dev)
-    P, B = bucket_keys.shape
-    Tl = keys_l.shape[0]
-    if (bucket_rows.shape != bucket_keys.shape or bounds.shape[0] != P
-            or P < 1 or Tl < 1):
+class _DeltaJoin(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in
+                ("keys", "rows", "bkeys", "brows", "bounds", "out")] + \
+               [(n, ctypes.c_int) for n in ("Tl", "P", "B")]
+
+
+class _DeltaJoinArgs(ctypes.Structure):
+    _fields_ = [("j", _DeltaJoin * DELTA_JOINS),
+                ("start", ctypes.c_int * (DELTA_JOINS + 1)),
+                ("nj", ctypes.c_int)]
+
+
+def _check_delta_join(i, e, dev):
+    for t, name, nd in ((e.keys, "keys", 1), (e.rows, "rows", 1),
+                        (e.bkeys, "bkeys", 2), (e.brows, "brows", 2),
+                        (e.bounds, "bounds", 1)):
+        _k.require(t, torch.int32, nd, f"join_in[{i}].{name}", dev)
+    P, B = e.bkeys.shape
+    if (e.brows.shape != e.bkeys.shape or e.bounds.shape[0] != P or P < 1
+            or B < 1 or e.keys.shape[0] < 1):
         raise ValueError(
-            f"delta_join: keys {tuple(keys_l.shape)}, buckets "
-            f"{tuple(bucket_keys.shape)}/{tuple(bucket_rows.shape)}, "
-            f"bounds {tuple(bounds.shape)}")
-    D = rows.shape[0]
-    rid = torch.empty((D,), dtype=torch.int32, device=dev)
-    code = _k.library().shareddb_delta_join(
-        keys_l.data_ptr(), rows.data_ptr(), bucket_keys.data_ptr(),
-        bucket_rows.data_ptr(), bounds.data_ptr(), rid.data_ptr(), Tl, D, P,
-        B, _k.stream_of(keys_l))
-    _k.LAUNCHES["delta_join"] += 1
-    _k.check_launch(code, "delta_join")
-    return rid
+            f"delta_join join_in[{i}]: keys {tuple(e.keys.shape)}, buckets "
+            f"{tuple(e.bkeys.shape)}/{tuple(e.brows.shape)}, bounds "
+            f"{tuple(e.bounds.shape)}: want Tl, P, B >= 1")
+
+
+def delta_join(join_in):
+    """A tuple of backends.DeltaJoinIn (keys int32[Tl]; rows int32[D];
+    buckets int32[P, B]; bounds int32[P]) -> a tuple of rid int32[D],
+    one per join; contract of kernels/ref.delta_joins_ref.  On CUDA: one
+    launch per ``DELTA_JOINS`` joins holding a slot.
+
+    Precondition (not checked): every join's buckets are laid out as
+    ``storage.build_key_partitions`` lays them out
+    (``partitioned_join.buckets_ordered``), which the kernel's binary
+    search inside a bucket rests on; the plain version scans the bucket
+    and does not need it."""
+    join_in = tuple(join_in)
+    if not join_in:
+        return ()
+    dev = join_in[0].keys.device
+    if dev.type == "cpu":
+        return ref.delta_joins_ref(join_in)
+    for i, e in enumerate(join_in):
+        _check_delta_join(i, e, dev)
+    outs = tuple(torch.empty((e.rows.shape[0],), dtype=torch.int32,
+                             device=dev) for e in join_in)
+    for g0, start in delta_join_groups([e.rows.shape[0] for e in join_in]):
+        group = join_in[g0:g0 + len(start) - 1]
+        args = _DeltaJoinArgs(nj=len(group))
+        for i, (e, out) in enumerate(zip(group, outs[g0:])):
+            a = args.j[i]
+            a.keys, a.rows = e.keys.data_ptr(), e.rows.data_ptr()
+            a.bkeys, a.brows = e.bkeys.data_ptr(), e.brows.data_ptr()
+            a.bounds, a.out = e.bounds.data_ptr(), out.data_ptr()
+            a.Tl = e.keys.shape[0]
+            a.P, a.B = e.bkeys.shape
+        args.start[:len(start)] = start
+        code = _k.library().shareddb_delta_join(
+            ctypes.byref(args),
+            delta_join_blocks(start[-1], _k.sm_count(dev)),
+            _k.stream_of(join_in[0].keys))
+        _k.LAUNCHES["delta_join"] += 1
+        _k.check_launch(code, "delta_join")
+    return outs

@@ -66,6 +66,12 @@ def delta_join_ref(keys_l, rows, bucket_keys, bucket_rows, bounds):
     return _probe(kd, _route(bounds, kd, P), bucket_keys, bucket_rows)
 
 
+def delta_joins_ref(join_in):
+    """The ``join_delta`` op: ``delta_join_ref`` over a tuple of
+    backends.DeltaJoinIn, one join each -> a tuple of int32[D_j]."""
+    return tuple(delta_join_ref(*e) for e in join_in)
+
+
 def partitioned_join_ref(keys_l, mask_l, bucket_keys, bucket_rows, bounds,
                          mask_r):
     """Partitioned shared join probe.

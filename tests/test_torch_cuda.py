@@ -21,7 +21,8 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.configs import smoke_config
-from repro_torch.core.backends import DeltaScanIn, FusedJoinIn, FusedScanIn
+from repro_torch.core.backends import (DeltaJoinIn, DeltaScanIn, FusedJoinIn,
+                                       FusedScanIn)
 from repro_torch.core.storage import INT_SENTINEL, build_key_partitions
 from repro_torch.kernels import bitmask_join as tbj
 from repro_torch.kernels import clockscan as tcs
@@ -374,10 +375,16 @@ def test_fused_delta_matches_plain(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Tl,Tr,W,dup", [
     (256, 256, 1, False), (1024, 512, 8, False), (300, 100, 3, True),
-    (51392 // 8, 128, 14, True), (200, 2500, 2, True), (1, 1, 1, False)])
+    (51392 // 8, 128, 14, True), (200, 2500, 2, True), (1, 1, 1, False),
+    (51392, 128, 14, True), (300, 500, 24, True), (777, 1500, 14, True),
+    (2100, 500, 60, True), (300, 12000, 1, True)])
 def test_bitmask_join_matches_plain(cuda_device, Tl, Tr, W, dup):
-    """Ragged sides, Tr over the kernel's 2048-row shared-memory chunk,
-    and invalid right rows that repeat a valid key."""
+    """Ragged sides, invalid right rows that repeat a valid key (staged
+    rows out of key order: rids by the scan); the fold path's migration
+    shape (51 392 x 14 words against 128 rows) and that shape cut by 8;
+    right sides staged in more than 48 KB of shared memory (500 x 24,
+    1500 x 14), and right sides past STAGE_BYTES that take the chunked
+    path (500 x 60 words, 12 000 x 1)."""
     rng = np.random.default_rng(Tl + Tr)
     dev = cuda_device
     keys_r = rng.permutation(Tr * 3)[:Tr]
@@ -388,6 +395,53 @@ def test_bitmask_join_matches_plain(cuda_device, Tl, Tr, W, dup):
         keys_r[inv[:n]] = keys_r[rng.choice(val, n, replace=False)]
     kl = _t(rng.choice(Tr * 4, Tl), dev)
     args = (kl, _words(rng, (Tl, W), dev), _t(keys_r, dev),
+            _words(rng, (Tr, W), dev), _t(valid_r, dev, torch.bool))
+    assert (tbj.stage_bytes(Tr, W) > 48 * 1024) == (
+        (Tr, W) in ((500, 24), (1500, 14)))
+    assert (tbj.stage_bytes(Tr, W) == 0) == (W == 60 or Tr == 12000)
+    before = K.LAUNCHES["bitmask_join"]
+    for a, b in zip(tbj.bitmask_join(*args), tref.bitmask_join_ref(*args)):
+        assert torch.equal(a, b)
+    assert K.LAUNCHES["bitmask_join"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tl,Tr,W,live", [
+    (51392, 128, 14, 92), (1000, 512, 3, 512), (33, 64, 1, 0),
+    (700, 300, 14, 250)])
+def test_bitmask_join_in_order_right_side(cuda_device, Tl, Tr, W, live):
+    """A PK side that holds its live rows in key order ahead of its free
+    rows (the fold path's country: 92 of 128), which the staged path
+    searches as staged, without a sort; all rows live; none live."""
+    rng = np.random.default_rng(Tl + live)
+    dev = cuda_device
+    keys_r = np.zeros(Tr, np.int64)
+    keys_r[:live] = np.sort(rng.choice(4 * Tr, live, replace=False))
+    kl = rng.choice(np.concatenate([keys_r, keys_r + 1, [-2 ** 31]]), Tl)
+    args = (_t(kl, dev), _words(rng, (Tl, W), dev), _t(keys_r, dev),
+            _words(rng, (Tr, W), dev), _t(np.arange(Tr) < live, dev,
+                                           torch.bool))
+    assert tbj.stage_bytes(Tr, W) > 0
+    for a, b in zip(tbj.bitmask_join(*args), tref.bitmask_join_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("Tr", [128, 2048])
+def test_bitmask_join_unaligned_left_mask(cuda_device, offset, Tr):
+    """A mask_l whose first word is not on a 16-byte boundary (a view
+    into a larger buffer): the kernel reads and writes word by word, on
+    the staged and on the chunked path."""
+    rng = np.random.default_rng(offset + Tr)
+    dev = cuda_device
+    Tl, W = 1000, 14
+    keys_r = rng.permutation(Tr * 3)[:Tr]
+    valid_r = rng.random(Tr) > 0.25
+    buf = _words(rng, (Tl * W + offset,), dev)
+    mask_l = buf[offset:].view(Tl, W)
+    assert mask_l.data_ptr() % 16 != 0 and mask_l.is_contiguous()
+    args = (_t(rng.choice(Tr * 4, Tl), dev), mask_l, _t(keys_r, dev),
             _words(rng, (Tr, W), dev), _t(valid_r, dev, torch.bool))
     for a, b in zip(tbj.bitmask_join(*args), tref.bitmask_join_ref(*args)):
         assert torch.equal(a, b)
@@ -411,17 +465,161 @@ def test_delta_scan_matches_plain(cuda_device, T, C, Q, D, dn):
     assert torch.equal(got, tref.delta_scan_ref(cols, lo, hi, valid, rows))
 
 
+def _delta_join_in(rng, dev, Tl, Tr, D, dn, P, B, krange=None):
+    """One DeltaJoinIn over build_key_partitions' layout (P buckets of B;
+    right keys distinct, or drawn from ``krange`` values: duplicate runs
+    across buckets): dn sorted dirty rows (row Tl-1 among them when dn is
+    odd), sentinel-padded to D slots; probe keys that hit, miss and fall
+    past either end of the bounds."""
+    keys_r = (rng.permutation(Tr * 3)[:Tr] - 2 if krange is None
+              else rng.integers(0, krange, Tr))
+    valid_r = rng.random(Tr) < 0.9
+    keys_l = rng.choice(np.concatenate([keys_r, keys_r + 1]), Tl)
+    keys_l[-3:] = [int(keys_r.min()) - 5, -2 ** 31, INT_SENTINEL - 1]
+    pool = [Tl - 1] if dn % 2 else []
+    rows = np.sort(np.concatenate([pool, rng.permutation(Tl - 1)])[:dn])
+    parts = build_key_partitions(_t(keys_r, dev), _t(valid_r, dev, torch.bool),
+                                 P, B)
+    return DeltaJoinIn(_t(keys_l, dev),
+                       _t(np.concatenate([rows, np.full(D - dn, Tl)]), dev),
+                       *parts)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Tl,Tr,D,dn,pseudo", [
     (300, 160, 16, 5, False), (128, 64, 8, 0, False),
     (5000, 128, 128, 6, True), (64, 100, 8, 8, True)])
 def test_delta_join_matches_plain(cuda_device, Tl, Tr, D, dn, pseudo):
     """Partitioned and single-bucket (block) probes, pad slots clamped to
-    row Tl-1, an all-pad set."""
+    row Tl-1, an all-pad set.  The kernel's binary search reads
+    build_key_partitions' layout only, so a single-bucket case's
+    row-order pseudo-partition reaches it re-laid by build_key_partitions
+    at P = 1 (the same keys and live rows), and the kernel's rids are held
+    to the plain version on the row-order bucket."""
     rng = np.random.default_rng(Tl + D)
     e = _join(rng, cuda_device, Tl, Tr, D, dn, pseudo=pseudo)
-    args = (e.keys, e.rows, e.bkeys, e.brows, e.bounds)
-    assert torch.equal(tfd.delta_join(*args), tref.delta_join_ref(*args))
+    parts = (e.bkeys, e.brows, e.bounds)
+    if pseudo:
+        parts = build_key_partitions(e.bkeys[0], e.brows[0] >= 0, 1, Tr)
+    assert tpj.buckets_ordered(*parts[:2])
+    got, = tfd.delta_join((DeltaJoinIn(e.keys, e.rows, *parts),))
+    assert torch.equal(got, tref.delta_join_ref(e.keys, e.rows, e.bkeys,
+                                                e.brows, e.bounds))
+
+
+# (Tl, Tr, P) of a chained steady beat's four partitioned joins at full
+# scale (item x author, order_line x orders, order_line x item,
+# shopping_cart_line x item), B 256, 128 dirty-row slots each
+DELTA_JOIN_TPCW = PJ_TPCW
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chained_beat", "over_one_launch",
+                                  "many_buckets"])
+def test_grouped_delta_join_matches_plain(cuda_device, case):
+    """One launch over the chained beat's four probes (live dirty rows,
+    pads, keys past either end of the bounds); more joins than one
+    argument block holds, duplicate-key runs across buckets, all-pad,
+    full and empty slot sets among them, in ceil(n / DELTA_JOINS)
+    launches; one bucket a right row (70 003 bounds, a 17-step
+    route)."""
+    rng = np.random.default_rng(len(case) + 1)
+    if case == "chained_beat":
+        joins = [_delta_join_in(rng, cuda_device, Tl, Tr, 128, 3 + 2 * i, P,
+                                256)
+                 for i, (Tl, Tr, P) in enumerate(DELTA_JOIN_TPCW)]
+    elif case == "many_buckets":
+        joins = [_delta_join_in(rng, cuda_device, 300, 160, 16, 5, 4, 48),
+                 _delta_join_in(rng, cuda_device, 4097, 70000, 128, 9,
+                                70003, 1)]
+    else:
+        joins = [_delta_join_in(rng, cuda_device, 40 + 9 * j, 30 + 5 * j,
+                                4 * (j % 4), min(j % 5, 4 * (j % 4)),
+                                -(-(30 + 5 * j) // (8 + 8 * (j % 3))),
+                                8 + 8 * (j % 3), 12 if j % 7 == 0 else None)
+                 for j in range(tfd.DELTA_JOINS + 8)]
+    assert all(tpj.buckets_ordered(e.bkeys, e.brows) for e in joins)
+    before = K.LAUNCHES["delta_join"]
+    got = tfd.delta_join(joins)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["delta_join"] == before + -(-len(joins)
+                                                  // tfd.DELTA_JOINS)
+    want = tref.delta_joins_ref(joins)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bitmask_join_and_delta_join_never_synchronise(cuda_device):
+    """Both wrappers enqueue their launch without a host sync."""
+    rng = np.random.default_rng(17)
+    dev = cuda_device
+    Tl, Tr, W = 51392, 128, 14
+    bj = (_t(rng.choice(Tr * 4, Tl), dev), _words(rng, (Tl, W), dev),
+          _t(rng.permutation(Tr * 3)[:Tr], dev), _words(rng, (Tr, W), dev),
+          _t(rng.random(Tr) > 0.25, dev, torch.bool))
+    dj = [_delta_join_in(rng, dev, Tl, Tr, 128, 5, P, 256)
+          for Tl, Tr, P in DELTA_JOIN_TPCW]
+    tbj.bitmask_join(*bj)                       # build and load first
+    tfd.delta_join(dj)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_bj = tbj.bitmask_join(*bj)
+        got_dj = tfd.delta_join(dj)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got_bj, tref.bitmask_join_ref(*bj)):
+        assert torch.equal(a, b)
+    for a, b in zip(got_dj, tref.delta_joins_ref(dj)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_chained_beat_launches_one_delta_join(cuda_device):
+    """A chained index-less engine on the card (the hopper kernels without
+    fused_delta) launches ONE delta_join and ONE delta_scan a steady
+    beat, probing live dirty rows, and answers as its twin on the plain
+    ``torch`` backend."""
+    from repro_torch.core import backends as B
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.workloads import tpcw
+
+    B.register_backend(dataclasses.replace(
+        B.get_backend("hopper"), name="hopper-chained-test",
+        fused_delta=None))
+    si, sc = 64, 128
+    plan = tpcw.build_tpcw_plan(si, sc, dense_pk_index=False)
+    data = tpcw.generate_data(np.random.default_rng(0), si, sc)
+    engs = [SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                           kernels=k, device=cuda_device)
+            for k in ("hopper-chained-test", "torch")]
+    rng = np.random.default_rng(3)
+    for beat in range(4):
+        ups = [("order_line", "insert", {
+            "ol_o_id": int(rng.integers(0, sc)),
+            "ol_i_id": int(rng.integers(0, si)), "ol_qty": 1,
+            "ol_discount": 0}) for _ in range(3 if beat else 0)]
+        qs = [("order_lines", {0: (beat, beat)}), ("get_cart", {0: (12, 12)}),
+              ("get_book", {0: (5, 5)})]
+        tickets = []
+        before = dict(K.LAUNCHES)
+        for e in engs:
+            for u in ups:
+                e.submit_update(*u)
+            tickets.append([e.submit(n, p) for n, p in qs])
+            e.run_until_drained()
+        got = {k: n - before[k] for k, n in K.LAUNCHES.items()}
+        if beat:
+            assert engs[0].last_join_path == "delta"
+            assert engs[0].last_collect_stats["backend_ops"]["join_delta"] \
+                == 1
+            assert got["delta_join"] == 1 and got["delta_scan"] == 1, got
+        for a, b in zip(*tickets):
+            for k, want in b.result.items():
+                assert np.array_equal(np.asarray(a.result[k]),
+                                      np.asarray(want)), (beat, a.template, k)
 
 
 @pytest.mark.cuda

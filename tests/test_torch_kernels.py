@@ -795,6 +795,161 @@ def test_partitions_reaching_the_join_are_ordered_for_its_search():
     assert len(seen) >= 6 * 3 and all(seen)
 
 
+def test_partitions_reaching_the_chained_delta_join_are_ordered():
+    """Every bucket set that reaches ``join_delta`` on a chained
+    index-less engine (``delta_joins=True``, a backend without
+    ``fused_delta``) is laid out as the delta_join kernel's binary search
+    needs: the key partitions carried from the reseed, and those rebuilt
+    by inserts (a duplicate item key among them), deletes and key updates
+    on the partitioned joins' PK tables, probed by the next beats' dirty
+    spine rows (order_line inserts, cart updates).  Each delta-join beat
+    probes every partitioned join in ONE join_delta call."""
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.core.lowering import lower_plan
+    from repro_torch.workloads import tpcw
+
+    base_be = tb.get_backend("torch")
+    seen, live = [], []
+
+    def recorded(join_in):
+        seen.append([tpj.buckets_ordered(e.bkeys, e.brows)
+                     for e in join_in])
+        live.append(sum(int((e.rows < e.keys.shape[0]).sum())
+                        for e in join_in))
+        return base_be.join_delta(join_in)
+    tb.register_backend(dataclasses.replace(
+        base_be, name="torch-chained-order-test", fused_delta=None,
+        join_delta=recorded))
+    si, sc = 64, 128
+    plan = tpcw.build_tpcw_plan(si, sc, dense_pk_index=False)
+    n_part = sum(j.kind == "partitioned" for j in lower_plan(plan).joins)
+    data = tpcw.generate_data(np.random.default_rng(0), si, sc)
+    eng = SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                         kernels="torch-chained-order-test", device="cpu")
+    rng = np.random.default_rng(5)
+    rebuilt, delta_beats = set(), 0
+    for beat in range(9):
+        if beat % 2 == 1:
+            # the PK side: inserts (a duplicate item key), a delete and a
+            # key update (partition refreshes; these beats probe in full)
+            eng.submit_update("item", "insert", {
+                "i_id": si + beat, "i_a_id": beat, "i_subject": 1,
+                "i_title": 2, "i_pub_date": 11500, "i_cost": 10,
+                "i_srp": 20, "i_stock": 5, "i_related1": 0})
+            eng.submit_update("item", "insert", {
+                "i_id": beat, "i_a_id": 1, "i_subject": 1, "i_title": 2,
+                "i_pub_date": 11500, "i_cost": 10, "i_srp": 20,
+                "i_stock": 5, "i_related1": 0})
+            eng.submit_update("item", "delete",
+                              {"key": int(rng.integers(0, si))})
+            eng.submit_update("author", "update", {
+                "key": int(rng.integers(0, si // 4)), "col": "a_id",
+                "val": int(rng.integers(0, si // 4))})
+            eng.submit_update("orders", "delete",
+                              {"key": int(rng.integers(0, sc))})
+        elif beat:
+            # the spines: live dirty rows for the delta probes
+            for _ in range(3):
+                eng.submit_update("order_line", "insert", {
+                    "ol_o_id": int(rng.integers(0, sc)),
+                    "ol_i_id": int(rng.integers(0, si + 8)),
+                    "ol_qty": 1, "ol_discount": 0})
+            eng.submit_update("shopping_cart_line", "update", {
+                "key": int(rng.integers(0, 64)), "col": "scl_i_id",
+                "val": int(rng.integers(0, si + 8))})
+        eng.submit("order_lines", {0: (beat, beat)})
+        eng.submit("get_cart", {0: (12, 12)})
+        eng.submit("get_book", {0: (5, 5)})
+        eng.run_until_drained()
+        rebuilt |= {t for t, v in eng.last_parts_rebuilt.items() if v}
+        if eng.last_join_path == "delta":
+            delta_beats += 1
+            ops = eng.last_collect_stats["backend_ops"]
+            assert ops["join_delta"] == 1 and ops["scan_delta"] == 1, ops
+    assert {"item", "author", "orders"} <= rebuilt
+    assert delta_beats >= 4 and len(seen) == delta_beats
+    assert all(len(s) == n_part and all(s) for s in seen)
+    assert all(n > 0 for n in live)     # each probed live dirty rows
+
+
+def test_delta_join_inputs_are_the_partitioned_joins_key_partitions():
+    """The lowering hands ``join_delta`` one DeltaJoinIn per PARTITIONED
+    join, in the plan's join order, and nothing else: each is the spine's
+    fk column and dirty rows and ``partitions[pk_table]``, which equals
+    ``build_key_partitions`` of the PK table as the beat left it (the
+    layout the delta_join kernel's binary search needs).  The plan's block
+    join (TPC-W Buy Request's address lookup: ``address`` joined to the
+    index-less 92-row ``country``), its spine dirtied by address moves,
+    reaches no ``join_delta`` call."""
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.core.plan import (Join, Pred, QueryTemplate,
+                                       compile_plan)
+    from repro_torch.core.storage import build_key_partitions
+    from repro_torch.workloads import tpcw
+
+    base_be = tb.get_backend("torch")
+    calls = []
+
+    def recorded(join_in):
+        calls.append(join_in)
+        return base_be.join_delta(join_in)
+    tb.register_backend(dataclasses.replace(
+        base_be, name="torch-delta-join-inputs-test", fused_delta=None,
+        join_delta=recorded))
+    si, sc = 64, 128
+    catalog = tpcw.make_catalog(si, sc, dense_pk_index=False)
+    templates, caps = tpcw.make_templates(catalog.schemas["item"].capacity)
+    templates.append(QueryTemplate(
+        "buy_request_address", "address",
+        preds=(Pred("address", "addr_id"),),
+        joins=(Join("addr_co_id", "country"),), limit=1))
+    plan = compile_plan(catalog, templates,
+                        dict(caps, buy_request_address=16))
+    data = tpcw.generate_data(np.random.default_rng(0), si, sc)
+    eng = SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                         kernels="torch-delta-join-inputs-test", device="cpu")
+    joins = eng._lowered.joins
+    probed = [j for j in joins if j.kind == "partitioned"]
+    assert probed and [j.pk_table for j in joins
+                       if j.kind == "block"] == ["country"]
+    rng = np.random.default_rng(7)
+    checked = 0
+    for beat in range(5):
+        if beat == 2:       # a PK-side write: partitions rebuilt
+            eng.submit_update("item", "insert", {
+                "i_id": si + beat, "i_a_id": 1, "i_subject": 1,
+                "i_title": 2, "i_pub_date": 11500, "i_cost": 10,
+                "i_srp": 20, "i_stock": 5, "i_related1": 0})
+        elif beat:
+            eng.submit_update("order_line", "insert", {
+                "ol_o_id": int(rng.integers(0, sc)),
+                "ol_i_id": int(rng.integers(0, si + 4)),
+                "ol_qty": 1, "ol_discount": 0})
+            eng.submit_update("address", "update", {
+                "key": beat, "col": "addr_co_id",
+                "val": int(rng.integers(0, 92))})
+        eng.submit("order_lines", {0: (beat, beat)})
+        eng.submit("get_book", {0: (5, 5)})
+        eng.submit("buy_request_address", {0: (beat, beat)})
+        n = len(calls)
+        assert len(eng.run_until_drained()) == 1
+        if eng.last_join_path != "delta":
+            assert len(calls) == n
+            continue
+        join_in, = calls[n:]
+        assert len(join_in) == len(probed)
+        for e, st in zip(join_in, probed):
+            spine, pk = eng.state[st.spine], eng.state[st.pk_table]
+            assert torch.equal(e.keys, spine[st.fk_col])
+            assert torch.equal(e.rows, spine["_dirty_rows"])
+            want = build_key_partitions(pk[st.pk_col], pk["_valid"],
+                                        st.n_partitions, st.bucket_cap)
+            for got, w in zip((e.bkeys, e.brows, e.bounds), want):
+                assert torch.equal(got, w)
+        checked += 1
+    assert checked >= 3
+
+
 def test_hopper_ops_are_kernel_wrappers_with_plain_cpu_results():
     """Every op of the ``hopper`` backend is a kernel wrapper of
     ``repro_torch.kernels`` that returns its plain version's result on CPU
@@ -820,7 +975,8 @@ def test_hopper_ops_are_kernel_wrappers_with_plain_cpu_results():
                                            rows[:3])),),
             "join_block": (keys_l, mask_l, keys_r, mask_r, valid_r),
             "join_partitioned": (keys_l, mask_l, *parts, mask_r),
-            "join_delta": (keys_l, rows, *parts),
+            "join_delta": ((tb.DeltaJoinIn(keys_l, rows, *parts),
+                            tb.DeltaJoinIn(keys_l[:60], rows[:3], *parts)),),
             "groupby": (codes, cols[0], mask_l, 12),
             "fused_delta": (scan_in, join_in)}
     assert sorted(args) == sorted(f.name for f in

@@ -53,15 +53,21 @@ capability 9.0+ and the CUDA toolkit.  It:
          delta beat chains 7 pane scans, ONE delta_scan over the 7 stages
          and ONE delta_join over the 4 partitioned joins), replaying the
          fold path's beats;
-     on every beat the tickets must equal those of a twin engine with the
-     same history on the plain ``torch`` backend and, on a sample, the
-     query-at-a-time engine; from the migration beat on, the folded
-     engine's tickets must equal the cold chained engine's; steady beats
-     must take the delta paths with the expected backend launches, and
-     ``dispatch()`` must not synchronise with the host (the one exemption:
-     the fold's migration beat, which drains in-flight beats by design);
-     the last steady beat of each path runs under torch.profiler, for the
-     card's busy time;
+     every engine under test runs graphed (``jit=True``: each beat replays
+     a captured CUDA graph; the fold's generation is captured on its fold
+     thread), and its capture seconds and graph pool bytes per generation
+     are printed; on every beat its tickets must equal, bit for bit, those
+     of a ``jit=False`` twin on the same kernels with the same history
+     (same paths, backend ops and kernel launches; the twin's launches
+     count aside), those of a twin on the plain ``torch`` backend and, on
+     a sample, the query-at-a-time engine's; from the migration beat on,
+     the folded engine's tickets must equal the cold chained engine's;
+     steady beats must take the delta paths with the expected backend
+     launches, and ``dispatch()`` must not synchronise with the host (the
+     one exemption: the fold's migration beat, which drains in-flight
+     beats by design); the last steady beat of each path runs under
+     torch.profiler on the engine and its eager twin, for the card's busy
+     time and the host ops enqueued, printed graphed beside eager;
        lm-yi-6b — the LM CycleServer on yi-6b at full width and depth (32
          layers, bf16 weights from the port's seeded init): capacity 8,
          max_seq 1024, prefill_len 512, 16 requests of 64-512 prompt
@@ -77,15 +83,20 @@ capability 9.0+ and the CUDA toolkit.  It:
      is nearly one-hot (the score spread of a recorded call is printed),
      so the kernel's online-softmax rescaling is held to its plain
      version at these paths' shapes on soft-softmax inputs in step 3.
-     Each LM server also runs beat for beat beside a twin on the same
-     weights whose prefill attention is the plain version
-     (kernels="torch"); the twin gates nothing and only measures the
-     end-to-end divergence: one bf16 rounding grows several-fold a layer
-     under one-hot attention, and the two reach O(1) within about ten
-     layers.  Every request must end with its tokens and no NaN, and
-     flash_attention must launch once per layer per admission, every
-     launch on its tensor-core kernel (bf16, D 128); one
-     admission beat and one decode-only beat run under torch.profiler;
+     Each LM server captures its decode step as a CUDA graph and runs
+     beat for beat beside a twin on the same weights whose prefill
+     attention is the plain version (kernels="torch") and whose decode
+     step runs eagerly (jit=False); the twin gates nothing: it measures
+     the end-to-end divergence (one bf16 rounding grows several-fold a
+     layer under one-hot attention, and the two reach O(1) within about
+     ten layers) and gives the eager beats' walls, printed beside the
+     graphed ones.  On yi-6b every decode-only beat's graphed step is run
+     again eagerly on a copy of the cache: greedy tokens equal, logits
+     within LM_EAGER_REL_TOL of scale.  Every request must end with its
+     tokens and no NaN, and flash_attention must launch once per layer
+     per admission, every launch on its tensor-core kernel (bf16, D
+     128); one admission beat and one decode-only beat of the server and
+     of its twin run under torch.profiler;
   5. replays recorded kernel inputs (the main paths' own shapes and data)
      through each kernel and its plain version, the plain version first:
      agreement, then each call's time on the card (torch.profiler: all
@@ -762,11 +773,15 @@ def workload(scale_i, scale_c):
     return queries, updates, steady
 
 
-def drive(dense, dev, scale_i, scale_c, kernels, check=True):
-    """Build the engine under test (backend ``kernels``) for one catalog
-    and run the beats; with ``check``, also the plain-backend engine and
-    the query-at-a-time engine it is compared with.  Returns the per-beat
-    log."""
+def drive(dense, dev, scale_i, scale_c, kernels, check=True, jit=True,
+          recorder=None, armed=()):
+    """Build the engine under test (backend ``kernels``, graphed unless
+    ``jit=False``) for one catalog and run the beats; with ``check``,
+    also its ``jit=False`` twin, the plain-backend engine and the
+    query-at-a-time engine it is compared with.  ``recorder`` is armed
+    with ``armed`` once the engine is built, so it keeps the beats'
+    calls and not those of the throwaway full beat on an empty state
+    that sizes the engine's buffers.  Returns the per-beat log."""
     import numpy as np
     import torch
     from repro_torch.core.baseline import QueryAtATimeEngine
@@ -776,13 +791,30 @@ def drive(dense, dev, scale_i, scale_c, kernels, check=True):
     data = tpcw.generate_data(np.random.default_rng(SEED), scale_i, scale_c)
     plan = tpcw.build_tpcw_plan(scale_i, scale_c, dense_pk_index=dense)
     eng = SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
-                         kernels=kernels, device=dev)
+                         kernels=kernels, device=dev, jit=jit)
+    if recorder is not None:
+        recorder.armed = set(armed)
     if not check:
-        return _beats(eng, None, None, scale_i, scale_c, dense)
+        return _beats(eng, None, None, None, scale_i, scale_c, dense)
+    print_capture("dense" if dense else "indexless", eng)
+    eager = SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                           kernels=kernels, device=dev, jit=False)
     plain = SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
                            kernels="torch", device=dev)
     base = QueryAtATimeEngine(plan, data, device=dev)
-    return _beats(eng, plain, base, scale_i, scale_c, dense)
+    return _beats(eng, eager, plain, base, scale_i, scale_c, dense)
+
+
+def print_capture(path, eng):
+    """Each plan generation's warm-up and capture seconds, graphs and
+    graph pool bytes; fails unless the engine runs graphed."""
+    if not eng.graphed:
+        fail(f"{path}: the engine under test does not run graphed")
+    for st in eng.capture_stats:
+        print(f"capture, {path} generation {st['generation']}: "
+              f"{st['graphs']} graphs, warm-up {st['warmup_s']:.3f} s, "
+              f"capture {st['capture_s']:.3f} s, graph pool "
+              f"{st['pool_bytes'] / 2 ** 20:.1f} MiB")
 
 
 def slot_stable(queries, beat, scale_c):
@@ -795,15 +827,23 @@ def slot_stable(queries, beat, scale_c):
     return qs
 
 
-def timed_beat(eng, profiled, exempt=False):
-    """One heartbeat of the engine under test: dispatch, then collect.
+def timed_beat(eng, profiled, exempt=False, aside=False):
+    """One heartbeat of an engine: dispatch, then collect.
     ``dispatch()`` runs under ``set_sync_debug_mode("error")``, so any
-    host synchronisation in it raises, unless ``exempt``.  Returns (wall
-    seconds, the profiler or None)."""
+    host synchronisation in it raises, unless ``exempt``.  ``aside``: the
+    engine is a twin, whose launches count in a record of their own, not
+    in the path's counts.  Returns (wall seconds, the profiler or None,
+    the beat's kernel launches)."""
     import torch
-    torch.cuda.synchronize()
+    from repro_torch import kernels as K
+    # the serving stream, not the device: a fold thread may be capturing
+    # graphs on a stream of its own, and a device-wide synchronise during
+    # a capture is refused (and breaks the capture)
+    torch.cuda.current_stream().synchronize()
+    before = dict(K.LAUNCHES)
     prof = beat_profiler() if profiled else contextlib.nullcontext()
-    with prof:
+    with prof, (K.recording() if aside
+                else contextlib.nullcontext()) as record:
         t0 = time.perf_counter()
         if exempt:
             eng.dispatch()
@@ -815,12 +855,34 @@ def timed_beat(eng, profiled, exempt=False):
                 torch.cuda.set_sync_debug_mode(0)
         eng.collect()
         wall = time.perf_counter() - t0
-    return wall, (prof if profiled else None)
+    launches = record.launches if aside else {
+        k: n - before[k] for k, n in K.LAUNCHES.items() if n != before[k]}
+    return wall, (prof if profiled else None), launches
+
+
+# the CUDA runtime calls by which the host enqueues device work, as the
+# profiler names them on the host's side of the trace
+HOST_OP_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                 "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def host_ops(prof):
+    """The device ops the host enqueued in a profiled window: its kernel
+    launches, copies, fills and graph launches, by runtime call."""
+    import torch
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name in HOST_OP_CALLS:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
 
 
 def beat_entry(eng, path, beat, wall, prof, **extra):
     s = eng.last_collect_stats
     entry = {"path": path, "beat": beat,
+             "graphed": getattr(eng, "graphed", False),
              "scan_path": eng.last_scan_path,
              "join_path": eng.last_join_path,
              "admitted": s["admitted"], "dirty": s["dirty"],
@@ -834,7 +896,33 @@ def beat_entry(eng, path, beat, wall, prof, **extra):
     if prof is not None:
         (entry["device_busy_ms"], entry["device_events"],
          entry["top_device_ops"]) = busy_ms(prof)
+        entry["host_ops"] = host_ops(prof)
     return entry
+
+
+def twin_beat(eng, eager, what, launched, eager_launched):
+    """The graphed engine's beat against its ``jit=False`` twin's, with
+    the same history: the same paths, backend ops and kernel launches."""
+    paths = (eng.last_scan_path, eng.last_join_path)
+    if (eager.last_scan_path, eager.last_join_path) != paths:
+        fail(f"{what}: graphed paths {paths}, eager "
+             f"{(eager.last_scan_path, eager.last_join_path)}")
+    ops, eops = (e.last_collect_stats["backend_ops"] for e in (eng, eager))
+    if ops != eops:
+        fail(f"{what}: graphed backend ops {ops}, eager {eops}")
+    if launched != eager_launched:
+        fail(f"{what}: graphed kernel launches {launched}, eager "
+             f"{eager_launched}")
+
+
+def tickets_identical(a, b, what):
+    """Bit for bit, group scores too: the graph replays the eager body's
+    kernels on the same inputs (TPC-W's group sums are exact)."""
+    import numpy as np
+    for k, want in b.result.items():
+        got = a.result[k]
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            fail(f"{what} {a.template}.{k}: {got[:4]} vs {want[:4]}")
 
 
 def check_beat(eng, what, tickets, want_paths, want_ops):
@@ -863,17 +951,18 @@ def check_sample(tickets, base, what, dense=False):
         matches_baseline(t, base.execute(t.template, t.params).result, what)
 
 
-def _beats(eng, plain, base, scale_i, scale_c, dense):
+def _beats(eng, eager, plain, base, scale_i, scale_c, dense):
     queries, updates, steady = workload(scale_i, scale_c)
     catalog = "dense" if dense else "indexless"
     log = []
     # the beats after the reseed are steady; the last of them runs under
-    # torch.profiler to read the card's busy time in a steady beat
+    # torch.profiler to read the card's busy time in a steady beat, on
+    # the engine under test and on its eager twin
     for beat in range(2 + STEADY_BEATS):
         profiled = beat == 1 + STEADY_BEATS
         ups = updates if beat == 0 else steady[beat - 1]
         qs = slot_stable(queries, beat, scale_c) if beat else list(queries)
-        engines = [e for e in (eng, plain) if e is not None]
+        engines = [e for e in (eng, eager, plain) if e is not None]
         tickets = []
         for e in engines:
             for u in ups:
@@ -882,7 +971,7 @@ def _beats(eng, plain, base, scale_i, scale_c, dense):
         if base is not None:
             for u in ups:
                 base.apply_update(*u)
-        wall, prof = timed_beat(eng, profiled)
+        wall, prof, launched = timed_beat(eng, profiled)
         log.append(beat_entry(eng, catalog, beat, wall, prof))
         what = f"{catalog} beat {beat}"
         check_beat(eng, what, tickets[0],
@@ -890,8 +979,13 @@ def _beats(eng, plain, base, scale_i, scale_c, dense):
                    FUSED_STEADY if beat else None)
         if plain is None:
             continue
+        wall, prof, eager_launched = timed_beat(eager, profiled, aside=True)
+        log.append(beat_entry(eager, catalog, beat, wall, prof))
+        twin_beat(eng, eager, what, launched, eager_launched)
+        for a, b in zip(tickets[0], tickets[1]):
+            tickets_identical(a, b, f"{what} graphed vs eager")
         plain.run_until_drained()
-        for a, b in zip(*tickets):
+        for a, b in zip(tickets[0], tickets[2]):
             tickets_equal(a, b, f"{what} hopper vs torch")
         check_sample(tickets[0], base, what, dense)
     return log
@@ -976,8 +1070,10 @@ def fold_path(dev, scale_i, scale_c, recorder):
     the fold builds on the server's background thread while steady beats
     keep coming, commits at a beat boundary (the migration beat: a full
     rescan with one block join), then 3 steady beats and 1 profiled.  Its
-    twin on ``torch`` registers at the migration beat (foreground build),
-    so both admit the same work on every beat."""
+    twins — ``jit=False`` on the hopper kernels (whose migration beat
+    records the bitmask_join call) and ``torch`` — register at the
+    migration beat (foreground builds), so all admit the same work on
+    every beat."""
     import numpy as np
     from repro_torch.core import backends as B
     from repro_torch.core import folding
@@ -988,12 +1084,17 @@ def fold_path(dev, scale_i, scale_c, recorder):
 
     B.register_backend(recorder.backend(B.get_backend("hopper"),
                                         "hopper-recorded"))
+    # armed for the eager twin's migration beat alone (not for its
+    # builds' throwaway full beats on an empty state)
+    armed, recorder.armed = recorder.armed, set()
     data = tpcw.generate_data(np.random.default_rng(SEED), scale_i, scale_c)
     plan = tpcw.build_tpcw_plan(scale_i, scale_c, dense_pk_index=False)
     slots = tpcw.DEFAULT_UPDATE_SLOTS
-    eng = SharedDBEngine(plan, slots, data, kernels="hopper-recorded",
-                         device=dev)
+    eng = SharedDBEngine(plan, slots, data, kernels="hopper", device=dev)
     server = QueryCycleServer(eng)                   # background folds
+    eager = SharedDBEngine(plan, slots, data, kernels="hopper-recorded",
+                           device=dev, jit=False)
+    eager_server = QueryCycleServer(eager, background_folds=False)
     twin = SharedDBEngine(plan, slots, data, kernels="torch", device=dev)
     twin_server = QueryCycleServer(twin, background_folds=False)
     tmpl = buy_request_address()
@@ -1037,26 +1138,37 @@ def fold_path(dev, scale_i, scale_c, recorder):
         profiled = folded and post == STEADY_BEATS + 1
         # the beat that commits the fold drains in-flight beats by design:
         # the one dispatch not run under sync-debug "error"
-        wall, prof = timed_beat(eng, profiled, exempt=ready)
+        wall, prof, launched = timed_beat(eng, profiled, exempt=ready)
         committed = not folded and eng.folds_done == 1
         if committed:
             m = beat
             t_commit = time.perf_counter()
             tickets += held
-            if twin_server.register_template(tmpl, FOLD_CAP)["status"] \
-                    != "folding":
-                fail("fold: the twin's registration did not fold")
+            for s in (eager_server, twin_server):
+                if s.register_template(tmpl, FOLD_CAP)["status"] != \
+                        "folding":
+                    fail("fold: a twin's registration did not fold")
         twin_qs = qs + (traffic.address_queries() if committed else [])
         script.append((ups, twin_qs))
-        for u in ups:
-            twin_server.submit_update(*u)
+        for s in (eager_server, twin_server):
+            for u in ups:
+                s.submit_update(*u)
+        eager_tickets = [eager_server.submit(n, p) for n, p in twin_qs]
         twin_tickets = [twin_server.submit(n, p) for n, p in twin_qs]
-        twin.run_until_drained()
         what = f"fold beat {beat}"
-        log.append(beat_entry(eng, "fold", beat, wall, prof,
-                              fold_in_flight=(in_flight and not ready
-                                              and not committed),
-                              migration=committed))
+        fold_state = dict(fold_in_flight=(in_flight and not ready
+                                          and not committed),
+                          migration=committed)
+        log.append(beat_entry(eng, "fold", beat, wall, prof, **fold_state))
+        recorder.armed = armed if committed else set()
+        wall, prof, eager_launched = timed_beat(eager, profiled,
+                                                exempt=committed, aside=True)
+        recorder.armed = set()
+        log.append(beat_entry(eager, "fold", beat, wall, prof, **fold_state))
+        twin_beat(eng, eager, what, launched, eager_launched)
+        for a, b in zip(tickets, eager_tickets):
+            tickets_identical(a, b, f"{what} graphed vs eager")
+        twin.run_until_drained()
         if beat == 0 or committed:
             check_beat(eng, what, tickets, ("full", "full"), None)
             if committed and eng.last_collect_stats["backend_ops"].get(
@@ -1071,8 +1183,9 @@ def fold_path(dev, scale_i, scale_c, recorder):
         if folded or committed:
             fold_tickets.append(tickets)
         beat += 1
-    if twin.folds_done != 1:
-        fail("fold: the twin did not commit its fold")
+    if twin.folds_done != 1 or eager.folds_done != 1:
+        fail("fold: a twin did not commit its fold")
+    print_capture("fold", eng)
     return {"log": log, "script": script, "migration": m,
             "tickets": fold_tickets,
             "latency_s": t_commit - t_reg,
@@ -1105,24 +1218,36 @@ def chained_path(dev, scale_i, scale_c, fold, recorder):
     slots = tpcw.DEFAULT_UPDATE_SLOTS
     eng = SharedDBEngine(plan, slots, data, kernels="hopper-chained",
                          device=dev)
+    print_capture("chained", eng)
+    eager = SharedDBEngine(plan, slots, data, kernels="hopper-chained",
+                           device=dev, jit=False)
     twin = SharedDBEngine(plan, slots, data, kernels="torch", device=dev)
     base = QueryAtATimeEngine(plan, data, device=dev)
     log, m = [], fold["migration"]
     last = len(fold["script"]) - 1
     for beat, (ups, qs) in enumerate(fold["script"]):
-        if beat == last - 1:        # a steady beat, unprofiled
-            recorder.armed = {"scan_delta", "join_delta"}
-        tickets, twin_tickets = [], []
-        for e, out in ((eng, tickets), (twin, twin_tickets)):
+        tickets, eager_tickets, twin_tickets = [], [], []
+        for e, out in ((eng, tickets), (eager, eager_tickets),
+                       (twin, twin_tickets)):
             for u in ups:
                 e.submit_update(*u)
             out += [e.submit(n, p) for n, p in qs]
         for u in ups:
             base.apply_update(*u)
-        wall, prof = timed_beat(eng, beat == last)
-        recorder.armed = set()
+        wall, prof, launched = timed_beat(eng, beat == last)
         what = f"chained beat {beat}"
         log.append(beat_entry(eng, "chained", beat, wall, prof))
+        # the eager twin's calls are Python calls: the recorder keeps a
+        # steady beat's (unprofiled) delta_scan / delta_join inputs
+        if beat == last - 1:
+            recorder.armed = {"scan_delta", "join_delta"}
+        wall, prof, eager_launched = timed_beat(eager, beat == last,
+                                                aside=True)
+        recorder.armed = set()
+        log.append(beat_entry(eager, "chained", beat, wall, prof))
+        twin_beat(eng, eager, what, launched, eager_launched)
+        for a, b in zip(tickets, eager_tickets):
+            tickets_identical(a, b, f"{what} graphed vs eager")
         if beat == 0:
             check_beat(eng, what, tickets, ("full", "full"), None)
         elif beat == m:
@@ -1155,31 +1280,56 @@ LM_PATHS = {
 # plain path| <= LM_REL_TOL * max |plain path|, outputs and K/V
 LM_REL_TOL = 2e-2
 LM_PROFILED_BEAT = 1       # an admission beat after the first
+# yi-6b's decode-only beats: the graphed step's logits against an eager
+# run of the same step, relative to the logits' largest magnitude
+LM_EAGER_REL_TOL = 1e-3
 
 
 class StepRecorder:
-    """Keeps what a CycleServer's prefills return and its decode steps'
-    logits until ``take`` hands them over."""
+    """Keeps what a CycleServer's prefills return until ``take`` hands
+    them over, with a copy of the beat's decode logits (the server's
+    fixed logits buffer, which a graphed step writes)."""
 
     def __init__(self, srv):
-        self.prefills, self.decodes = [], []
-        prefill, decode = srv._prefill, srv._decode
+        # the logits buffer, not the server: the server holds this
+        # recorder through its prefill, and a cycle would keep the
+        # server's weights alive past its path
+        self.logits, self.prefills = srv._logits, []
+        prefill = srv._prefill
 
         def rec_prefill(*a):
             out = prefill(*a)
             self.prefills.append(out)
             return out
-
-        def rec_decode(*a):
-            out = decode(*a)
-            self.decodes.append(out[0])
-            return out
-        srv._prefill, srv._decode = rec_prefill, rec_decode
+        srv._prefill = rec_prefill
 
     def take(self):
-        out = self.prefills, self.decodes
-        self.prefills, self.decodes = [], []
+        out = self.prefills, [self.logits.clone()]
+        self.prefills = []
         return out
+
+
+def eager_step_check(srv, what):
+    """The decode step that the graph just replayed, run again eagerly
+    on a copy of the cache with the same token and position buffers:
+    greedy tokens equal, logits within LM_EAGER_REL_TOL of scale (the
+    step writes its own K/V before its attention reads them, so the
+    cache after the step serves as the cache before it).  Returns the
+    relative error."""
+    import torch
+    cache = {k: {f: t.clone() for f, t in e.items()}
+             for k, e in srv.cache.items()}
+    want, _ = srv._decode(srv.params, cache, srv._tokens, srv._positions)
+    got = srv._logits
+    if not torch.equal(got.argmax(-1), want.argmax(-1)):
+        fail(f"{what}: graphed decode's greedy tokens "
+             f"{got.argmax(-1).tolist()} vs eager "
+             f"{want.argmax(-1).tolist()}")
+    err = rel_err(got, want)
+    if err > LM_EAGER_REL_TOL:
+        fail(f"{what}: graphed decode's logits {err} of scale from the "
+             f"eager step's, over {LM_EAGER_REL_TOL}")
+    return err
 
 
 class LayerRecorder:
@@ -1268,9 +1418,16 @@ def lm_path(dev, name, recorded):
     srv = CycleServer(cfg, capacity=cap, max_seq=max_seq, prefill_len=plen,
                       prefill_budget=2, seed=SEED, device=dev,
                       kernels="hopper")
+    if not srv.graphed:
+        fail(f"{name}: the server under test does not run graphed")
+    st = srv.capture_stats
+    print(f"capture, {name} decode step: capture {st['capture_s']:.3f} s, "
+          f"graph pool {st['pool_bytes'] / 2 ** 20:.1f} MiB")
+    # the twin runs its decode step eagerly: its decode-only beats are
+    # the eager walls beside the graphed ones
     twin = CycleServer(cfg, capacity=cap, max_seq=max_seq, prefill_len=plen,
                        prefill_budget=2, params=srv.params, device=dev,
-                       kernels="torch")
+                       kernels="torch", jit=False)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rec, twin_rec, layers = StepRecorder(srv), StepRecorder(twin), \
@@ -1286,6 +1443,7 @@ def lm_path(dev, name, recorded):
     mine = recorded.setdefault(name, {})
     log, admissions, beat, n_layer_checks, worst = [], 0, 0, 0, 0.0
     twin_err = {"logits": 0.0, "cache": 0.0}
+    eager_checks, eager_err = 0, 0.0
     divergence, decode_profiled = None, False
     # the server's own clock: its beats' walls (the two profiled ones
     # included), without the twin's beats and the checks between them; a
@@ -1323,8 +1481,9 @@ def lm_path(dev, name, recorded):
         for r in reqs:
             if r.first_token_time is not None and r.id not in first_token_s:
                 first_token_s[r.id] = own_s
-        entry = {"path": name, "beat": beat, "admitted": admitted,
-                 "active": active, "wall_ms": wall * 1e3,
+        entry = {"path": name, "beat": beat, "graphed": True,
+                 "admitted": admitted, "active": active,
+                 "wall_ms": wall * 1e3,
                  "prefill_ms": srv.last_admit_s * 1e3,
                  "decode_ms": srv.last_decode_s * 1e3,
                  "tokens": admitted + active,
@@ -1333,6 +1492,7 @@ def lm_path(dev, name, recorded):
         if profiled:
             (entry["device_busy_ms"], entry["device_events"],
              entry["top_device_ops"]) = busy_ms(prof)
+            entry["host_ops"] = host_ops(prof)
         log.append(entry)
         what = f"{name} beat {beat}"
         w, n = layers.replay_plain()
@@ -1344,10 +1504,28 @@ def lm_path(dev, name, recorded):
         if w > LM_REL_TOL:
             fail(f"{what}: prefill layer outputs vs their plain re-run "
                  f"{w} > {LM_REL_TOL} of scale")
-        # the twin admits the same requests on the same beats: the
-        # schedule does not depend on the logits (no EOS, fixed lengths)
-        twin.dispatch()
-        twin.collect()
+        if name == "lm-yi-6b" and admitted == 0:
+            eager_err = max(eager_err, eager_step_check(srv, what))
+            eager_checks += 1
+        # the twin's beat, timed (and profiled) like the server's; it
+        # admits the same requests on the same beats: the schedule does
+        # not depend on the logits (no EOS, fixed lengths)
+        torch.cuda.synchronize()
+        prof = beat_profiler() if profiled else contextlib.nullcontext()
+        with prof:
+            t0 = time.perf_counter()
+            twin.dispatch()
+            twin_active = twin.active()
+            twin.collect()
+            wall = time.perf_counter() - t0
+        entry = {"path": name, "beat": beat, "graphed": False,
+                 "admitted": twin.last_admitted, "active": twin_active,
+                 "wall_ms": wall * 1e3, "profiled": profiled}
+        if profiled:
+            (entry["device_busy_ms"], entry["device_events"],
+             entry["top_device_ops"]) = busy_ms(prof)
+            entry["host_ops"] = host_ops(prof)
+        log.append(entry)
         (pre, dec), (tpre, _) = rec.take(), twin_rec.take()
         for (lg, c1), (tlg, tc1) in zip(pre, tpre):
             if not torch.isfinite(lg).all():
@@ -1369,6 +1547,8 @@ def lm_path(dev, name, recorded):
         fail(f"{name}: the tensor-core flash_attention kernel launched "
              f"{K.FLASH_ROUTE_LAUNCHES['wgmma']} times for {admissions} "
              f"admissions of {cfg.n_layers} layers")
+    if name == "lm-yi-6b" and not eager_checks:
+        fail(f"{name}: no decode-only beat held to the eager step")
     for r in reqs:
         if len(r.output) != new or r.truncated or r.done_time is None:
             fail(f"{name}: request {r.id} ended with {len(r.output)} tokens "
@@ -1383,6 +1563,8 @@ def lm_path(dev, name, recorded):
                    first_token_s.values()),
                "first_token_ms_max": 1e3 * max(first_token_s.values()),
                "layer_checks": n_layer_checks,
+               "decode_only_beats_vs_eager_step": eager_checks,
+               "max_rel_err_graphed_vs_eager_step": eager_err,
                "max_rel_err_layer_out": worst,
                "twin_end_to_end_rel_err_logits": twin_err["logits"],
                "twin_end_to_end_rel_err_cache": twin_err["cache"],
@@ -1716,23 +1898,42 @@ def kernel_rows(calls, launches, attn):
     return rows
 
 
+def beat_summary(entries):
+    """One kind of beat of one engine: the profiled beat's card busy
+    time, device ops and host ops enqueued, beside the median unprofiled
+    wall; "not measured" where the trace held no device event."""
+    walls = [e["wall_ms"] for e in entries if not e["profiled"]]
+    prof = next(e for e in entries if e["profiled"])
+    med = statistics.median(walls) if walls else float("nan")
+    hops = prof["host_ops"]
+    head = (f"host ops {sum(hops.values())} {json.dumps(hops)}, median "
+            f"unprofiled wall {med:.3f} ms, ")
+    if not prof["device_events"]:
+        return head + "card busy not measured (no device event traced)"
+    return head + (f"card busy {prof['device_busy_ms']:.3f} ms in "
+                   f"{prof['device_events']} device ops (idle share "
+                   f"{1 - prof['device_busy_ms'] / med:.3f}; "
+                   f"{prof['wall_ms']:.3f} ms wall under the profiler)")
+
+
+def print_graphed_beside_eager(what, entries):
+    print(f"{what}: graphed: "
+          + beat_summary([e for e in entries if e["graphed"]])
+          + "; eager: "
+          + beat_summary([e for e in entries if not e["graphed"]]))
+
+
 def print_lm_summary(summary, log):
-    """The LM path's totals; its profiled admission and decode-only
-    beats' card busy time and device ops beside the median unprofiled
-    walls of their kind."""
+    """The LM path's totals; its admission and decode-only beats, the
+    graphed server's beside its eager twin's (whose prefill runs the
+    plain attention: only the decode-only beats run the same work)."""
     path = summary["path"]
     beats = [e for e in log if e["path"] == path]
     print(f"{path}:", json.dumps(summary))
     for kind, admitting in (("admission", True), ("decode-only", False)):
-        same_kind = [e for e in beats if bool(e["admitted"]) == admitting]
-        walls = [e["wall_ms"] for e in same_kind if not e["profiled"]]
-        prof = next(e for e in same_kind if e["profiled"])
-        med = statistics.median(walls) if walls else float("nan")
-        print(f"{kind} beat, {path}: card busy {prof['device_busy_ms']:.3f} "
-              f"ms in {prof['device_events']} device ops, of a median "
-              f"{med:.3f} ms unprofiled wall (idle share "
-              f"{1 - prof['device_busy_ms'] / med:.3f}; "
-              f"{prof['wall_ms']:.3f} ms wall under the profiler)")
+        print_graphed_beside_eager(
+            f"{kind} beat, {path}",
+            [e for e in beats if bool(e["admitted"]) == admitting])
 
 
 def ptxas_report(lib, names):
@@ -1864,20 +2065,17 @@ def main():
     for entry in log:
         print("beat:", json.dumps(entry))
     for path in ("dense", "indexless", "fold", "chained"):
-        walls = [e["wall_ms"] for e in log if e["path"] == path
-                 and e["beat"] and not e["profiled"]
-                 and not e["fold_in_flight"] and not e.get("migration")]
-        busy = next(e["device_busy_ms"] for e in log
-                    if e["path"] == path and e["profiled"])
-        print(f"steady beat, {path}: card busy {busy:.3f} ms of a "
-              f"median {statistics.median(walls):.3f} ms unprofiled wall "
-              f"(idle share {1 - busy / statistics.median(walls):.3f})")
+        print_graphed_beside_eager(
+            f"steady beat, {path}",
+            [e for e in log if e["path"] == path and e["beat"]
+             and not e["fold_in_flight"] and not e.get("migration")])
     for summary in lm_summaries:
         print_lm_summary(summary, log)
-    building = [e["wall_ms"] for e in fold["log"] if e["fold_in_flight"]]
+    building = [e["wall_ms"] for e in fold["log"]
+                if e["fold_in_flight"] and e["graphed"]]
     steady = [e["wall_ms"] for e in fold["log"] if e["beat"]
-              and not e["profiled"] and not e["fold_in_flight"]
-              and not e.get("migration")]
+              and e["graphed"] and not e["profiled"]
+              and not e["fold_in_flight"] and not e.get("migration")]
     print(f"fold: begin_fold -> build done {fold['build_s'] * 1e3:.1f} ms;"
           f" registration -> committed (end of the migration beat's "
           f"dispatch) {fold['latency_s'] * 1e3:.1f} ms; "
@@ -1895,10 +2093,12 @@ def main():
     # more, every op recorded (reseed scans and joins, the last steady
     # beat's groupby and fused_delta); the fold path's block join; the
     # chained path's delta ops
-    rec = Recorder(("scan", "join_partitioned", "groupby", "fused_delta"))
+    rec = Recorder()
     B.register_backend(rec.backend(B.get_backend("hopper"),
                                    "hopper-recording"))
-    drive(False, dev, si, sc, kernels="hopper-recording", check=False)
+    drive(False, dev, si, sc, kernels="hopper-recording", check=False,
+          jit=False, recorder=rec,
+          armed=("scan", "join_partitioned", "groupby", "fused_delta"))
     calls = dict(rec.calls, **fold_rec.calls, **chained_rec.calls)
     rows = kernel_rows(calls, launches, attn)
     torch.cuda.synchronize()

@@ -1,8 +1,10 @@
 """SharedDB core on PyTorch: the batched shared-computation query engine.
 
 Layers (each the port of the ``repro.core`` module of the same name,
-except ``device``):
+except ``device`` and ``graphs``):
   device      — ``device=None`` means the CUDA card; the CPU only on request
+  graphs      — a fixed-buffer step captured as a CUDA graph (where the
+                reference jits)
   dataquery  — the data-query model as packed query bitmasks (int32 words)
   storage     — columnar tables as tensors, dirty-row sets, key partitions
   operators   — shared join / union compression / sort / top-n / routing

@@ -202,9 +202,11 @@ def counting_backend(base: OperatorBackend,
                      counts: Dict[str, int]) -> OperatorBackend:
     """Wrap every op of ``base`` to bump ``counts[op]`` per call.
 
-    The cycles run eagerly, so with the executor clearing ``counts`` at
-    cycle entry these are the backend launches of one beat.  The wrapped
-    ops delegate verbatim."""
+    The ops count when a cycle's Python body runs: each beat of an eager
+    engine, and once at the capture of a graphed one, whose replays run
+    the same ops.  With the executor clearing ``counts`` at cycle entry
+    these are the backend launches of one beat.  The wrapped ops
+    delegate verbatim."""
     def wrap(op, opname):
         if op is None:
             return None

@@ -9,9 +9,12 @@ pushed through ONE heartbeat of the global plan.
 The heartbeat is split so host and device overlap:
 
   dispatch() — drain the queues into PREALLOCATED pinned staging buffers,
-               copy them to the device (one asynchronous copy per packed
-               buffer) and enqueue the cycle's kernels on the current
-               stream.  Nothing in it waits for the device.
+               copy them into the pipeline slot's fixed device buffers
+               (two asynchronous copies) and replay the slot's captured
+               graph of the chosen cycle flavour: a few copies and ONE
+               graph launch on the current stream (``jit=True`` on a
+               card; with ``jit=False``, and on the CPU, the same body
+               runs eagerly).  Nothing in it waits for the device.
   collect()  — wait for the oldest in-flight heartbeat and route its
                results to the waiting tickets.
 
@@ -20,22 +23,30 @@ parameter staging for heartbeat N+1 overlap device execution of N; a
 staging buffer is reused only after the heartbeat that read it was
 collected.
 
-Scans AND joins are incremental: every heartbeat returns a carry (scan
-words + key partitions) and exposes each join's rids in
+Scans AND joins are incremental: every heartbeat leaves a carry (scan
+words + key partitions) and each join's rids in
 ``results["_join_rids"]``, which the executor threads forward as the rid
 half of the carry.  The next dispatch runs a DELTA cycle when the carry
 exists and the heartbeat's deltas fit their fixed capacities, and its
 ``delta_joins`` variant when additionally no carried join's PK table was
 touched; every choice is made host-side from exact admission knowledge.
-The scan-word carry may be merged into in place (the reference donates
-it); the rid carry is never written in place, because its tensors are
-also the previous heartbeat's in-flight ``results["_join_rids"]``.
 
-Plan folding (core/folding.py): ``begin_fold`` builds the cycles of an
-extended plan on a background thread while the installed ones keep
-serving; the next dispatch() after the build lands drains the in-flight
-beats, installs the new cycle handle, migrates the carries and forces
-one full-rescan beat.
+One body, static addresses (the reference donates its state and carries
+to jit instead): every tensor that crosses a beat boundary lives in
+buffers the engine owns, allocated once per plan generation outside
+every graph pool.  State and scan carry are ONE copy rolled forward in
+place — the body ends by copying each changed leaf into the engine's
+tensor.  Each pipeline slot owns its staged admission and its results,
+whose ``_join_rids`` are the slot's rid carry: slot S's graphs read slot
+S-1's rids and write slot S's, so the rids a beat reads are never the
+ones it writes, and a beat's results stay intact until it is collected.
+There are ``max(2, pipeline_depth)`` slots.
+
+Plan folding (core/folding.py): ``begin_fold`` builds (and on a card
+captures) the cycles of an extended plan on a background thread while
+the installed ones keep serving; the next dispatch() after the build
+lands drains the in-flight beats, installs the new generation, migrates
+the carries into its buffers and forces one full-rescan beat.
 """
 from __future__ import annotations
 
@@ -51,7 +62,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import kernels as _k
 from repro_torch.core import folding
+from repro_torch.core import graphs as cg
 from repro_torch.core.backends import counting_backend, resolve_backend
 from repro_torch.core.device import resolve_device
 from repro_torch.core.lowering import (PARTITIONED_MIN_CAPACITY, build_cycle,
@@ -117,15 +130,16 @@ class Ticket:
 
 
 class _StagingBuffers:
-    """Preallocated host-side admission buffers for ONE pipeline slot.
+    """Preallocated admission buffers for ONE pipeline slot.
 
     Every field of a heartbeat's admission — the packed [qcap, P_max, 2]
     parameters, the active and changed slot vectors, and every table's
     update batch (storage.empty_update_batch's layout) — is a numpy view
     into one of TWO flat host buffers, int32 and uint8 (the bools), held
     in pinned memory when the device is CUDA.  Staging a heartbeat is
-    then two asynchronous host-to-device copies, whatever the template
-    and table counts, and the device tree is views into the two copies.
+    then two asynchronous copies into the slot's two fixed device
+    buffers, whatever the template and table counts; ``staged`` is the
+    device tree, views into those two buffers, the same every beat.
     """
 
     def __init__(self, plan: CompiledPlan, slots: UpdateSlots,
@@ -156,8 +170,10 @@ class _StagingBuffers:
         self._i32 = torch.zeros(size[False], dtype=torch.int32,
                                 pin_memory=pin)
         self._u8 = torch.zeros(size[True], dtype=torch.uint8, pin_memory=pin)
+        self._dev_i32 = torch.empty_like(self._i32, device=device)
+        self._dev_u8 = torch.empty_like(self._u8, device=device)
         i32, u8 = self._i32.numpy(), self._u8.numpy().view(np.bool_)
-        views = {}
+        views, self.staged = {}, {}
         for path, b, off, n, shape in self._fields:
             src = layout
             for k in path:
@@ -165,10 +181,14 @@ class _StagingBuffers:
             view = (u8 if b else i32)[off:off + n].reshape(shape)
             view[...] = src
             self._put(views, path, view)
+            leaf = self._dev_u8[off:off + n].view(torch.bool) if b \
+                else self._dev_i32[off:off + n]
+            self._put(self.staged, path, leaf.view(shape))
         self.params = views["params"]
         self.active = views["active"]
         self.changed = views["changed"]
         self.updates = views["updates"]
+        self.stage()             # an empty admission until the first beat
 
     @staticmethod
     def _put(tree, path, leaf):
@@ -182,19 +202,11 @@ class _StagingBuffers:
             for field, fill in UPDATE_BATCH_RESET.items():
                 b[field][:] = fill
 
-    def stage(self) -> Dict:
-        """The whole admission on the device: two copies, then views."""
-        if self.device.type == "cuda":
-            i32 = self._i32.to(self.device, non_blocking=True)
-            u8 = self._u8.to(self.device, non_blocking=True)
-        else:
-            i32, u8 = self._i32.clone(), self._u8.clone()
-        out = {}
-        for path, b, off, n, shape in self._fields:
-            leaf = u8[off:off + n].view(torch.bool) if b \
-                else i32[off:off + n]
-            self._put(out, path, leaf.view(shape))
-        return out
+    def stage(self) -> None:
+        """Enqueue the admission's two copies into ``staged``."""
+        cuda = self.device.type == "cuda"
+        self._dev_i32.copy_(self._i32, non_blocking=cuda)
+        self._dev_u8.copy_(self._u8, non_blocking=cuda)
 
 
 @dataclasses.dataclass
@@ -223,9 +235,23 @@ class CycleResult:
     backend_ops: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
+FLAVOURS = ("full", "delta", "delta_join")
+
+
+@dataclasses.dataclass
+class _BeatBuffers:
+    """What a beat's body reads and writes: the state, the scan carry and
+    each pipeline slot's results (whose ``_join_rids`` are the slot's rid
+    carry); the staged admission is the generation's."""
+    state: Dict
+    carry: Dict
+    results: List[Dict]
+
+
 @dataclasses.dataclass
 class _CompiledHandle:
-    """One plan generation's built cycles, swapped in one piece.
+    """One plan generation: its built cycles and the buffers and graphs
+    its beats run on, swapped in one piece.
 
     A fold keeps serving from the installed handle while a background
     thread builds the next one for the extended plan; everything that
@@ -234,13 +260,17 @@ class _CompiledHandle:
     plan: CompiledPlan
     lowered: Any
     backend_ops: Dict[str, Dict[str, int]]
-    cycle: Any
-    cycle_delta: Any
-    cycle_delta_join: Any
+    cycles: Dict[str, Any]       # flavour -> cycle function
     carried_joins: tuple
     layout_token: tuple
-    uploaded: Any = None       # CUDA event recorded behind the build's
-    #                            uploads (None on the CPU)
+    staging: List[_StagingBuffers] = dataclasses.field(default_factory=list)
+    carry: Any = None            # the scan carry, rolled forward in place
+    results: List[Dict] = dataclasses.field(default_factory=list)
+    # (flavour, slot) -> captured graph; empty when the beats run eagerly
+    graphs: Dict[tuple, cg.Graph] = dataclasses.field(default_factory=dict)
+    capture_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    ready: Any = None            # CUDA event behind the build's work on
+    #                              its side stream (None on the CPU)
 
 
 @dataclasses.dataclass
@@ -283,14 +313,20 @@ class SharedDBEngine:
                  initial_data: Dict[str, Dict[str, np.ndarray]],
                  kernels: str = "auto", device=None,
                  pipeline_depth: int = 2, delta_scans: bool = True,
-                 delta_joins: bool = True):
+                 delta_joins: bool = True, jit: bool = True):
         """``device=None`` runs on the CUDA card and raises when there is
         none; ``device="cpu"`` runs the plain PyTorch path.  ``kernels``:
         "auto" (``hopper`` on a card of capability 9.0+, ``torch`` on the
         CPU), "torch", "hopper" or another registered backend name.
         ``delta_scans=False`` / ``delta_joins=False`` keep every beat on
-        the full rescan / the full join probe."""
+        the full rescan / the full join probe.  ``jit=True`` (the
+        reference's name and default) captures each cycle flavour of
+        every pipeline slot as a CUDA graph, once per plan generation,
+        and every beat replays one; a capture that fails raises.
+        ``jit=False``, and any engine on the CPU, runs the same body
+        eagerly.  ``graphed`` says which mode is in force."""
         self.device = resolve_device(device)
+        self.graphed = bool(jit) and self.device.type == "cuda"
         self.plan = plan
         self.update_slots = update_slots
         self._queues: Dict[str, collections.deque] = {
@@ -304,16 +340,19 @@ class SharedDBEngine:
         self._key_stats = _measure_key_stats(plan, initial_data)
         self.delta_scans = delta_scans
         self.delta_joins = delta_joins
-        self._install_handle(self._build_compiled(plan))
+        self.pipeline_depth = max(1, pipeline_depth)
         self.state = plan.catalog.init_state(initial_data, self.device)
+        # capture seconds, graph count and pool bytes of each generation
+        self.capture_stats: List[Dict[str, Any]] = []
+        self._install_handle(self._build_compiled(plan))
         self._fold: Optional[_PendingFold] = None
         self.folds_done = 0
         self.last_fold_build_s = None   # begin_fold -> build done, seconds
         # set by a fold commit: the first post-fold heartbeat is a FORCED
         # full-rescan reseed under the new layout
         self._force_full = False
-        self._carry = None           # previous heartbeat's scan words +
-        #                              key partitions
+        self._carry = None           # the scan words + key partitions
+        #                              (the generation's), once seeded
         self._rid_carry = None       # previous heartbeat's join rids
         self._carry_token = None
         # (active, params) of the last DISPATCHED heartbeat: the delta
@@ -321,9 +360,6 @@ class SharedDBEngine:
         self._prev_params = np.zeros((plan.qcap, plan.n_params_max, 2),
                                      np.int32)
         self._prev_active = np.zeros((plan.qcap,), bool)
-        self.pipeline_depth = max(1, pipeline_depth)
-        self._staging = [_StagingBuffers(plan, update_slots, self.device)
-                         for _ in range(self.pipeline_depth)]
         self._staging_idx = 0
         self._inflight: collections.deque[_InFlight] = collections.deque()
         # routing from backpressure collects inside dispatch(), surfaced
@@ -349,57 +385,156 @@ class SharedDBEngine:
 
     # --------------------------------------------- compiled-cycle handle
     def _build_compiled(self, plan: CompiledPlan) -> _CompiledHandle:
-        """Lower one plan generation and build its three cycle flavours,
-        each through its own counting wrapper (``CycleResult.
-        backend_ops``).  Pure with respect to the engine's serving
-        state, so a background fold thread can run it while the
-        installed generation keeps beating; its device constants go up
-        through pinned memory on the engine's device, without a wait."""
+        """Lower one plan generation, build its three cycle flavours
+        (each through its own counting wrapper, ``CycleResult.
+        backend_ops``), allocate the buffers its beats run on and, when
+        ``graphed``, capture every (flavour, slot) graph.
+
+        Pure with respect to the engine's serving state, so a background
+        fold thread can run it while the installed generation keeps
+        beating: on a card everything runs on a side stream of its own,
+        its constants go up through pinned memory without a wait, the
+        warm-ups run on throwaway state, carries and results, and the
+        build returns once its work has run on the card (an event
+        polled, never a synchronising call).  While it captures, no other
+        thread may synchronise the whole device (``torch.cuda.
+        synchronize()``; CUDA refuses it during a capture): the engine's
+        own waits are on events and on the serving stream."""
         dev = self.device
         lowered = lower_plan(plan, key_stats=self._key_stats)
-        backend_ops: Dict[str, Dict[str, int]] = {
-            "full": {}, "delta": {}, "delta_join": {}}
+        backend_ops: Dict[str, Dict[str, int]] = {f: {} for f in FLAVOURS}
         cb = {f: counting_backend(self._backend, c)
               for f, c in backend_ops.items()}
-        cycle = _clear_counts_at_entry(
-            build_cycle(lowered, cb["full"], dev), backend_ops["full"])
-        delta = _clear_counts_at_entry(
-            build_delta_cycle(lowered, cb["delta"], device=dev),
-            backend_ops["delta"])
-        delta_j = _clear_counts_at_entry(
-            build_delta_cycle(lowered, cb["delta_join"], delta_joins=True,
-                              device=dev),
-            backend_ops["delta_join"])
-        uploaded = None
-        if dev.type == "cuda":
-            uploaded = torch.cuda.Event()
-            uploaded.record(torch.cuda.current_stream(dev))
-        return _CompiledHandle(
+        h = _CompiledHandle(
             plan=plan, lowered=lowered, backend_ops=backend_ops,
-            cycle=cycle, cycle_delta=delta, cycle_delta_join=delta_j,
+            cycles={},
             # join stages with carried rid state (non-gather paths)
             carried_joins=tuple(j for j in lowered.joins
                                 if j.kind != "gather"),
             # the admission layout this generation's carries live under
             layout_token=(plan.qcap, plan.n_params_max,
                           tuple(sorted(plan.offsets.items())),
-                          tuple(sorted(plan.caps.items()))),
-            uploaded=uploaded)
+                          tuple(sorted(plan.caps.items()))))
+        cuda = dev.type == "cuda"
+        with (torch.cuda.stream(torch.cuda.Stream(dev)) if cuda
+              else contextlib.nullcontext()):
+            h.cycles = {
+                f: _clear_counts_at_entry(c, backend_ops[f]) for f, c in (
+                    ("full", build_cycle(lowered, cb["full"], dev)),
+                    ("delta", build_delta_cycle(lowered, cb["delta"],
+                                                device=dev)),
+                    ("delta_join", build_delta_cycle(
+                        lowered, cb["delta_join"], delta_joins=True,
+                        device=dev)))}
+            n_slots = max(2, self.pipeline_depth)
+            h.staging = [_StagingBuffers(plan, self.update_slots, dev)
+                         for _ in range(n_slots)]
+            # one throwaway full beat on an empty state: the shapes of the
+            # carry and of a slot's results
+            with _k.recording():
+                scratch = plan.catalog.init_state({}, dev)
+                _, carry, results = self._cycle_out(
+                    h, "full", scratch, None, None, h.staging[0].staged)
+            results["_delta_overflow"] = torch.zeros((), dtype=torch.int32,
+                                                     device=dev)
+            h.carry = cg.empty_like_tree(carry)
+            h.results = [cg.empty_like_tree(results) for _ in range(n_slots)]
+            if self.graphed:
+                self._capture(h, _BeatBuffers(
+                    scratch, carry,
+                    [results] + [cg.clone_tree(results)
+                                 for _ in range(n_slots - 1)]))
+            if cuda:
+                h.ready = torch.cuda.Event()
+                h.ready.record()
+                while not h.ready.query():
+                    time.sleep(0.0005)
+        return h
+
+    def _capture(self, h: _CompiledHandle, scratch: _BeatBuffers) -> None:
+        """Warm each flavour up on ``scratch`` (throwaway state, carry and
+        results: it fills the kernels' geometry caches before a capture
+        bakes their addresses in; its launches serve no beat, so they
+        count in a throwaway record), then capture every (flavour, slot)
+        body on the live buffers into one graph pool; the graphs replay
+        one at a time on one stream, and nothing that outlives a replay
+        lives in the pool, so they share it."""
+        t0 = time.perf_counter()
+        with _k.recording():
+            for f in FLAVOURS:
+                self._body(h, scratch, f, 1)
+        t1 = time.perf_counter()
+        live = _BeatBuffers(self.state, h.carry, h.results)
+        pool = torch.cuda.graph_pool_handle()
+        for f in FLAVOURS:
+            for slot in range(len(h.staging)):
+                h.graphs[f, slot] = cg.capture(
+                    lambda f=f, slot=slot: self._body(h, live, f, slot),
+                    pool)
+        h.capture_stats = {"warmup_s": t1 - t0,
+                           "capture_s": time.perf_counter() - t1,
+                           "graphs": len(h.graphs),
+                           "pool_bytes": cg.pool_bytes(pool)}
 
     def _install_handle(self, h: _CompiledHandle) -> None:
         """Swap the serving generation (at a beat boundary)."""
-        if h.uploaded is not None:
+        if h.ready is not None:
             # the beats that follow wait, on the card, for the build's
-            # uploads (enqueued from the fold thread)
-            torch.cuda.current_stream(self.device).wait_event(h.uploaded)
+            # side stream, and the allocator holds the generation's
+            # buffers for the serving stream's work when they are freed
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(h.ready)
+            for t in cg.leaves((h.carry, tuple(h.results),
+                                tuple(b.staged for b in h.staging))):
+                t.record_stream(stream)
+        self._gen = h
         self.plan = h.plan
         self._lowered = h.lowered
         self.backend_ops = h.backend_ops
-        self._cycle = h.cycle
-        self._cycle_delta = h.cycle_delta
-        self._cycle_delta_join = h.cycle_delta_join
         self._carried_joins = h.carried_joins
         self._layout_token = h.layout_token
+        self.capture_stats.append(dict(h.capture_stats,
+                                       generation=len(self.capture_stats)))
+
+    # -------------------------------------------------------- the beat body
+    @staticmethod
+    def _cycle_out(h: _CompiledHandle, flavour: str, state, carry, rids,
+                   staged):
+        """One cycle of ``flavour`` on the given tensors: (state', carry',
+        results), out of place except fused_delta's in-place carry."""
+        queries = {"params": staged["params"], "active": staged["active"]}
+        updates = staged["updates"]
+        if flavour == "full":
+            return h.cycles["full"](state, queries, updates)
+        queries["changed"] = staged["changed"]
+        if flavour == "delta_join":
+            return h.cycles["delta_join"](state, carry, rids, queries,
+                                          updates)
+        return h.cycles["delta"](state, carry, queries, updates)
+
+    def _body(self, h: _CompiledHandle, buf: _BeatBuffers, flavour: str,
+              slot: int) -> None:
+        """The beat's body, the one that is captured: slot ``slot``'s
+        staged admission and slot ``slot - 1``'s rids in, slot ``slot``'s
+        results, the scan carry and the state rolled forward in place."""
+        out = buf.results[slot]
+        state, carry, results = self._cycle_out(
+            h, flavour, buf.state, buf.carry,
+            buf.results[slot - 1]["_join_rids"], h.staging[slot].staged)
+        if "_delta_overflow" not in results:
+            out["_delta_overflow"].zero_()
+            results["_delta_overflow"] = out["_delta_overflow"]
+        cg.copy_into(out, results)
+        cg.copy_into(buf.carry, carry)
+        cg.copy_into(buf.state, state)
+
+    def _run_beat(self, flavour: str, slot: int) -> None:
+        h = self._gen
+        if h.graphs:
+            h.graphs[flavour, slot].replay()
+        else:
+            self._body(h, _BeatBuffers(self.state, h.carry, h.results),
+                       flavour, slot)
 
     # ------------------------------------------------------ plan folding
     def begin_fold(self, new_templates: List[QueryTemplate],
@@ -448,15 +583,15 @@ class SharedDBEngine:
         return self._fold is not None and self._fold.ready()
 
     def _fold_build(self, fold: _PendingFold) -> None:
-        """Background half of a fold: lower and build the cycles.
+        """Background half of a fold: lower, build, warm up and capture
+        the new generation (``_build_compiled``), the port's counterpart
+        of the reference's ``_fold_warmup``: ``dispatch()`` never
+        captures, so every beat stays free of syncs.
 
         On the fold thread it denices itself first (the build is slack
         work: the old generation keeps serving and commits the swap
         whenever the build lands) and makes the engine's device current.
-        Any failure is kept and raised at commit.  The reference also
-        warms its jit caches here (``_fold_warmup``); the port runs
-        eagerly and has no compile cache to warm, so there is no
-        warm-up."""
+        Any failure is kept and raised at commit."""
         try:
             if fold.thread is not None:
                 try:
@@ -479,12 +614,14 @@ class SharedDBEngine:
 
         Runs at dispatch() once the background build is ready.  In-flight
         beats drain first (their results are positional in the OLD
-        layout; this waits for the card by design), the new handle
-        installs, the admission-diff state prefix-copies into the wider
-        layout, the staging buffers are rebuilt for it, and the carries
-        migrate — through the same carry/layout check as the delta
+        layout; this waits for the card by design), the new generation
+        installs with its staging buffers, the admission-diff state
+        prefix-copies into the wider layout, and the carries migrate
+        into the new generation's buffers (the rids into those slot 0
+        reads) — through the same carry/layout check as the delta
         dispatch path — before one forced full-rescan beat reseeds
-        everything under the new layout."""
+        everything under the new layout.  The old generation's graphs
+        and their pool go."""
         fold, self._fold = self._fold, None
         if fold.thread is not None:
             fold.thread.join()
@@ -496,7 +633,7 @@ class SharedDBEngine:
         while self._inflight:
             for name, tickets in self._collect_oldest().items():
                 self._spilled.setdefault(name, []).extend(tickets)
-        old_plan, old_lowered = self.plan, self._lowered
+        old, old_plan, old_lowered = self._gen, self.plan, self._lowered
         self._install_handle(fold.handle)
         plan = self.plan
         # admission-diff state: the old slot ranges are a prefix of the
@@ -507,13 +644,20 @@ class SharedDBEngine:
         prev_a = np.zeros((plan.qcap,), bool)
         prev_a[:old_plan.qcap] = self._prev_active
         self._prev_params, self._prev_active = prev_p, prev_a
-        self._staging = [_StagingBuffers(plan, self.update_slots,
-                                         self.device)
-                         for _ in range(self.pipeline_depth)]
         self._staging_idx = 0
         carry, rids = folding.migrate_carry(
             old_lowered, self._lowered, self._carry, self._rid_carry)
-        self._carry, self._rid_carry = carry, rids
+        h = self._gen
+        self._carry = self._rid_carry = None
+        if carry is not None:
+            cg.copy_into(h.carry, carry)
+            self._carry = h.carry
+        if rids is not None:
+            last = h.results[-1]["_join_rids"]
+            self._rid_carry = {k: last[k] for k in rids}
+            cg.copy_into(self._rid_carry, rids)
+        for g in old.graphs.values():
+            g.reset()
         if carry is not None:
             # version the swap: the migrated carry now lives under the
             # NEW layout token, proven through the always-on guard
@@ -676,8 +820,9 @@ class SharedDBEngine:
             for name, tickets in self._collect_oldest().items():
                 self._spilled.setdefault(name, []).extend(tickets)
         t0 = time.perf_counter()
-        buf = self._staging[self._staging_idx]
-        self._staging_idx = (self._staging_idx + 1) % len(self._staging)
+        h, slot = self._gen, self._staging_idx
+        buf = h.staging[slot]
+        self._staging_idx = (slot + 1) % len(h.staging)
         buf.reset()
         admitted = self._admit_queries(buf)
         touches = self._admit_updates(buf)
@@ -692,31 +837,24 @@ class SharedDBEngine:
                      and self._delta_eligible(changed, touches))
         use_delta_join = (use_delta and self.delta_joins
                           and self._join_delta_eligible(touches))
-        staged = buf.stage()
-        queries = {"params": staged["params"], "active": staged["active"]}
-        updates = staged["updates"]
+        buf.stage()
         t_staged = time.perf_counter()
+        flavour = ("delta_join" if use_delta_join else "delta") \
+            if use_delta else "full"
         if use_delta:
             check_carry_layout(self._carry_token, self._layout_token)
-            queries["changed"] = staged["changed"]
-            if use_delta_join:
-                self.state, self._carry, results = self._cycle_delta_join(
-                    self.state, self._carry, self._rid_carry, queries,
-                    updates)
-            else:
-                self.state, self._carry, results = self._cycle_delta(
-                    self.state, self._carry, queries, updates)
             self.delta_cycles += 1
         else:
-            self.state, self._carry, results = self._cycle(
-                self.state, queries, updates)
             self.full_cycles += 1
+        self._run_beat(flavour, slot)
+        results = h.results[slot]
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
         t_launched = time.perf_counter()
         # both carry halves are (re)seeded by EVERY heartbeat
+        self._carry = h.carry
         self._rid_carry = results["_join_rids"]
         self._carry_token = self._layout_token
         self.last_scan_path = "delta" if use_delta else "full"
@@ -728,8 +866,6 @@ class SharedDBEngine:
                 self.full_join_cycles += 1
         self._prev_params[...] = buf.params
         self._prev_active[...] = buf.active
-        flavour = ("delta_join" if use_delta_join else "delta") \
-            if use_delta else "full"
         self._inflight.append(_InFlight(
             admitted, results, done=done,
             n_admitted=sum(len(ts) for ts in admitted.values()),
@@ -787,7 +923,9 @@ class SharedDBEngine:
         now = time.time()
         out = {}
         for name, tickets in flight.admitted.items():
-            res = {k: v.cpu().numpy() for k, v in results[name].items()}
+            # a copy: the slot's buffers take a later beat's results
+            res = {k: v.to("cpu", copy=True).numpy()
+                   for k, v in results[name].items()}
             for slot, ticket in enumerate(tickets):
                 ticket.result = {k: v[slot] for k, v in res.items()}
                 ticket.done_time = now
@@ -843,11 +981,12 @@ class SharedDBEngine:
 
     # --------------------------------------------------- host-side fetch
     def snapshot(self, table: str) -> Dict[str, np.ndarray]:
-        """Host view of a table's columns/validity."""
+        """Host copy of a table's columns/validity (the state is rolled
+        forward in place)."""
         schema = self.plan.catalog.schemas[table]
         t = self.state[table]
-        out = {c: t[c].cpu().numpy() for c in schema.columns}
-        out["_valid"] = t["_valid"].cpu().numpy()
+        out = {c: t[c].to("cpu", copy=True).numpy() for c in schema.columns}
+        out["_valid"] = t["_valid"].to("cpu", copy=True).numpy()
         out["_n"] = int(t["_n"])
         return out
 

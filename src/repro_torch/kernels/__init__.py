@@ -20,11 +20,16 @@ Importing this package registers the ``hopper`` backend with
 ``LAUNCHES`` counts each wrapper's kernel launches (one per launch, and
 nowhere else), so a run can show that its main path went through the
 kernels; ``FLASH_ROUTE_LAUNCHES`` splits flash_attention's by kernel;
-``reset_launches()`` sets every count to 0.
+``reset_launches()`` sets every count to 0.  Inside ``recording()`` a
+thread's launches count in a ``LaunchRecord`` instead: a CUDA graph's
+capture records what each of its replays launches, and the replay adds
+that record to the counts (``add_launches``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -55,12 +60,65 @@ FLASH_ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
+_recording = threading.local()
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, FLASH_ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+@dataclasses.dataclass
+class LaunchRecord:
+    """The launches one thread made inside ``recording()``, and the
+    device constants they read that no caller owns (``hold``): a graph
+    captured there replays those launches and reads those tensors."""
+    launches: dict = dataclasses.field(default_factory=dict)
+    routes: dict = dataclasses.field(default_factory=dict)
+    held: list = dataclasses.field(default_factory=list)
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into a fresh ``LaunchRecord``, not
+    into ``LAUNCHES`` / ``FLASH_ROUTE_LAUNCHES``.  A graph capture runs
+    in one (its replays add the record back, ``add_launches``), and so
+    do its warm-ups, whose launches serve no beat."""
+    outer = getattr(_recording, "record", None)
+    _recording.record = record = LaunchRecord()
+    try:
+        yield record
+    finally:
+        _recording.record = outer
+
+
+def count_launch(name: str, route: str = None) -> None:
+    """One launch of kernel ``name`` (``route``: which of
+    flash_attention's kernels), into the thread's record if it has one."""
+    record = getattr(_recording, "record", None)
+    launches, routes = ((LAUNCHES, FLASH_ROUTE_LAUNCHES) if record is None
+                        else (record.launches, record.routes))
+    launches[name] = launches.get(name, 0) + 1
+    if route is not None:
+        routes[route] = routes.get(route, 0) + 1
+
+
+def add_launches(record: LaunchRecord) -> None:
+    """A replay of a graph captured with ``record``: its launches count."""
+    for counts, extra in ((LAUNCHES, record.launches),
+                          (FLASH_ROUTE_LAUNCHES, record.routes)):
+        for k, n in extra.items():
+            counts[k] = counts.get(k, 0) + n
+
+
+def hold(t) -> None:
+    """Keep ``t`` alive with the recording graph: a cached device
+    constant that a launch reads by address (fused_delta's descriptor)
+    must outlive every graph that captured the launch."""
+    record = getattr(_recording, "record", None)
+    if record is not None:
+        record.held.append(t)
 
 
 def _build_tag() -> str:

@@ -93,6 +93,6 @@ def bitmask_join(keys_l, mask_l, keys_r, mask_r, valid_r):
         rid.data_ptr(), out.data_ptr(), Tl, W, Tr,
         grid_blocks(Tl, _k.sm_count(dev)), stage_bytes(Tr, W),
         reciprocal(W), _k.stream_of(keys_l))
-    _k.LAUNCHES["bitmask_join"] += 1
+    _k.count_launch("bitmask_join")
     _k.check_launch(code, "bitmask_join")
     return rid, out

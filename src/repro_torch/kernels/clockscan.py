@@ -59,6 +59,6 @@ def clockscan(cols, lo, hi, valid):
         cols.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         valid.view(torch.uint8).data_ptr(), out.data_ptr(), C, T, Q, rt, g,
         grid_blocks(T, W, _k.sm_count(dev)), _k.stream_of(cols))
-    _k.LAUNCHES["clockscan"] += 1
+    _k.count_launch("clockscan")
     _k.check_launch(code, "clockscan")
     return out

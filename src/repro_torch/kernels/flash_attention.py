@@ -136,7 +136,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, H, KV, D, int(bool(causal)), int(window),
             int(q.dtype == torch.bfloat16), n_q, _k.stream_of(q))
-    _k.LAUNCHES["flash_attention"] += 1
-    _k.FLASH_ROUTE_LAUNCHES[kind] += 1
+    _k.count_launch("flash_attention", kind)
     _k.check_launch(code, f"flash_attention ({kind})")
     return out

@@ -20,7 +20,8 @@ It is ``build_schedule`` (the reference's schedule, in torch) reordered —
 the block items first, then the warp items — plus the COPY tiles; pure
 geometry, made on the device once per geometry and cached, so the
 descriptor never crosses from the host and nothing of it is rebuilt per
-beat.  The reference's runtime gather column (dirty row ids, routed
+beat.  A CUDA graph that captures the launch holds the descriptor
+(``kernels.hold``), since the cache may drop it.  The reference's runtime gather column (dirty row ids, routed
 buckets) is computed inside the kernel instead.  ``w0``/``span``/``dn``
 travel as pointers to their own 0-d tensors.  A grid of ``grid_blocks``
 blocks (at most ``kernels.BLOCKS_PER_SM`` a streaming multiprocessor)
@@ -238,6 +239,7 @@ def fused_delta(scan_in, join_in):
     sgeom = tuple(scan_geometry(e) for e in scan_in)
     jgeom = tuple(join_geometry(e) for e in join_in)
     desc, n_block = launch_schedule(sgeom, jgeom, copy_tiles(join_in), dev)
+    _k.hold(desc)          # a captured launch reads it after any eviction
     rids = tuple(torch.empty_like(e.rid_carry) for e in join_in)
 
     args = _FusedArgs(ns=len(scan_in), nj=len(join_in))
@@ -264,7 +266,7 @@ def fused_delta(scan_in, join_in):
         grid_blocks(n_block, n_items - n_block, _k.sm_count(dev)),
         max((8 * g.C * 32 * g.A for g in sgeom), default=0),
         ctypes.byref(args), _k.stream_of(desc))
-    _k.LAUNCHES["fused_delta"] += 1
+    _k.count_launch("fused_delta")
     _k.check_launch(code, "fused_delta")
     return tuple(e.carry for e in scan_in), rids
 
@@ -367,7 +369,7 @@ def delta_scan(scan_in):
             ctypes.byref(args),
             delta_scan_blocks(start[-1], _k.sm_count(dev)),
             _k.stream_of(scan_in[0].cols))
-        _k.LAUNCHES["delta_scan"] += 1
+        _k.count_launch("delta_scan")
         _k.check_launch(code, "delta_scan")
     return outs
 
@@ -434,6 +436,6 @@ def delta_join(join_in):
             ctypes.byref(args),
             delta_join_blocks(start[-1], _k.sm_count(dev)),
             _k.stream_of(join_in[0].keys))
-        _k.LAUNCHES["delta_join"] += 1
+        _k.count_launch("delta_join")
         _k.check_launch(code, "delta_join")
     return outs

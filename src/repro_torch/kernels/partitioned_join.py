@@ -80,6 +80,6 @@ def partitioned_join(keys_l, mask_l, bucket_keys, bucket_rows, bounds,
         bucket_rows.data_ptr(), bounds.data_ptr(), mask_r.data_ptr(),
         rid.data_ptr(), out.data_ptr(), Tl, W, P, B, Tr,
         grid_blocks(Tl, _k.sm_count(dev)), _k.stream_of(keys_l))
-    _k.LAUNCHES["partitioned_join"] += 1
+    _k.count_launch("partitioned_join")
     _k.check_launch(code, "partitioned_join")
     return rid, out

@@ -36,6 +36,6 @@ def shared_groupby(group_code, values, mask, n_groups: int):
         group_code.data_ptr(), values.data_ptr(), mask.data_ptr(),
         count.data_ptr(), ssum.data_ptr(), T, W, n_groups,
         _k.stream_of(mask))
-    _k.LAUNCHES["shared_groupby"] += 1
+    _k.count_launch("shared_groupby")
     _k.check_launch(code, "shared_groupby")
     return count, ssum

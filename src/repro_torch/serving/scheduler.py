@@ -11,13 +11,19 @@ flow through the decode step, parked at position 0.
 
 The slot cache is updated IN PLACE: admission copies a prefill's cache
 into its slot and each decode step writes its K/V into the ring buffer,
-where the reference donates the cache to jit instead.  Host arrays go up
-through pinned memory, asynchronously (``core/device.upload``).
-Greedy argmax runs over the padded vocabulary, as the reference's does.
+where the reference donates the cache to jit instead.  The decode step
+reads its tokens and positions from fixed device buffers, filled by two
+asynchronous copies from pinned host buffers, and leaves its logits in
+a fixed buffer; with ``jit=True`` on a card it is captured once as a
+CUDA graph (the reference jits it) and every beat replays it.  Prefill
+and the cache insert stay eager; their host arrays go up through pinned
+memory, asynchronously (``core/device.upload``).  Greedy argmax runs
+over the padded vocabulary, as the reference's does.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -26,7 +32,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import kernels as _k
 from repro_torch.configs import ArchConfig
+from repro_torch.core import graphs as cg
 from repro_torch.core.device import upload
 from repro_torch.models.registry import get_model
 
@@ -63,12 +71,16 @@ class CycleServer:
     flash-attention kernel), "torch" (its plain version) or "auto"
     (hopper on a card of capability 9.0+, torch on the CPU).  ``params``
     (the port's nested dict, e.g. from ``params_from_numpy``) replaces
-    the random init from ``seed`` (bfloat16)."""
+    the random init from ``seed`` (bfloat16).  ``jit=True`` on a card
+    captures the decode step as a CUDA graph at construction (the batch
+    geometry is fixed per server) and every beat replays it; a capture
+    that fails raises.  ``jit=False``, and the CPU, run the same step
+    eagerly; ``graphed`` says which."""
 
     def __init__(self, cfg: ArchConfig, *, capacity: int = 8,
                  max_seq: int = 256, prefill_budget: int = 2,
                  prefill_len: int = 64, params=None, seed: int = 0,
-                 device=None, kernels: str = "auto"):
+                 device=None, kernels: str = "auto", jit: bool = True):
         self.cfg = cfg
         self.capacity = capacity
         self.max_seq = max_seq
@@ -90,8 +102,22 @@ class CycleServer:
         self._queue: collections.deque = collections.deque()
         self._ids = itertools.count()
         self._slots: List[Optional[Request]] = [None] * capacity
-        self._pos = np.zeros(capacity, np.int64)
-        self._last_tok = np.zeros(capacity, np.int64)
+        # the decode step's inputs: host arrays that are views of pinned
+        # buffers, copied into fixed device buffers at each dispatch
+        pin = self.device.type == "cuda"
+        self._tok_host = torch.zeros(capacity, dtype=torch.int64,
+                                     pin_memory=pin)
+        self._pos_host = torch.zeros(capacity, dtype=torch.int64,
+                                     pin_memory=pin)
+        self._last_tok = self._tok_host.numpy()
+        self._pos = self._pos_host.numpy()
+        self._tokens = torch.zeros((capacity, 1), dtype=torch.int64,
+                                   device=self.device)
+        self._positions = torch.zeros(capacity, dtype=torch.int64,
+                                      device=self.device)
+        self.graphed = bool(jit) and self.device.type == "cuda"
+        self._logits, self._graph, self.capture_stats = \
+            self._build_decode()
         self._pending_logits = None
         self.cycles = 0
         self.completed: List[Request] = []
@@ -108,6 +134,47 @@ class CycleServer:
         self.last_admit_s = 0.0
         self.last_decode_s = 0.0
         self._t_decode = 0.0
+
+    def _build_decode(self):
+        """The decode step's logits buffer, its graph when ``graphed``
+        (else None) and the capture's stats.  One eager step on the idle
+        slots (parked at position 0) gives the logits' shape and, on a
+        card, warms the capture's side stream up (library handles and
+        workspaces); the cache is then reset to its empty state."""
+        cuda = self.device.type == "cuda"
+        graph, stats = None, {}
+        side = torch.cuda.Stream(self.device) if cuda else None
+        if cuda:        # the parameters and the cache come from the
+            #             serving stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+        with (torch.cuda.stream(side) if cuda else contextlib.nullcontext()):
+            with _k.recording():          # the warm-up serves no beat
+                logits, _ = self._decode(self.params, self.cache,
+                                         self._tokens, self._positions)
+            out = torch.empty_like(logits)
+            if self.graphed:
+                t0 = time.perf_counter()
+                pool = torch.cuda.graph_pool_handle()
+                graph = cg.capture(self._decode_body_on(out), pool)
+                stats = {"capture_s": time.perf_counter() - t0, "graphs": 1,
+                         "pool_bytes": cg.pool_bytes(pool)}
+            for entry in self.cache.values():
+                entry["k"].zero_()
+                entry["v"].zero_()
+                entry["pos"].fill_(-1)
+        if cuda:
+            # the serving stream waits, on the card, for the warm-up, the
+            # reset and the buffer allocated on the side stream
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            out.record_stream(torch.cuda.current_stream(self.device))
+        return out, graph, stats
+
+    def _decode_body_on(self, out):
+        def body():
+            logits, _ = self._decode(self.params, self.cache, self._tokens,
+                                     self._positions)
+            out.copy_(logits)
+        return body
 
     # ---------------------------------------------------------------- API
     def submit(self, prompt: List[int], max_new_tokens: int = 16) -> Request:
@@ -167,11 +234,14 @@ class CycleServer:
         self.last_admitted = self._admit()
         self._t_decode = time.perf_counter()
         self.last_admit_s = self._t_decode - t0
-        tokens = upload(self._last_tok[:, None], self.device)
-        positions = upload(self._pos, self.device)
-        logits, self.cache = self._decode(self.params, self.cache, tokens,
-                                          positions)
-        self._pending_logits = logits
+        cuda = self.device.type == "cuda"
+        self._tokens.copy_(self._tok_host[:, None], non_blocking=cuda)
+        self._positions.copy_(self._pos_host, non_blocking=cuda)
+        if self._graph is not None:
+            self._graph.replay()
+        else:
+            self._decode_body_on(self._logits)()
+        self._pending_logits = self._logits
 
     def collect(self) -> List[Request]:
         """Wait for the in-flight decode step and route its tokens.  Step

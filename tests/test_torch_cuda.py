@@ -720,3 +720,169 @@ def test_cycle_server_admission_d128_kernel_matches_plain(cuda_device):
     kernel."""
     cfg = dataclasses.replace(smoke_config("yi-6b"), n_kv=2, head_dim=128)
     _admission_kernel_matches_plain(cuda_device, cfg, "wgmma")
+
+
+# ------------------------------------------------- the compiled beat (graphs)
+def _twin_engines(dev, kind, **kw):
+    """A graphed engine (``jit=True``) and its ``jit=False`` twin on the
+    same plan and data: ``dense`` / ``indexless`` on hopper, ``chained``
+    on hopper without fused_delta."""
+    from repro_torch.core import backends as B
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.workloads import tpcw
+
+    B.register_backend(dataclasses.replace(
+        B.get_backend("hopper"), name="hopper-chained-graph-test",
+        fused_delta=None))
+    si, sc = 64, 128
+    plan = tpcw.build_tpcw_plan(si, sc, dense_pk_index=kind == "dense")
+    data = tpcw.generate_data(np.random.default_rng(0), si, sc)
+    kernels = "hopper-chained-graph-test" if kind == "chained" else "hopper"
+    return [SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                           kernels=kernels, device=dev, jit=jit, **kw)
+            for jit in (True, False)]
+
+
+def _fold_template():
+    from repro_torch.core.plan import Join, Pred, QueryTemplate
+    return QueryTemplate("buy_request_address", "address",
+                         preds=(Pred("address", "addr_id"),),
+                         joins=(Join("addr_co_id", "country"),), limit=1)
+
+
+# (updates, fold before the beat): a reseed, an item update (delta scans
+# with full join probes), a customer update (delta scans and joins), the
+# fold's migration beat, steady beats after it
+GRAPH_STREAM = (
+    ([], False),
+    ([("item", "update", {"key": 7, "col": "i_cost", "val": 1234})], False),
+    ([("customer", "update", {"key": 3, "col": "c_expiration",
+                              "val": 900})], False),
+    ([("customer", "update", {"key": 4, "col": "c_expiration",
+                              "val": 901})], True),
+    ([("customer", "update", {"key": 5, "col": "c_expiration",
+                              "val": 902}),
+      ("address", "update", {"key": 7, "col": "addr_co_id", "val": 3})],
+     False),
+    ([("customer", "update", {"key": 6, "col": "c_expiration",
+                              "val": 903})], False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "indexless", "chained"])
+def test_graphed_engine_equals_eager(cuda_device, kind):
+    """Every flavour and a background fold (captured on the fold thread):
+    the graphed engine's tickets equal its ``jit=False`` twin's bit for
+    bit, with the same paths, backend ops and kernel launches a beat;
+    ``dispatch()`` raises no sync except in the migration beat."""
+    import time
+
+    eng, eager = _twin_engines(cuda_device, kind)
+    assert eng.graphed and not eager.graphed
+    assert len(eng._gen.graphs) == 6 and not eager._gen.graphs
+    paths = []
+    for beat, (ups, fold) in enumerate(GRAPH_STREAM):
+        if fold:
+            eng.begin_fold([_fold_template()], {"buy_request_address": 16})
+            eager.begin_fold([_fold_template()], {"buy_request_address": 16},
+                             background=False)
+            deadline = time.monotonic() + 120
+            while not eng.fold_ready():
+                assert time.monotonic() < deadline, "fold build hangs"
+                time.sleep(0.01)
+        tickets, launched = [], []
+        for e in (eng, eager):
+            for u in ups:
+                e.submit_update(*u)
+            tickets.append([e.submit(n, {0: p}) for n, p in (
+                ("get_book", (5, 5)), ("get_cart", (12, 12)),
+                ("order_lines", (26, 26)), ("get_customer", (8, 8)))])
+            if e.folds_done or fold:
+                tickets[-1] += [e.submit("buy_request_address", {0: (a, a)})
+                                for a in (5, 7, 9, 11)]
+            torch.cuda.synchronize()
+            before = dict(K.LAUNCHES)
+            if not fold:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                e.dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            e.collect()
+            launched.append({k: n - before[k] for k, n in K.LAUNCHES.items()
+                             if n != before[k]})
+        paths.append((eng.last_scan_path, eng.last_join_path))
+        assert paths[-1] == (eager.last_scan_path, eager.last_join_path)
+        assert eng.last_collect_stats["backend_ops"] == \
+            eager.last_collect_stats["backend_ops"], beat
+        assert launched[0] == launched[1] and launched[0], (beat, launched)
+        for a, b in zip(*tickets):
+            for k, want in b.result.items():
+                assert np.array_equal(a.result[k], want), (beat, a.template, k)
+    assert eng.folds_done == eager.folds_done == 1
+    assert len(eng.capture_stats) == 2
+    assert all(st["graphs"] == 6 and st["pool_bytes"] > 0
+               for st in eng.capture_stats)
+    assert ("delta", "delta" if kind != "dense" else "") in paths
+    if kind != "dense":
+        assert ("delta", "full") in paths
+    assert paths[3][0] == "full"                  # the migration beat
+
+
+@pytest.mark.cuda
+def test_graphed_steady_beat_counts_one_fused_delta(cuda_device):
+    """Steady index-less beats, graphed, two in flight: each replay
+    counts the captured launches (one fused_delta, one shared_groupby)
+    and ``{"fused_delta": 1, "groupby": 1}`` backend ops, and beat N's
+    results are unchanged after beat N+1 is dispatched."""
+    from repro_torch.core import graphs as cg
+
+    eng, _ = _twin_engines(cuda_device, "indexless")
+    kept = None
+    for beat in range(4):
+        eng.submit_update("customer", "update", {
+            "key": 3 + beat, "col": "c_expiration", "val": 900 + beat})
+        eng.submit("get_book", {0: (5, 5)})
+        eng.submit("get_cart", {0: (12, 12)})
+        before = dict(K.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = {k: n - before[k] for k, n in K.LAUNCHES.items()
+               if n != before[k]}
+        if beat:
+            assert got == {"fused_delta": 1, "shared_groupby": 1}, got
+            older = eng._inflight[0].results
+            assert all(torch.equal(a, b)
+                       for a, b in zip(cg.leaves(older), kept)), beat
+            eng.collect()
+        if beat > 1:
+            assert eng.last_collect_stats["backend_ops"] == \
+                {"fused_delta": 1, "groupby": 1}
+        kept = [t.clone() for t in cg.leaves(eng._inflight[-1].results)]
+    eng.collect()
+
+
+@pytest.mark.cuda
+def test_graphed_decode_equals_eager(cuda_device):
+    """A bfloat16 smoke LM's CycleServer with the decode step captured
+    against the same server run eagerly: the same greedy tokens."""
+    from repro_torch.serving import CycleServer
+    cfg = dataclasses.replace(smoke_config("yi-6b"), n_kv=2, head_dim=128)
+    kw = dict(capacity=4, max_seq=64, prefill_len=16, prefill_budget=2,
+              device=cuda_device)
+    srv = CycleServer(cfg, seed=0, **kw)
+    twin = CycleServer(cfg, params=srv.params, jit=False, **kw)
+    assert srv.graphed and not twin.graphed
+    assert srv.capture_stats["pool_bytes"] > 0
+    reqs = []
+    for s in (srv, twin):
+        r = np.random.default_rng(0)
+        reqs.append([s.submit(r.integers(1, cfg.vocab, n).tolist(), 12)
+                     for n in (5, 16, 9, 3, 12)])
+    srv.run_until_drained()
+    twin.run_until_drained()
+    for a, b in zip(*reqs):
+        assert a.output == b.output and len(a.output) == 12

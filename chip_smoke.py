@@ -97,8 +97,19 @@ capability 9.0+ and the CUDA toolkit.  It:
      per admission, every launch on its tensor-core kernel (bf16, D
      128); one admission beat and one decode-only beat of the server and
      of its twin run under torch.profiler;
+     between the SharedDB and the LM paths, planlint (``planlint:``
+     lines): the construction gate's host time per plan generation of
+     each SharedDB engine under test (the fold's second generation gated
+     on its fold thread, beside the fold's registration -> commit), the
+     kernel passes against the fused_delta descriptor launch_schedule
+     cached on the card for each path's generation, the trace passes on
+     each path's eager twin (bodies re-run on the torch backend), the
+     graphed engine's fixed buffers and the hot-path source pass; any
+     error finding fails the run;
   5. replays recorded kernel inputs (the main paths' own shapes and data)
-     through each kernel and its plain version, the plain version first:
+     through each kernel and its plain version, the plain version first
+     (the recorded fused_delta calls also through planlint's kernel
+     passes, against the descriptors the card cached for them):
      agreement, then each call's time on the card (torch.profiler: all
      device work of the call, and the hand-written kernel alone), the
      device ops it enqueues (fused_delta may enqueue at most one per join
@@ -774,14 +785,16 @@ def workload(scale_i, scale_c):
 
 
 def drive(dense, dev, scale_i, scale_c, kernels, check=True, jit=True,
-          recorder=None, armed=()):
+          recorder=None, armed=(), keep=None):
     """Build the engine under test (backend ``kernels``, graphed unless
     ``jit=False``) for one catalog and run the beats; with ``check``,
     also its ``jit=False`` twin, the plain-backend engine and the
     query-at-a-time engine it is compared with.  ``recorder`` is armed
     with ``armed`` once the engine is built, so it keeps the beats'
     calls and not those of the throwaway full beat on an empty state
-    that sizes the engine's buffers.  Returns the per-beat log."""
+    that sizes the engine's buffers.  ``keep`` (a dict) receives the
+    engine and its twin for the planlint phase.  Returns the per-beat
+    log."""
     import numpy as np
     import torch
     from repro_torch.core.baseline import QueryAtATimeEngine
@@ -802,6 +815,8 @@ def drive(dense, dev, scale_i, scale_c, kernels, check=True, jit=True,
     plain = SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
                            kernels="torch", device=dev)
     base = QueryAtATimeEngine(plan, data, device=dev)
+    if keep is not None:
+        keep.update(eng=eng, eager=eager)
     return _beats(eng, eager, plain, base, scale_i, scale_c, dense)
 
 
@@ -1062,7 +1077,7 @@ class Recorder:
         return dataclasses.replace(base, name=name, **ops)
 
 
-def fold_path(dev, scale_i, scale_c, recorder):
+def fold_path(dev, scale_i, scale_c, recorder, keep):
     """The fold path: a QueryCycleServer over an index-less hopper engine
     (base plan: the 13 TPC-W templates) registers ``buy_request_address``
     after a reseed and two steady beats, just before the next beat's
@@ -1073,7 +1088,7 @@ def fold_path(dev, scale_i, scale_c, recorder):
     twins — ``jit=False`` on the hopper kernels (whose migration beat
     records the bitmask_join call) and ``torch`` — register at the
     migration beat (foreground builds), so all admit the same work on
-    every beat."""
+    every beat.  ``keep`` receives the engine and its eager twin."""
     import numpy as np
     from repro_torch.core import backends as B
     from repro_torch.core import folding
@@ -1097,6 +1112,7 @@ def fold_path(dev, scale_i, scale_c, recorder):
     eager_server = QueryCycleServer(eager, background_folds=False)
     twin = SharedDBEngine(plan, slots, data, kernels="torch", device=dev)
     twin_server = QueryCycleServer(twin, background_folds=False)
+    keep.update(eng=eng, eager=eager)
     tmpl = buy_request_address()
     base = QueryAtATimeEngine(
         folding.extend_plan(plan, [tmpl], {tmpl.name: FOLD_CAP}), data,
@@ -1193,13 +1209,14 @@ def fold_path(dev, scale_i, scale_c, recorder):
             "beats_in_flight": m - 3}
 
 
-def chained_path(dev, scale_i, scale_c, fold, recorder):
+def chained_path(dev, scale_i, scale_c, fold, recorder, keep):
     """The chained path: a cold engine compiled with all 14 templates on
     ``hopper-chained`` (the hopper kernels, fused_delta None) and its twin
     on ``torch`` replay the fold path's beats; from the fold's migration
     beat on, the tickets must equal the folded engine's.  The last
     unprofiled steady beat before the profiled one records its delta_scan /
-    delta_join inputs (one grouped call each)."""
+    delta_join inputs (one grouped call each).  ``keep`` receives the
+    engine and its eager twin."""
     import numpy as np
     from repro_torch.core import backends as B
     from repro_torch.core.baseline import QueryAtATimeEngine
@@ -1221,6 +1238,7 @@ def chained_path(dev, scale_i, scale_c, fold, recorder):
     print_capture("chained", eng)
     eager = SharedDBEngine(plan, slots, data, kernels="hopper-chained",
                            device=dev, jit=False)
+    keep.update(eng=eng, eager=eager)
     twin = SharedDBEngine(plan, slots, data, kernels="torch", device=dev)
     base = QueryAtATimeEngine(plan, data, device=dev)
     log, m = [], fold["migration"]
@@ -1268,7 +1286,120 @@ def chained_path(dev, scale_i, scale_c, fold, recorder):
     return log
 
 
-# ------------------------------------------------------- 4c. LM serving
+# --------------------------------------------------------- 4c. planlint
+# the fold's registration -> commit before the construction gate, in the
+# compiled beat's two change runs as PERF.md §5 records them (NVIDIA H100
+# 80GB HBM3, 700.00 W); printed beside this run's
+PREVIOUS_FOLD_LATENCY_MS = (3828.2, 3872.0)
+
+
+def planlint_path(path, kept, card, fold=None):
+    """planlint on one SharedDB path after its beats: the construction
+    gate's host time per plan generation (the graphed engine's, the fold's
+    second generation gated on its fold thread); the kernel passes
+    against the fused_delta descriptor that ``launch_schedule`` cached on
+    the card for the path's fused_delta launches (looked up by the
+    geometry of the installed generation: a cache miss fails), or on a
+    path without fused_delta one it builds; the trace passes on the eager
+    twin (its bodies re-run on the ``torch`` backend, on clones of its
+    buffers); the graphed engine's fixed buffers.  Any error finding
+    fails.  Prints ``planlint:`` lines with the card beside every time;
+    returns the findings."""
+    from repro_torch import kernels as K
+    from repro_torch.analysis_static import (errors_in, format_findings,
+                                             kernel_passes, trace_passes)
+    from repro_torch.kernels import fused_delta as fd
+    eng, eager = kept["eng"], kept["eager"]
+    t0 = time.perf_counter()
+    gates = ", ".join(f"{s * 1e3:.4f}" for s in eng.gate_s)
+    print(f"planlint: {path}: construction gate {gates} ms per plan "
+          f"generation ({len(eng.gate_s)}) [{card}]")
+    if fold is not None:
+        print(f"planlint: {path}: registration -> commit "
+              f"{fold['latency_s'] * 1e3:.1f} ms with the gate on the fold "
+              f"thread, {PREVIOUS_FOLD_LATENCY_MS[0]} / "
+              f"{PREVIOUS_FOLD_LATENCY_MS[1]} ms without it (PERF.md §5) "
+              f"[{card}]")
+    # the device as a tensor names it (its index included): the key the
+    # fused_delta wrapper cached its descriptor under
+    dev = eng.state[next(iter(eng.state))]["_valid"].device
+    geom = kernel_passes.geometry_from_lowered(eng._lowered)
+    findings = []
+    if geom.sgeom or geom.jgeom:
+        hits = fd.launch_schedule.cache_info().hits
+        desc, n_block = kernel_passes.launch_descriptor(geom, dev)
+        cached = fd.launch_schedule.cache_info().hits > hits
+        launches = eng._backend.fused_delta is not None
+        if launches and not cached:
+            fail(f"planlint {path}: the installed generation's fused "
+                 "geometry is not one launch_schedule cached on the card")
+        findings += kernel_passes.run_kernel_passes(
+            geom, desc, n_block, sms=K.sm_count(dev),
+            location=f"{path} fused")
+        print(f"planlint: {path}: kernel passes on the "
+              f"{'cached' if cached else 'built'} descriptor of "
+              f"{desc.shape[0]} items ({n_block} block items, "
+              f"{len(geom.sgeom)} stages, {len(geom.jgeom)} joins)")
+    t1 = time.perf_counter()
+    findings += trace_passes.run_trace_passes(eager,
+                                              location=f"{path} eager")
+    findings += trace_passes.lint_buffer_aliasing(
+        eng._gen, eng.state, location=f"{path} graphed")
+    t2 = time.perf_counter()
+    errs = errors_in(findings)
+    notes = [f for f in findings if f.severity != "error"]
+    print(f"planlint: {path}: {len(errs)} error finding(s), {len(notes)} "
+          f"note(s); trace passes {(t2 - t1) * 1e3:.1f} ms, all passes "
+          f"{(t2 - t0) * 1e3:.1f} ms [{card}]")
+    for f in notes:
+        print("planlint: note:", f.format())
+    if errs:
+        fail(f"planlint {path}:\n{format_findings(errs)}")
+    return findings
+
+
+def planlint_recorded(calls, card):
+    """The kernel passes on each recorded fused_delta call: its geometry
+    as the wrapper computes it, the descriptor ``launch_schedule`` cached
+    for it on the card (a miss fails), and the call's own dirty rows for
+    the one-writer replay."""
+    from repro_torch import kernels as K
+    from repro_torch.analysis_static import (errors_in, format_findings,
+                                             kernel_passes)
+    from repro_torch.kernels import fused_delta as fd
+    for i, (scan_in, join_in) in enumerate(calls):
+        dev = scan_in[0].cols.device
+        geom = kernel_passes.geometry_from_inputs(scan_in, join_in)
+        hits = fd.launch_schedule.cache_info().hits
+        desc, n_block = kernel_passes.launch_descriptor(geom, dev)
+        if fd.launch_schedule.cache_info().hits == hits:
+            fail(f"planlint: recorded fused_delta call {i}: its descriptor "
+                 "is not one launch_schedule cached on the card")
+        rows = tuple(e.rows.cpu().numpy() for e in join_in)
+        errs = errors_in(kernel_passes.run_kernel_passes(
+            geom, desc, n_block, sms=K.sm_count(dev), dirty_rows=rows,
+            location=f"recorded fused_delta {i}"))
+        if errs:
+            fail(f"planlint:\n{format_findings(errs)}")
+    print(f"planlint: {len(calls)} recorded fused_delta call(s): kernel "
+          f"passes clean on the card's cached descriptors [{card}]")
+
+
+def planlint_phase(kept, fold, card):
+    """planlint on the four SharedDB paths (``planlint_path``) and the
+    hot-path source pass."""
+    from repro_torch.analysis_static import errors_in, source_passes
+    for path in ("dense", "indexless", "fold", "chained"):
+        planlint_path(path, kept[path], card,
+                      fold if path == "fold" else None)
+    errs = errors_in(source_passes.lint_hot_path_asserts())
+    if errs:
+        fail(f"planlint: bare asserts on the hot path: {errs}")
+    print(f"planlint: source pass clean over "
+          f"{len(source_passes.HOT_PATH_MODULES)} hot-path modules")
+
+
+# ------------------------------------------------------- 4d. LM serving
 # (arch, depth cut or None, capacity, max_seq, prefill_len, requests,
 #  prompt lengths [lo, hi], new tokens)
 LM_PATHS = {
@@ -2050,12 +2181,20 @@ def main():
         return out
 
     fold_rec, chained_rec = Recorder({"join_block"}), Recorder()
-    log = run_path("dense", lambda: drive(True, dev, si, sc, "auto"))
-    log += run_path("indexless", lambda: drive(False, dev, si, sc, "auto"))
-    fold = run_path("fold", lambda: fold_path(dev, si, sc, fold_rec))
+    kept = {p: {} for p in ("dense", "indexless", "fold", "chained")}
+    log = run_path("dense", lambda: drive(True, dev, si, sc, "auto",
+                                          keep=kept["dense"]))
+    log += run_path("indexless", lambda: drive(False, dev, si, sc, "auto",
+                                               keep=kept["indexless"]))
+    fold = run_path("fold", lambda: fold_path(dev, si, sc, fold_rec,
+                                              kept["fold"]))
     log += fold["log"]
     log += run_path("chained",
-                    lambda: chained_path(dev, si, sc, fold, chained_rec))
+                    lambda: chained_path(dev, si, sc, fold, chained_rec,
+                                         kept["chained"]))
+    planlint_phase(kept, fold, smi[0])
+    del kept
+    torch.cuda.empty_cache()
     attn, lm_summaries = {}, []
     for name in LM_PATHS:
         lm_log, summary = run_path(name, lambda: lm_path(dev, name, attn))
@@ -2100,6 +2239,7 @@ def main():
           jit=False, recorder=rec,
           armed=("scan", "join_partitioned", "groupby", "fused_delta"))
     calls = dict(rec.calls, **fold_rec.calls, **chained_rec.calls)
+    planlint_recorded(calls["fused_delta"], smi[0])
     rows = kernel_rows(calls, launches, attn)
     torch.cuda.synchronize()
     for r in rows:

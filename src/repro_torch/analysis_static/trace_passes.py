@@ -1,0 +1,402 @@
+"""Trace passes: what a beat's body actually runs, recorded op by op —
+the port's counterpart of the JAX package's ``jaxpr_passes``.
+
+No jaxpr exists here, so ``record_beats`` runs one body of each cycle
+flavour (full, delta, delta_join) of a built engine under a
+``TorchDispatchMode`` recorder (``OpRecorder``) that keeps the output
+shape of every range compare / key-equality op and the storage of every
+tensor an op writes in place.  The bodies are the executor's own
+(``SharedDBEngine._body``, the one a graph captures) on clones of the
+engine's state, carry and results, with the engine's staged admission;
+they run eagerly and nothing is captured.  Their cycles are rebuilt on
+the ``torch`` backend, the plain version of every kernel: a hand-written
+kernel's body is opaque to the recorder (its launch goes through
+ctypes), so under ``hopper`` the recorder would see no compare inside
+``fused_delta`` and no in-place merge of the carried words.
+
+  * ``jaxpr-delta-width`` — steady state never pays window width: no
+    ``ge`` / ``le`` range compare of a forbidden (rows, q_window) shape
+    (and, on the delta-join flavour, no full-spine ``eq`` probe) is
+    recorded on the delta path.  The forbidden and legitimate shape sets
+    are the reference's (``_width_shape_sets`` / ``_probe_shape_sets``);
+    a forbidden shape that collides with a legitimate one is reported as
+    an info-severity ambiguity.
+  * ``jaxpr-donated-alias`` — the port's fixed beat buffers (a captured
+    graph reads and writes the same addresses every replay) in place of
+    jit's donation: every slot's results, the scan carry, every slot's
+    staging and the state occupy pairwise disjoint storage
+    (``lint_buffer_aliasing``); a body never writes the rid carry it
+    reads (the previous slot's in-flight results) nor anything of
+    another slot; and the cycle arguments a body writes in place are
+    exactly ``executor.DONATION_SPEC``'s (``lint_donation``).
+
+``jaxpr-delta-collective`` and ``jaxpr-reseed-collective`` need the
+sharded engine and have no pass here yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.analysis_static.diagnostics import LintFinding
+from repro_torch.analysis_static import registry as R
+from repro_torch.analysis_static.registry import register_pass
+
+COMPARES = ("ge", "le", "eq")
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def storage_key(t: torch.Tensor) -> Tuple[int, int]:
+    """(first byte, end byte) of the storage a tensor lives in."""
+    s = t.untyped_storage()
+    return s.data_ptr(), s.data_ptr() + s.nbytes()
+
+
+class OpRecorder(TorchDispatchMode):
+    """Records, per ATen op run inside it: the output shape of every
+    ``ge`` / ``le`` / ``eq`` (``compares``, (op, shape) pairs) and the
+    storage of every argument the op's schema marks as written
+    (``written``: the in-place and ``out=`` ops)."""
+
+    def __init__(self):
+        super().__init__()
+        self.compares: List[Tuple[str, Tuple[int, ...]]] = []
+        self.written: Set[Tuple[int, int]] = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__.rstrip("_")
+        if name in COMPARES and isinstance(out, torch.Tensor):
+            self.compares.append((name, tuple(out.shape)))
+        for i, a in enumerate(func._schema.arguments):
+            if a.alias_info is None or not a.alias_info.is_write:
+                continue
+            val = args[i] if i < len(args) else kwargs.get(a.name)
+            for t in _tensors(val):
+                if t.numel():
+                    self.written.add(storage_key(t))
+        return out
+
+
+@dataclasses.dataclass
+class BeatRecord:
+    """One recorded body: its compares, and which of the body's buffers
+    it wrote in place (labels from ``_buffer_labels``)."""
+    flavour: str
+    compares: List[Tuple[str, Tuple[int, ...]]]
+    wrote: Set[str]
+
+
+def _leaves(tree):
+    from repro_torch.core.graphs import leaves
+    return [t for t in leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+#: Each cycle flavour's positional arguments, by buffer label (the staged
+#: admission's queries and updates share two flat device buffers, so one
+#: label covers both).
+CYCLE_ARGS = {"full": ("state", "queries", "updates"),
+              "delta": ("state", "carry", "queries", "updates"),
+              "delta_join": ("state", "carry", "rids", "queries",
+                             "updates")}
+#: Arguments reachable through another live reference: the rid carry (the
+#: previous slot's in-flight results) and the staged admission (reused
+#: by its slot's next beat); donating one is a use-after-donate.
+ALIASED = {"rids": "rid carry (aliases the previous beat's in-flight "
+                   "results)",
+           "queries": "staged queries", "updates": "staged updates"}
+
+
+def _written_args(flavour: str, wrote: Set[str]) -> Set[int]:
+    """The flavour's arguments among the buffer labels a body wrote."""
+    names = CYCLE_ARGS[flavour]
+    hit = set()
+    for label in wrote:
+        for name in (("queries", "updates") if label == "staged"
+                     else (label,)):
+            if name in names:
+                hit.add(names.index(name))
+    return hit
+
+
+def _buffer_labels(buf, staging, slot: int) -> Dict[Tuple[int, int], str]:
+    """Storage -> label, for the buffers one body of slot ``slot`` sees:
+    "state", "carry", "rids" (slot - 1's ``_join_rids``, the rid carry
+    read), "out" (slot's results), "staged" (slot's admission) and
+    "other slot" (every other slot's results and staging)."""
+    n = len(buf.results)
+    labels = {}
+
+    def put(tree, label):
+        for t in _leaves(tree):
+            if t.numel():
+                labels.setdefault(storage_key(t), label)
+    put(buf.results[(slot - 1) % n]["_join_rids"], "rids")
+    put(buf.state, "state")
+    put(buf.carry, "carry")
+    put(buf.results[slot], "out")
+    put(staging[slot].staged, "staged")
+    for s in range(n):
+        if s != slot:
+            put(buf.results[s], "other slot")
+            put(staging[s].staged, "other slot")
+    return labels
+
+
+def record_beats(eng) -> Dict[str, BeatRecord]:
+    """One body of each flavour of ``eng``'s installed generation, run
+    in order (full seeds the carry the delta flavours read) on clones of
+    its state, carry and results, with its cycles rebuilt on the
+    ``torch`` backend; slot 1's staged admission in, slot 0's rids read.
+    Nothing of the engine changes and no kernel launches.  Raises on an
+    engine with one pipeline slot."""
+    from repro_torch import kernels as K
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.executor import FLAVOURS, _BeatBuffers
+    from repro_torch.core.graphs import clone_tree
+    from repro_torch.core.lowering import build_cycle, build_delta_cycle
+    h = eng._gen
+    if len(h.results) < 2:
+        raise ValueError("record_beats needs two pipeline slots or more")
+    be, dev = get_backend("torch"), eng.device
+    cycles = {"full": build_cycle(h.lowered, be, dev),
+              "delta": build_delta_cycle(h.lowered, be, device=dev),
+              "delta_join": build_delta_cycle(h.lowered, be,
+                                              delta_joins=True, device=dev)}
+    twin = dataclasses.replace(h, cycles=cycles, graphs={})
+    buf = _BeatBuffers(clone_tree(eng.state), clone_tree(h.carry),
+                       [clone_tree(r) for r in h.results])
+    slot = 1
+    labels = _buffer_labels(buf, h.staging, slot)
+    out = {}
+    with K.recording():
+        for f in FLAVOURS:
+            with OpRecorder() as rec:
+                eng._body(twin, buf, f, slot)
+            out[f] = BeatRecord(f, rec.compares,
+                                {labels[k] for k in rec.written
+                                 if k in labels})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Width classifier
+# ---------------------------------------------------------------------------
+
+
+def _width_shape_sets(lowered) -> Tuple[Dict[Tuple[int, int], str],
+                                        Set[Tuple[int, int]]]:
+    """(forbidden shapes -> stage location, legitimate shapes), the
+    reference's split on one device.
+
+    Forbidden: a range compare at (table rows, FULL stage q_window) for
+    any stage whose pane is narrower than its window — the full-rescan
+    work shape, unreachable from a delta beat.  Legitimate: admission
+    pane compares (rows, 32*delta_words) and dirty-set re-evals."""
+    cat = lowered.plan.catalog
+    legit: Set[Tuple[int, int]] = set()
+    for st in lowered.scans:
+        if not st.cols:
+            continue
+        legit.add((cat.schemas[st.table].capacity, 32 * st.delta_words))
+        legit.add((cat.schemas[st.table].dirty_cap, st.q_window))
+        legit.add((1, st.q_window))
+    forbidden: Dict[Tuple[int, int], str] = {}
+    for st in lowered.scans:
+        if not st.cols or 32 * st.delta_words >= st.q_window:
+            continue                          # pane IS the window: exempt
+        forbidden[(cat.schemas[st.table].capacity, st.q_window)] = \
+            f"scan[{st.table}]"
+    return forbidden, legit
+
+
+def _probe_shape_sets(lowered, update_slots=None
+                      ) -> Tuple[Dict[Tuple[int, int], str],
+                                 Set[Tuple[int, int]]]:
+    """Same split for join probes on the delta-join path: a full-probe
+    ``eq`` pane is (spine rows, bucket width); the delta path probes
+    only (dirty rows, one bucket).  The update path's key-locate scans
+    on index-less PK tables ((update slots, table rows) ``eq``s) run on
+    EVERY beat and are legitimate."""
+    cat = lowered.plan.catalog
+    legit: Set[Tuple[int, int]] = set()
+    forbidden: Dict[Tuple[int, int], str] = {}
+    if update_slots is not None:
+        for t, schema in cat.schemas.items():
+            if schema.pk and not schema.indexed:
+                legit.add((update_slots.n_update, schema.capacity))
+                legit.add((update_slots.n_delete, schema.capacity))
+    for j in lowered.joins:
+        if j.kind == "gather":
+            continue
+        spine_rows = cat.schemas[j.spine].capacity
+        dirty = cat.schemas[j.spine].dirty_cap
+        w = j.bucket_cap if j.kind == "partitioned" \
+            else cat.schemas[j.pk_table].capacity
+        legit.add((dirty, w))
+        legit.add((1, w))
+        forbidden[(spine_rows, w)] = f"join[{j.spine}->{j.pk_table}]"
+    return forbidden, legit
+
+
+@register_pass("delta-width", "jaxpr", (R.JAXPR_DELTA_WIDTH,),
+               "no full-window compare/probe recorded on the delta path")
+def lint_delta_width(compares: Sequence[Tuple[str, Tuple[int, ...]]],
+                     lowered, *, delta_joins: bool = False,
+                     update_slots=None,
+                     location: str = "delta") -> List[LintFinding]:
+    """No full-window range compare (and, on the delta-join flavour, no
+    full-spine probe) among a delta beat's recorded ``compares``."""
+    out = []
+    forbidden, legit = _width_shape_sets(lowered)
+    prims = {"ge", "le"}
+    if delta_joins:
+        pf, pl_ = _probe_shape_sets(lowered, update_slots)
+        for shape, loc in pf.items():
+            forbidden.setdefault(shape, loc)
+        legit |= pl_
+        prims.add("eq")
+    ambiguous = set(forbidden) & legit
+    for shape in sorted(ambiguous):
+        out.append(LintFinding(
+            R.JAXPR_DELTA_WIDTH,
+            f"shape {shape} is both a full-window and a legitimate "
+            "delta compare at this scale — not statically classifiable",
+            severity="info", location=forbidden[shape]))
+    check = {s: loc for s, loc in forbidden.items() if s not in ambiguous}
+    hits: Dict[Tuple[int, int], int] = {}
+    for op, shape in compares:
+        if op in prims and len(shape) == 2 and shape in check:
+            hits[shape] = hits.get(shape, 0) + 1
+    for shape, n in sorted(hits.items()):
+        out.append(LintFinding(
+            R.JAXPR_DELTA_WIDTH,
+            f"{n} full-window compare(s) of shape {shape} reachable "
+            "on the delta path", location=f"{location} {check[shape]}"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fixed buffers and the donation contract
+# ---------------------------------------------------------------------------
+
+
+@register_pass("buffer-aliasing", "jaxpr", (R.JAXPR_DONATED_ALIAS,),
+               "fixed beat buffers occupy disjoint storage")
+def lint_buffer_aliasing(handle, state,
+                         location: str = "") -> List[LintFinding]:
+    """Over a built ``_CompiledHandle`` and the engine's state: the
+    leaves of every slot's results, the scan carry, every slot's staging
+    buffers and the state occupy pairwise disjoint storage, so an in-place
+    write of one beat never reaches a buffer a slot in flight still
+    reads; and there are two slots at least, so slot s's body never
+    reads the rids it writes."""
+    out = []
+    groups = [(f"results[{s}]", r) for s, r in enumerate(handle.results)]
+    groups.append(("carry", handle.carry))
+    groups += [(f"staging[{s}]", b.staged)
+               for s, b in enumerate(handle.staging)]
+    groups.append(("state", state))
+    spans = []                  # (start, end, group)
+    for label, tree in groups:
+        for t in _leaves(tree):
+            if t.numel():
+                a, b = storage_key(t)
+                spans.append((a, b, label))
+    spans.sort()
+    clashes = set()
+    end, owner = -1, None
+    for a, b, label in spans:
+        if a < end and label != owner:
+            clashes.add(tuple(sorted((owner, label))))
+        if b > end:
+            end, owner = b, label
+    for x, y in sorted(clashes):
+        out.append(LintFinding(
+            R.JAXPR_DONATED_ALIAS,
+            f"{x} and {y} share storage: an in-place write of one beat "
+            "would reach a buffer another reads", location=location))
+    if len(handle.results) < 2:
+        out.append(LintFinding(
+            R.JAXPR_DONATED_ALIAS,
+            f"{len(handle.results)} pipeline slot(s): slot 0's body reads "
+            "the rid carry it writes", location=location))
+    return out
+
+
+@register_pass("donation", "jaxpr", (R.JAXPR_DONATED_ALIAS,),
+               "a body writes in place exactly the donated arguments")
+def lint_donation(records: Dict[str, BeatRecord],
+                  donation_spec: Optional[Dict[str, tuple]] = None,
+                  location: str = "") -> List[LintFinding]:
+    """Each recorded body writes in place exactly the cycle arguments
+    ``donation_spec`` (default ``executor.DONATION_SPEC``) donates —
+    never the rid carry it reads, never its staged admission, never
+    another slot's buffers."""
+    if donation_spec is None:
+        from repro_torch.core.executor import DONATION_SPEC
+        donation_spec = DONATION_SPEC
+    out = []
+    for flavour, rec in records.items():
+        loc = f"{location} {flavour}".strip()
+        names = CYCLE_ARGS[flavour]
+        want = set(donation_spec[flavour])
+        for argnum in sorted(want):
+            name = names[argnum] if argnum < len(names) else None
+            if name in ALIASED or name is None:
+                out.append(LintFinding(
+                    R.JAXPR_DONATED_ALIAS,
+                    f"argument {argnum} ({ALIASED.get(name, 'no such')}) "
+                    "is donated but reachable through a non-donated "
+                    "alias — use-after-donate", location=loc))
+        for k, what in (("rids", "the rid carry it reads (the previous "
+                                 "slot's in-flight results)"),
+                        ("other slot", "another pipeline slot's buffers")):
+            if k in rec.wrote:
+                out.append(LintFinding(
+                    R.JAXPR_DONATED_ALIAS,
+                    f"the body writes {what} in place — use after "
+                    "donate", location=loc))
+        wrote = _written_args(flavour, rec.wrote)
+        if wrote - want:
+            out.append(LintFinding(
+                R.JAXPR_DONATED_ALIAS,
+                f"the body writes argument(s) {sorted(wrote - want)} in "
+                f"place, which the donation spec {tuple(sorted(want))} "
+                "does not donate", location=loc))
+        if want - wrote - {names.index(n) for n in ALIASED if n in names}:
+            out.append(LintFinding(
+                R.JAXPR_DONATED_ALIAS,
+                f"donated argument(s) {sorted(want - wrote)} are not "
+                "rolled forward in place (the carry would be a copy)",
+                severity="warning", location=loc))
+    return out
+
+
+def run_trace_passes(eng, location: str = "") -> List[LintFinding]:
+    """Every trace pass against a built engine: record one body of each
+    flavour (``record_beats``) and hold the delta flavours to the width
+    classifier, the bodies to the donation spec, and the installed
+    generation's buffers (with the engine's state) to disjoint
+    storage."""
+    recs = record_beats(eng)
+    lowered = eng._gen.lowered
+    return (lint_delta_width(recs["delta"].compares, lowered,
+                             location=f"{location} delta".strip())
+            + lint_delta_width(recs["delta_join"].compares, lowered,
+                               delta_joins=True,
+                               update_slots=eng.update_slots,
+                               location=f"{location} delta_join".strip())
+            + lint_donation(recs, location=location)
+            + lint_buffer_aliasing(eng._gen, eng.state, location=location))

@@ -63,6 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch import kernels as _k
+from repro_torch.analysis_static.ir_passes import run_construction_passes
+from repro_torch.analysis_static.registry import FOLD_IN_FLIGHT
 from repro_torch.core import folding
 from repro_torch.core import graphs as cg
 from repro_torch.core.backends import counting_backend, resolve_backend
@@ -237,6 +239,20 @@ class CycleResult:
 
 FLAVOURS = ("full", "delta", "delta_join")
 
+#: The shipped donation contract, the reference's (``repro.core.executor.
+#: DONATION_SPEC``): cycle flavour -> the arguments a beat's body writes in
+#: place.  The cycles' arguments are (state, queries, updates) for
+#: "full", (state, carry, queries, updates) for "delta" and (state,
+#: carry, rid carry, queries, updates) for "delta_join".  The state (arg
+#: 0) rolls forward in place; the delta flavours also roll the scan words
+#: + key partitions (arg 1) forward.  The rid carry (arg 2 of the
+#: delta-join flavour) is never written: it is the previous slot's
+#: in-flight ``results["_join_rids"]``.  planlint's ``jaxpr-donated-alias``
+#: pass (``analysis_static.trace_passes``) records a beat's in-place
+#: writes and holds them to this spec.
+DONATION_SPEC: Dict[str, tuple] = {
+    "full": (0,), "delta": (0, 1), "delta_join": (0, 1)}
+
 
 @dataclasses.dataclass
 class _BeatBuffers:
@@ -271,6 +287,7 @@ class _CompiledHandle:
     capture_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
     ready: Any = None            # CUDA event behind the build's work on
     #                              its side stream (None on the CPU)
+    gate_s: float = 0.0          # the construction gate's host seconds
 
 
 @dataclasses.dataclass
@@ -344,6 +361,8 @@ class SharedDBEngine:
         self.state = plan.catalog.init_state(initial_data, self.device)
         # capture seconds, graph count and pool bytes of each generation
         self.capture_stats: List[Dict[str, Any]] = []
+        # host seconds of the planlint construction gate, per generation
+        self.gate_s: List[float] = []
         self._install_handle(self._build_compiled(plan))
         self._fold: Optional[_PendingFold] = None
         self.folds_done = 0
@@ -399,9 +418,18 @@ class SharedDBEngine:
         polled, never a synchronising call).  While it captures, no other
         thread may synchronise the whole device (``torch.cuda.
         synchronize()``; CUDA refuses it during a capture): the engine's
-        own waits are on events and on the serving stream."""
+        own waits are on events and on the serving stream.
+
+        Always-on planlint: the IR passes gate EVERY generation (cold
+        start and every fold build) right after lowering, before any
+        buffer is allocated or any graph captured, and raise
+        ``PlanLintError`` naming the rule.  The gate reads the host IR
+        only and never waits for the device."""
         dev = self.device
         lowered = lower_plan(plan, key_stats=self._key_stats)
+        t_gate = time.perf_counter()
+        run_construction_passes(lowered, key_stats=self._key_stats)
+        gate_s = time.perf_counter() - t_gate
         backend_ops: Dict[str, Dict[str, int]] = {f: {} for f in FLAVOURS}
         cb = {f: counting_backend(self._backend, c)
               for f, c in backend_ops.items()}
@@ -414,7 +442,8 @@ class SharedDBEngine:
             # the admission layout this generation's carries live under
             layout_token=(plan.qcap, plan.n_params_max,
                           tuple(sorted(plan.offsets.items())),
-                          tuple(sorted(plan.caps.items()))))
+                          tuple(sorted(plan.caps.items()))),
+            gate_s=gate_s)
         cuda = dev.type == "cuda"
         with (torch.cuda.stream(torch.cuda.Stream(dev)) if cuda
               else contextlib.nullcontext()):
@@ -495,6 +524,7 @@ class SharedDBEngine:
         self._layout_token = h.layout_token
         self.capture_stats.append(dict(h.capture_stats,
                                        generation=len(self.capture_stats)))
+        self.gate_s.append(h.gate_s)
 
     # -------------------------------------------------------- the beat body
     @staticmethod
@@ -554,8 +584,8 @@ class SharedDBEngine:
         from repro_torch.runtime.elastic import relower_recipe
         if self._fold is not None:
             raise RuntimeError(
-                f"[planlint:{folding.FOLD_IN_FLIGHT}] a fold is already in "
-                "flight — wait for it to commit before starting another "
+                f"[planlint:{FOLD_IN_FLIGHT}] a fold is already in flight "
+                "— wait for it to commit before starting another "
                 "(serving front ends batch registrations instead)")
         new_templates = list(new_templates)
         new_plan = folding.extend_plan(self.plan, new_templates,

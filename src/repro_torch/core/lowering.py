@@ -363,11 +363,12 @@ def check_extension_prefix(old: LoweredPlan, new: LoweredPlan) -> None:
     level — the IR contract dynamic plan folding (core/folding.py) rests
     on: existing stages keep their position, scan windows only widen on
     the high side, predicated column lists only append, and join stages
-    keep their access path.  The derivation checks are
-    ``folding.lint_extension_prefix`` (rule ``fold-prefix-stability``);
-    raises ``ValueError`` naming the rule."""
-    from repro_torch.core.folding import lint_extension_prefix, raise_on
-    raise_on(lint_extension_prefix(old, new), ValueError)
+    keep their access path.  The derivation checks are the planlint
+    pass ``analysis_static.ir_passes.lint_extension_prefix`` (rule
+    ``fold-prefix-stability``); raises ``ValueError`` naming the rule."""
+    from repro_torch.analysis_static.diagnostics import raise_on_error
+    from repro_torch.analysis_static.ir_passes import lint_extension_prefix
+    raise_on_error(lint_extension_prefix(old, new), exc=ValueError)
 
 
 # ---------------------------------------------------------------------------

@@ -866,6 +866,34 @@ def test_graphed_steady_beat_counts_one_fused_delta(cuda_device):
 
 
 @pytest.mark.cuda
+def test_planlint_on_the_card(cuda_device):
+    """planlint's sweep on the card over both backends exits 0; a graphed
+    index-less engine was gated once, its fixed buffers are disjoint, and
+    after a steady beat the descriptor its fused_delta launch cached
+    passes the kernel passes at the card's SM count."""
+    from repro_torch.analysis_static import (errors_in, kernel_passes, lint,
+                                             trace_passes)
+    assert lint.main(["--backends", "torch,hopper"]) == 0
+    eng, _ = _twin_engines(cuda_device, "indexless")
+    assert len(eng.gate_s) == 1
+    assert errors_in(trace_passes.lint_buffer_aliasing(
+        eng._gen, eng.state)) == []
+    for beat in range(2):
+        eng.submit_update("customer", "update", {
+            "key": 3 + beat, "col": "c_expiration", "val": 900 + beat})
+        eng.submit("get_book", {0: (5, 5)})
+        eng.run_cycle()
+    assert eng.last_join_path == "delta"
+    geom = kernel_passes.geometry_from_lowered(eng._lowered)
+    dev = eng.state["item"]["_valid"].device
+    hits = tfd.launch_schedule.cache_info().hits
+    desc, n_block = kernel_passes.launch_descriptor(geom, dev)
+    assert tfd.launch_schedule.cache_info().hits == hits + 1
+    assert errors_in(kernel_passes.run_kernel_passes(
+        geom, desc, n_block, sms=K.sm_count(dev))) == []
+
+
+@pytest.mark.cuda
 def test_graphed_decode_equals_eager(cuda_device):
     """A bfloat16 smoke LM's CycleServer with the decode step captured
     against the same server run eagerly: the same greedy tokens."""

@@ -38,6 +38,8 @@ from repro.core.plan import QueryTemplate as RTemplate
 from repro.core.plan import compile_plan as ref_compile
 from repro.serving import QueryCycleServer as RefServer
 from repro.workloads import tpcw as ref_tpcw
+from repro_torch.analysis_static import diagnostics as tdiag
+from repro_torch.analysis_static import ir_passes as tpasses
 from repro_torch.core import folding
 from repro_torch.core.executor import SharedDBEngine
 from repro_torch.core.lowering import check_extension_prefix, lower_plan
@@ -141,21 +143,22 @@ def test_extend_plan_rejects_the_reference_bad_folds(case):
 
 def test_prefix_checks_give_the_reference_findings():
     """An extension read backwards (old and new swapped) breaks plan- and
-    IR-level prefix stability: the port's copies of the two passes report
-    the reference's findings, and raise as the reference does."""
+    IR-level prefix stability: the port's two planlint passes report the
+    reference's findings, and raise as the reference does."""
     (rt, rc, rbase), (tt, tc, tbase) = _split("ref"), _split("port")
     rext = rfold.extend_plan(rbase, rt[N_BASE:],
                              {t.name: rc[t.name] for t in rt[N_BASE:]})
     text = folding.extend_plan(tbase, tt[N_BASE:],
                                {t.name: tc[t.name] for t in tt[N_BASE:]})
     want = format_findings(rpasses.lint_plan_prefix(rext, rbase))
-    assert want and "\n".join(folding.lint_plan_prefix(text, tbase)) == want
+    assert want and tdiag.format_findings(
+        tpasses.lint_plan_prefix(text, tbase)) == want
     with pytest.raises(folding.FoldError, match="fold-plan-prefix"):
         folding._check_plan_prefix(text, tbase)
     want = format_findings(rpasses.lint_extension_prefix(ref_lower(rext),
                                                          ref_lower(rbase)))
-    got = folding.lint_extension_prefix(lower_plan(text), lower_plan(tbase))
-    assert want and "\n".join(got) == want
+    got = tpasses.lint_extension_prefix(lower_plan(text), lower_plan(tbase))
+    assert want and tdiag.format_findings(got) == want
     with pytest.raises(ValueError, match="fold-prefix-stability"):
         check_extension_prefix(lower_plan(text), lower_plan(tbase))
 

@@ -37,7 +37,7 @@ capability 9.0+ and the CUDA toolkit.  It:
      1e-5 in float32 and 2e-2 in bfloat16 (the reference's own test),
      and at the LM paths' shapes each output row (one query, one head)
      also within FLASH_ROW_REL_TOL of its own norm;
-  4. drives four paths at the paper's TPC-W scale (configs/shareddb_tpcw:
+  4. drives five paths at the paper's TPC-W scale (configs/shareddb_tpcw:
      10 000 items, 28 800 customers), each with every kernel's launch
      count set to 0 just before it and read just after:
        dense / indexless — SharedDBEngine on the dense-index and the
@@ -53,6 +53,21 @@ capability 9.0+ and the CUDA toolkit.  It:
          delta beat chains 7 pane scans, ONE delta_scan over the 7 stages
          and ONE delta_join over the 4 partitioned joins), replaying the
          fold path's beats;
+       sharded — the index-less catalog on row meshes of 1, 2 and 4
+         shards, every shard on this card (``SharedDBEngine(mesh=...)``,
+         core/sharding.py), beside the unsharded engine, a reseed and 8
+         slot-stable steady beats: the 1-shard engine bit-identical to the
+         unsharded one (tickets, paths, backend ops, launches, snapshots),
+         the 2-shard one bit-identical to its ``jit=False`` twin and
+         answering as the unsharded engine (row sets, group scores within
+         rtol 1e-6) with one all_gather per mirrored predicated stage in
+         the reseed and none in a delta beat, the 4-shard one answering
+         alike over 4 beats; a 2-shard engine without order_lines,
+         order_display and get_cart folds them in on its
+         QueryCycleServer's background thread and answers as the cold
+         2-shard engine; ``buy_request_address`` is refused with
+         ``fold-mirror-set``; the 2-shard twin's recorded kernel calls
+         (shard geometry) are held against their plain versions;
      every engine under test runs graphed (``jit=True``: each beat replays
      a captured CUDA graph; the fold's generation is captured on its fold
      thread), and its capture seconds and graph pool bytes per generation
@@ -98,7 +113,8 @@ capability 9.0+ and the CUDA toolkit.  It:
      128); one admission beat and one decode-only beat of the server and
      of its twin run under torch.profiler;
      between the SharedDB and the LM paths, planlint (``planlint:``
-     lines): the construction gate's host time per plan generation of
+     lines; on the sharded path the collective and locality rules too):
+     the construction gate's host time per plan generation of
      each SharedDB engine under test (the fold's second generation gated
      on its fold thread, beside the fold's registration -> commit), the
      kernel passes against the fused_delta descriptor launch_schedule
@@ -186,6 +202,8 @@ PATH_KERNELS = {
              "fused_delta", "bitmask_join"),
     "chained": ("clockscan", "shared_groupby", "partitioned_join",
                 "bitmask_join", "delta_scan", "delta_join"),
+    "sharded": ("clockscan", "shared_groupby", "partitioned_join",
+                "fused_delta"),
     "lm-yi-6b": ("flash_attention",),
     "lm-gemma3-27b": ("flash_attention",),
 }
@@ -1286,7 +1304,322 @@ def chained_path(dev, scale_i, scale_c, fold, recorder, keep):
     return log
 
 
-# --------------------------------------------------------- 4c. planlint
+# ------------------------------------------------ 4c. the sharded heartbeat
+SHARDED_STEADY = 8          # steady beats after the reseed
+SHARDED_S4_BEATS = 4        # beats of the 4-shard engine: reseed + 3
+FOLD_BATCH = ("order_lines", "order_display", "get_cart")
+
+
+def snapshots_identical(a, b, what):
+    import numpy as np
+    for table in b.plan.catalog.schemas:
+        sa, sb = a.snapshot(table), b.snapshot(table)
+        for k, v in sb.items():
+            if not np.array_equal(np.asarray(sa[k]), np.asarray(v)):
+                fail(f"{what}: snapshot {table}.{k} differs")
+
+
+def query_key(t):
+    return t.template, tuple(sorted(t.params.items()))
+
+
+def sharded_path(dev, scale_i, scale_c, recorder, keep):
+    """The sharded path, index-less TPC-W at full scale, every shard on
+    this card: engines on row meshes of 1, 2 and 4 shards beside the
+    unsharded engine, all graphed, and a ``jit=False`` twin of the 2-shard
+    one (on ``hopper-sharded``, the recorder's pass-through: it keeps the
+    reseed's scan / join / group-by inputs and a steady beat's fused_delta
+    and group-by inputs at shard geometry).  A reseed and SHARDED_STEADY
+    slot-stable steady beats (``SteadyTraffic``): the 1-shard engine must
+    equal the unsharded one bit for bit (tickets, paths, backend ops,
+    launches, every table's snapshot); the 2-shard engine its twin bit for
+    bit and the unsharded engine's answers (row sets, scores within rtol
+    1e-6), with one all_gather per mirrored predicated stage in the reseed
+    and none in a delta beat; the 4-shard engine the unsharded answers
+    over SHARDED_S4_BEATS beats.  Beside them a 2-shard engine whose plan
+    lacks FOLD_BATCH folds it in through a QueryCycleServer on its
+    background thread (registered before beat 3; query-only beats while
+    it builds); from its first beat its answers equal the cold 2-shard
+    engine's (built with the final set) on the same queries, the folded
+    templates' from the migration beat; then ``buy_request_address`` (a
+    join into ``country``, which no join probed) must be refused with
+    ``fold-mirror-set``.  ``keep`` receives the 2-shard engine and its
+    twin for the planlint phase."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core import backends as B
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.sharding import make_row_mesh
+    from repro_torch.serving import QueryCycleServer
+    from repro_torch.workloads import tpcw
+
+    B.register_backend(recorder.backend(B.get_backend("hopper"),
+                                        "hopper-sharded"))
+    data = tpcw.generate_data(np.random.default_rng(SEED), scale_i, scale_c)
+    plan = tpcw.build_tpcw_plan(scale_i, scale_c, dense_pk_index=False)
+    catalog = tpcw.make_catalog(scale_i, scale_c, dense_pk_index=False)
+    templates, caps = tpcw.make_templates(catalog.schemas["item"].capacity)
+    fold_base = compile_plan(
+        catalog, [t for t in templates if t.name not in FOLD_BATCH],
+        {n: c for n, c in caps.items() if n not in FOLD_BATCH},
+        max_results=plan.max_results)
+    slots = tpcw.DEFAULT_UPDATE_SLOTS
+
+    def mesh(n):
+        return make_row_mesh(n, [dev] * n)
+    built = {}
+    for name, make in (
+            ("unsharded", lambda: SharedDBEngine(plan, slots, data,
+                                                 kernels="hopper",
+                                                 device=dev)),
+            ("S=1", lambda: SharedDBEngine(plan, slots, data,
+                                           kernels="hopper", mesh=mesh(1))),
+            ("S=2", lambda: SharedDBEngine(plan, slots, data,
+                                           kernels="hopper", mesh=mesh(2))),
+            ("S=2 eager", lambda: SharedDBEngine(
+                plan, slots, data, kernels="hopper-sharded", mesh=mesh(2),
+                jit=False)),
+            ("S=4", lambda: SharedDBEngine(plan, slots, data,
+                                           kernels="hopper", mesh=mesh(4))),
+            ("S=2 fold", lambda: SharedDBEngine(fold_base, slots, data,
+                                                kernels="hopper",
+                                                mesh=mesh(2)))):
+        t0 = time.perf_counter()
+        built[name] = make()
+        print(f"sharded: {name} engine built in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    base, s1, s2, eager, s4, f2 = built.values()
+    for name in ("S=1", "S=2", "S=4"):
+        print_capture(f"sharded {name}", built[name])
+    server = QueryCycleServer(f2)                  # background folds
+    keep.update(eng=s2, eager=eager)
+    spec = s2._gen.spec
+    mi_pred = [st for st in s2._lowered.scans
+               if spec.is_mirrored(st.table) and st.cols]
+    print(f"sharded: S=2 on {[str(d) for d in spec.devices]}: mirrored "
+          f"{list(spec.mirrored)}; rows a shard (Ts / mirror Tp): "
+          + json.dumps({t: spec.rows(t) for t in spec.plan.catalog.schemas}))
+    queries, updates, _ = workload(scale_i, scale_c)
+    traffic = SteadyTraffic(scale_c)
+    log, fold = [], {}
+    last = SHARDED_STEADY
+    for beat in range(1 + SHARDED_STEADY):
+        ups = updates if beat == 0 else traffic.updates()
+        qs = slot_stable(queries, beat, scale_c) if beat else list(queries)
+        engines = [base, s1, s2, eager] + \
+            ([s4] if beat < SHARDED_S4_BEATS else [])
+        tickets = {}
+        for e in engines:
+            for u in ups:
+                e.submit_update(*u)
+            tickets[id(e)] = [e.submit(n, p) for n, p in qs]
+        what = f"sharded beat {beat}"
+        profiled = beat == last
+        steady = None if beat == 0 else {"fused_delta": 2, "groupby": 2}
+        paths = ("full", "full") if beat == 0 else ("delta", "delta")
+
+        before = K.COLLECTIVES["all_gather_rows"]
+        wall, prof, launched = timed_beat(s2, profiled)
+        gathers = K.COLLECTIVES["all_gather_rows"] - before
+        log.append(beat_entry(
+            s2, "sharded", beat, wall, prof, shards=2, collectives=gathers,
+            launches_per_shard={k: n / 2 for k, n in launched.items()}))
+        check_beat(s2, what, tickets[id(s2)], paths, steady)
+        if gathers != (len(mi_pred) if beat == 0 else 0):
+            fail(f"{what}: {gathers} all_gathers, mirrored predicated "
+                 f"stages {len(mi_pred)}")
+        recorder.armed = ({"scan", "join_partitioned", "groupby"}
+                          if beat == 0 else {"fused_delta", "groupby"}
+                          if beat == last - 1 else set())
+        wall, prof, eager_launched = timed_beat(eager, profiled, aside=True)
+        recorder.armed = set()
+        log.append(beat_entry(eager, "sharded", beat, wall, prof, shards=2))
+        twin_beat(s2, eager, what, launched, eager_launched)
+        for a, b in zip(tickets[id(s2)], tickets[id(eager)]):
+            tickets_identical(a, b, f"{what} graphed vs eager")
+
+        wall, prof, launched_u = timed_beat(base, profiled)
+        log.append(beat_entry(base, "sharded unsharded", beat, wall, prof,
+                              shards=0))
+        check_beat(base, f"{what} unsharded", tickets[id(base)], paths,
+                   None if beat == 0 else FUSED_STEADY)
+        for a, b in zip(tickets[id(s2)], tickets[id(base)]):
+            matches_baseline(a, b.result, f"{what} S=2 vs unsharded")
+        wall, prof, launched_1 = timed_beat(s1, False)
+        log.append(beat_entry(s1, "sharded S=1", beat, wall, prof, shards=1))
+        twin_beat(s1, base, f"{what} S=1 vs unsharded", launched_1,
+                  launched_u)
+        for a, b in zip(tickets[id(s1)], tickets[id(base)]):
+            tickets_identical(a, b, f"{what} S=1 vs unsharded")
+        snapshots_identical(s1, base, f"{what} S=1 vs unsharded")
+        if s4 in engines:
+            wall, prof, _ = timed_beat(s4, False)
+            log.append(beat_entry(s4, "sharded S=4", beat, wall, prof,
+                                  shards=4))
+            check_beat(s4, f"{what} S=4", tickets[id(s4)], paths,
+                       None if beat == 0 else {"fused_delta": 4,
+                                               "groupby": 4})
+            for a, b in zip(tickets[id(s4)], tickets[id(base)]):
+                matches_baseline(a, b.result, f"{what} S=4 vs unsharded")
+        fold_beats(server, f2, beat, ups, qs, tickets[id(s2)], fold, log)
+    if f2.folds_done != 1:
+        fail("sharded fold: no commit")
+    print_capture("sharded S=2 fold", f2)
+    try:
+        server.register_template(buy_request_address(), FOLD_CAP)
+        fail("sharded fold: buy_request_address (a join into country) was "
+             "not refused under the mesh")
+    except ValueError as e:
+        if "[planlint:fold-mirror-set]" not in str(e):
+            raise
+        print(f"sharded fold: buy_request_address refused: {e}")
+    return {"log": log, "fold": fold}
+
+
+def fold_beats(server, f2, beat, ups, qs, cold_tickets, fold, log):
+    """One script beat of the sharded fold engine: beats 0-2 and 4- run
+    the script beat's updates and its queries of registered templates;
+    before beat 3 FOLD_BATCH is registered, and beat 3 runs its updates
+    and all its queries (FOLD_BATCH's wait in their queues), then
+    query-only beats until the build lands, then the migration beat.
+    Every answered ticket must equal the cold engine's on the same
+    query of this script beat."""
+    want = {query_key(t): t for t in cold_tickets}
+    first = True
+    if beat == 3:
+        templates, caps = tpcw_templates(f2)
+        fold["t_reg"] = time.perf_counter()
+        for r in server.register_templates(
+                [(t, caps[t.name]) for t in templates
+                 if t.name in FOLD_BATCH]):
+            if r["status"] != "folding":
+                fail(f"sharded fold: registration {r['status']}")
+        fold["beats_in_flight"] = 0
+    while True:
+        ready = f2.fold_ready()
+        for u in (ups if first else ()):
+            server.submit_update(*u)
+        mine = [server.submit(n, p) for n, p in qs
+                if n in server.registered and (first or n not in FOLD_BATCH)]
+        if beat == 3 and first:
+            fold["held"] = [t for t in mine if t.template in FOLD_BATCH]
+        wall, _, _ = timed_beat(f2, False, exempt=ready)
+        committed = "t_commit" not in fold and f2.folds_done == 1
+        log.append(beat_entry(f2, "sharded S=2 fold", beat, wall, None,
+                              shards=2, migration=committed,
+                              fold_in_flight=f2.fold_in_flight()))
+        for t in mine:
+            if t.result is not None:
+                tickets_equal(t, want[query_key(t)],
+                              f"sharded fold beat {beat} vs cold S=2")
+        if committed:
+            fold["t_commit"] = time.perf_counter()
+            fold["build_s"] = f2.last_fold_build_s
+            if (f2.last_scan_path, f2.last_join_path) != ("full", "full"):
+                fail("sharded fold: the migration beat is not a full rescan")
+        first = False
+        if beat != 3 or "t_commit" in fold:
+            break
+        fold["beats_in_flight"] += 1
+        if time.perf_counter() - fold["t_reg"] > FOLD_MAX_S:
+            fail("sharded fold: no commit within "
+                 f"{FOLD_MAX_S} s")
+        time.sleep(0.005)
+    if beat == 3:
+        late = [t for t in fold["held"] if t.result is None]
+        if late or not fold["held"]:
+            fail("sharded fold: the folded templates' queries were not "
+                 "answered at the migration beat")
+        for t in fold["held"]:
+            tickets_equal(t, want[query_key(t)],
+                          "sharded fold migration beat vs cold S=2")
+
+
+def tpcw_templates(eng):
+    """TPC-W's templates and slot capacities at the engine's scale."""
+    from repro_torch.workloads import tpcw
+    return tpcw.make_templates(eng.plan.catalog.schemas["item"].capacity)
+
+
+def sharded_kernel_check(calls):
+    """The sharded path's recorded kernel calls (shard geometry: [Ts]
+    spines, per-shard dirty sets, the mirror slices of a reseed), each
+    held against its plain version on the same inputs: words, rids and
+    counts bit-equal, group sums within rtol 1e-6."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels import (clockscan, fused_delta, partitioned_join,
+                                     ref, shared_groupby)
+    pairs = {"scan": (clockscan.clockscan, ref.clockscan_ref),
+             "join_partitioned": (partitioned_join.partitioned_join,
+                                  ref.partitioned_join_ref),
+             "groupby": (shared_groupby.shared_groupby,
+                         ref.shared_groupby_ref),
+             "fused_delta": (fused_delta.fused_delta, ref.fused_delta_ref)}
+    out = {}
+    with K.recording():
+        for op, (kern, plain) in pairs.items():
+            recorded = calls.get(op, [])
+            if not recorded:
+                fail(f"sharded: no recorded {op} call")
+            errs, lead_dims = [], set()
+            for args in recorded:
+                if op == "join_partitioned" and not \
+                        partitioned_join.buckets_ordered(args[2], args[3]):
+                    fail("sharded partitioned_join: buckets not in "
+                         "build_key_partitions' order")
+                want = plain(*clone_tree(args))
+                got = clone_tree(kern(*clone_tree(args)))
+                if op == "groupby":
+                    same(got[0], want[0], "shared_groupby counts (sharded)")
+                    if not torch.allclose(got[1], want[1], rtol=1e-6):
+                        fail("shared_groupby sums (sharded)")
+                else:
+                    same(got, want, f"{op} (sharded path)")
+                errs.append(max_abs_err(got, want))
+                lead = args[0][0].cols if op == "fused_delta" else args[0]
+                lead_dims.add(tuple(lead.shape))
+            out[op] = {"calls": len(recorded), "max_abs_err": max(errs),
+                       "first_input_shapes": sorted(lead_dims)}
+        torch.cuda.synchronize()
+    print("sharded kernel calls against their plain versions:",
+          json.dumps(out))
+
+
+def print_sharded_summary(sharded):
+    """Median steady walls of the unsharded, 1-, 2- and 4-shard engines,
+    the 2-shard engine's profiled beat beside its eager twin's and the
+    unsharded engine's, and the fold's latency."""
+    log = sharded["log"]
+    print_graphed_beside_eager(
+        "steady beat, sharded S=2",
+        [e for e in log if e["path"] == "sharded" and e["beat"]])
+    print_graphed_beside_eager(
+        "steady beat, sharded unsharded (graphed) vs S=2 eager twin",
+        [e for e in log if e["beat"] and (
+            e["path"] == "sharded unsharded"
+            or (e["path"] == "sharded" and not e["graphed"]))])
+    for path in ("sharded unsharded", "sharded S=1", "sharded", "sharded S=4",
+                 "sharded S=2 fold"):
+        walls = [e["wall_ms"] for e in log if e["path"] == path
+                 and e["graphed"] and e["beat"] and not e["profiled"]
+                 and not e.get("fold_in_flight") and not e.get("migration")]
+        reseed = [e["wall_ms"] for e in log if e["path"] == path
+                  and e["graphed"] and e["beat"] == 0]
+        print(f"{path}: median steady wall "
+              f"{statistics.median(walls) if walls else float('nan'):.3f} "
+              f"ms over {len(walls)} beats; reseed wall "
+              f"{reseed[0] if reseed else float('nan'):.3f} ms")
+    fold = sharded["fold"]
+    print(f"sharded fold (S=2): begin_fold -> build done "
+          f"{fold['build_s'] * 1e3:.1f} ms; registration -> committed "
+          f"{(fold['t_commit'] - fold['t_reg']) * 1e3:.1f} ms; "
+          f"{fold['beats_in_flight']} query-only beats while in flight")
+
+
+
+# --------------------------------------------------------- 4d. planlint
 # the fold's registration -> commit before the construction gate, in the
 # compiled beat's two change runs as PERF.md §5 records them (NVIDIA H100
 # 80GB HBM3, 700.00 W); printed beside this run's
@@ -1321,9 +1654,14 @@ def planlint_path(path, kept, card, fold=None):
               f"{PREVIOUS_FOLD_LATENCY_MS[1]} ms without it (PERF.md §5) "
               f"[{card}]")
     # the device as a tensor names it (its index included): the key the
-    # fused_delta wrapper cached its descriptor under
-    dev = eng.state[next(iter(eng.state))]["_valid"].device
-    geom = kernel_passes.geometry_from_lowered(eng._lowered)
+    # fused_delta wrapper cached its descriptor under; on a mesh, shard
+    # 0's, and one shard's fused geometry
+    from repro_torch.core import sharding
+    spec = eng._gen.spec
+    state = eng.state if spec is None else eng.state[0]
+    dev = state[next(iter(state))]["_valid"].device
+    geom = kernel_passes.geometry_from_lowered(eng._lowered) \
+        if spec is None else sharding.fused_geometry(eng._lowered, spec)
     findings = []
     if geom.sgeom or geom.jgeom:
         hits = fd.launch_schedule.cache_info().hits
@@ -1386,10 +1724,11 @@ def planlint_recorded(calls, card):
 
 
 def planlint_phase(kept, fold, card):
-    """planlint on the four SharedDB paths (``planlint_path``) and the
-    hot-path source pass."""
+    """planlint on the five SharedDB paths (``planlint_path``; on the
+    sharded one the collective rules too) and the hot-path source
+    pass."""
     from repro_torch.analysis_static import errors_in, source_passes
-    for path in ("dense", "indexless", "fold", "chained"):
+    for path in ("dense", "indexless", "fold", "chained", "sharded"):
         planlint_path(path, kept[path], card,
                       fold if path == "fold" else None)
     errs = errors_in(source_passes.lint_hot_path_asserts())
@@ -1399,7 +1738,7 @@ def planlint_phase(kept, fold, card):
           f"{len(source_passes.HOT_PATH_MODULES)} hot-path modules")
 
 
-# ------------------------------------------------------- 4d. LM serving
+# ------------------------------------------------------- 4e. LM serving
 # (arch, depth cut or None, capacity, max_seq, prefill_len, requests,
 #  prompt lengths [lo, hi], new tokens)
 LM_PATHS = {
@@ -2181,7 +2520,9 @@ def main():
         return out
 
     fold_rec, chained_rec = Recorder({"join_block"}), Recorder()
-    kept = {p: {} for p in ("dense", "indexless", "fold", "chained")}
+    sharded_rec = Recorder()
+    kept = {p: {} for p in ("dense", "indexless", "fold", "chained",
+                            "sharded")}
     log = run_path("dense", lambda: drive(True, dev, si, sc, "auto",
                                           keep=kept["dense"]))
     log += run_path("indexless", lambda: drive(False, dev, si, sc, "auto",
@@ -2192,6 +2533,13 @@ def main():
     log += run_path("chained",
                     lambda: chained_path(dev, si, sc, fold, chained_rec,
                                          kept["chained"]))
+    t0 = time.perf_counter()
+    sharded = run_path("sharded",
+                       lambda: sharded_path(dev, si, sc, sharded_rec,
+                                            kept["sharded"]))
+    print(f"sharded path: {time.perf_counter() - t0:.1f} s")
+    sharded_kernel_check(sharded_rec.calls)
+    log += sharded["log"]
     planlint_phase(kept, fold, smi[0])
     del kept
     torch.cuda.empty_cache()
@@ -2208,6 +2556,7 @@ def main():
             f"steady beat, {path}",
             [e for e in log if e["path"] == path and e["beat"]
              and not e["fold_in_flight"] and not e.get("migration")])
+    print_sharded_summary(sharded)
     for summary in lm_summaries:
         print_lm_summary(summary, log)
     building = [e["wall_ms"] for e in fold["log"]

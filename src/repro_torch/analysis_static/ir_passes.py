@@ -8,9 +8,9 @@ runs ``run_construction_passes`` on every generation it lowers (cold
 start AND every background fold build), before any buffer is allocated
 or any graph captured, and ``folding.extend_plan`` / ``begin_fold`` /
 ``lowering.check_extension_prefix`` route fold admission through the
-``lint_fold_*`` passes.  Pure Python over the host IR: nothing here
-touches a device.  ``lint_fold_mirrors`` (``fold-mirror-set``) comes
-with the sharded engine.
+``lint_fold_*`` passes; ``sharding.check_fold_mirrors`` (a fold under a
+mesh) through ``lint_fold_mirrors``.  Pure Python over the host IR:
+nothing here touches a device.
 """
 from __future__ import annotations
 
@@ -376,3 +376,22 @@ def lint_extension_prefix(old, new) -> List[LintFinding]:
             [r.spine for r in old.routes]:
         bad("route stage order changed")
     return out
+
+
+@register_pass("fold-mirrors", "fold", (R.FOLD_MIRROR_SET,),
+               "mesh folds keep the mirrored table set fixed")
+def lint_fold_mirrors(old_plan, new_plan) -> List[LintFinding]:
+    """A fold under a mesh must keep the sharded STATE layout fixed:
+    the mirrored (replicated probe side) table set is decided by join
+    membership, and flipping a table would demand a cross-shard state
+    migration mid-serve."""
+    old_m = {j.pk_table for j in old_plan.joins}
+    new_m = {j.pk_table for j in new_plan.joins}
+    if old_m != new_m:
+        return [LintFinding(
+            R.FOLD_MIRROR_SET,
+            "fold under a mesh would change the mirrored table set "
+            f"({sorted(old_m ^ new_m)}) — the sharded state layout is "
+            "fixed at startup; register templates whose joins target "
+            "already-mirrored PK tables, or restart to re-shard")]
+    return []

@@ -4,6 +4,7 @@
     python -m repro_torch.analysis_static.lint                # on the card
     python -m repro_torch.analysis_static.lint --rules        # rule table
     python -m repro_torch.analysis_static.lint --backends torch,hopper
+    python -m repro_torch.analysis_static.lint --device cpu --shards 1,2,4
 
 Sweeps workload plans x operator backends on one device and runs every
 pass family against the REAL lowered plan, the REAL engine built from it
@@ -12,9 +13,12 @@ pass family against the REAL lowered plan, the REAL engine built from it
 passes, and the trace passes over one recorded body of each cycle
 flavour (on the ``torch`` backend, whatever the engine's: a hand-written
 kernel's body is opaque to the recorder).  ``hopper`` needs the card.
-Sharded cells wait for the sharded engine: ``--shards`` other than 0
-raises.  Like every entry point of the port it runs on the CUDA card
-unless ``--device cpu`` asks for the CPU.  Exit status 1 iff any
+``--shards N`` (N > 0) adds sharded cells: the engine runs on a row mesh
+of ``--device`` repeated N times, the kernel passes hold one shard's
+fused_delta geometry, and the trace passes add the collective rules
+(``jaxpr-delta-collective``, ``jaxpr-reseed-collective``) on the
+recorded bodies.  Like every entry point of the port it runs on the CUDA
+card unless ``--device cpu`` asks for the CPU.  Exit status 1 iff any
 error-severity finding survives.
 """
 from __future__ import annotations
@@ -51,23 +55,23 @@ def _build_plan(workload: str, scale_i: int, scale_c: int):
 def lint_config(workload: str, backend_name: str, n_shards: int,
                 scale_i: int, scale_c: int, device=None
                 ) -> List[LintFinding]:
-    """All pass families against one (workload, backend) cell."""
+    """All pass families against one (workload, backend, shards) cell
+    (``n_shards`` 0: the single-device engine)."""
     from repro_torch import kernels as K
+    from repro_torch.core import sharding
     from repro_torch.core.device import resolve_device
     from repro_torch.core.executor import SharedDBEngine, _measure_key_stats
     from repro_torch.core.lowering import lower_plan
     from repro_torch.workloads import tpcw
 
-    if n_shards:
-        raise ValueError(
-            f"--shards {n_shards}: the port runs on one device; sharded "
-            "lint cells (jaxpr-delta-collective, jaxpr-reseed-collective, "
-            "fold-mirror-set) wait for the sharded engine")
+    if n_shards < 0:
+        raise ValueError(f"--shards {n_shards}: a shard count is >= 0")
     dev = resolve_device(device)
     if backend_name == "hopper" and dev.type != "cuda":
         raise ValueError("backend 'hopper' needs the CUDA card; on the CPU "
                          "its wrappers run the plain versions")
-    cfg = f"{workload}/{backend_name}"
+    cfg = f"{workload}/{backend_name}" + \
+        (f"/shards={n_shards}" if n_shards else "")
     plan, data = _build_plan(workload, scale_i, scale_c)
     key_stats = _measure_key_stats(plan, data)
     lowered = lower_plan(plan, key_stats=key_stats)
@@ -79,9 +83,15 @@ def lint_config(workload: str, backend_name: str, n_shards: int,
     if errors_in(findings):
         return findings         # the engine's construction gate refuses it
 
+    mesh = spec = None
+    if n_shards:
+        mesh = sharding.make_row_mesh(n_shards, [dev] * n_shards)
+        spec = sharding.build_shard_spec(plan, mesh)
+
     # ---- kernel family: the descriptor launch_schedule builds (and
-    # caches) on the device
-    geom = kernel_passes.geometry_from_lowered(lowered)
+    # caches) on the device, for one shard's fused call under a mesh
+    geom = kernel_passes.geometry_from_lowered(lowered) if spec is None \
+        else sharding.fused_geometry(lowered, spec)
     if geom.sgeom or geom.jgeom:
         desc, n_block = kernel_passes.launch_descriptor(geom, dev)
         sms = K.sm_count(dev) if dev.type == "cuda" else H100_SMS
@@ -90,7 +100,8 @@ def lint_config(workload: str, backend_name: str, n_shards: int,
 
     # ---- the engine (construction gate included) and its beats
     eng = SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
-                         kernels=backend_name, device=dev, jit=False)
+                         kernels=backend_name, device=dev, jit=False,
+                         mesh=mesh)
     findings += trace_passes.run_trace_passes(eng, location=cfg)
     return findings
 
@@ -113,8 +124,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backends", default="torch",
                     help="comma list from: torch, hopper (the card only)")
     ap.add_argument("--shards", default="0",
-                    help="0 = unsharded (the only cell until the sharded "
-                         "engine)")
+                    help="comma list of shard counts; 0 = unsharded, N > 0 "
+                         "= a row mesh of --device repeated N times")
     ap.add_argument("--scale-items", type=int, default=64)
     ap.add_argument("--scale-customers", type=int, default=128)
     ap.add_argument("--device", default=None,
@@ -139,7 +150,8 @@ def main(argv=None) -> int:
         errs = errors_in(findings)
         rest = [f for f in findings if f.severity != "error"]
         tag = "FAIL" if errs else "ok"
-        print(f"[{tag:>4}] {w}/{b} — {len(errs)} error(s), "
+        cell = f"{w}/{b}" + (f"/shards={s}" if s else "")
+        print(f"[{tag:>4}] {cell} — {len(errs)} error(s), "
               f"{len(rest)} note(s)")
         all_findings += findings
 

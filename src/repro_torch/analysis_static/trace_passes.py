@@ -29,9 +29,19 @@ ctypes), so under ``hopper`` the recorder would see no compare inside
     reads (the previous slot's in-flight results) nor anything of
     another slot; and the cycle arguments a body writes in place are
     exactly ``executor.DONATION_SPEC``'s (``lint_donation``).
+  * ``jaxpr-delta-collective`` — on a sharded engine (``mesh=``) a delta
+    or delta_join beat records no collective op (``all_gather_rows`` or
+    a ``torch.distributed`` one), and each shard's ops touch only that
+    shard's storages: its state, carry, rids, results and staged copy,
+    its constants and what its own ops made (``lint_shard_locality``).
+    Shards that share a card could otherwise read each other with a
+    plain index op, so this is the torch meaning of "shard-local".
+  * ``jaxpr-reseed-collective`` — a reseed records exactly one
+    ``all_gather_rows`` per mirrored predicated stage, over per-shard
+    operands of ``[Ts_mirror, w]``, and no read across shards besides.
 
-``jaxpr-delta-collective`` and ``jaxpr-reseed-collective`` need the
-sharded engine and have no pass here yet.
+Under a mesh the width sets take the ``ShardSpec``'s padded and
+per-shard row counts too, as the reference's do.
 """
 from __future__ import annotations
 
@@ -44,8 +54,15 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.analysis_static.diagnostics import LintFinding
 from repro_torch.analysis_static import registry as R
 from repro_torch.analysis_static.registry import register_pass
+from repro_torch.core.sharding import current_shard
 
 COMPARES = ("ge", "le", "eq")
+#: Ops that move data between shards, by dispatch name (trailing
+#: underscores stripped): the port's one collective and the c10d ones.
+COLLECTIVES = ("all_gather_rows", "all_gather_into_tensor", "all_reduce",
+               "reduce_scatter_tensor", "all_to_all_single", "broadcast",
+               "allgather", "allreduce", "reduce_scatter", "alltoall",
+               "_allgather_base", "_reduce_scatter_base", "send", "recv")
 
 
 def _tensors(x):
@@ -64,14 +81,24 @@ def storage_key(t: torch.Tensor) -> Tuple[int, int]:
 
 class OpRecorder(TorchDispatchMode):
     """Records, per ATen op run inside it: the output shape of every
-    ``ge`` / ``le`` / ``eq`` (``compares``, (op, shape) pairs) and the
+    ``ge`` / ``le`` / ``eq`` (``compares``, (op, shape) pairs), the
     storage of every argument the op's schema marks as written
-    (``written``: the in-place and ``out=`` ops)."""
+    (``written``: the in-place and ``out=`` ops) and every collective op
+    with its operands' shapes (``collectives``).
 
-    def __init__(self):
+    ``shards=True`` also records, for each op run inside a
+    ``sharding.shard_scope``, its shard and the storages of all its
+    tensor arguments and outputs (``shard_ops``); it then holds every
+    tensor it saw until it is dropped, so no storage is freed and its
+    address reused by another shard's temporary within one recording."""
+
+    def __init__(self, shards: bool = False):
         super().__init__()
         self.compares: List[Tuple[str, Tuple[int, ...]]] = []
         self.written: Set[Tuple[int, int]] = set()
+        self.collectives: List[Tuple[str, Tuple[Tuple[int, ...], ...]]] = []
+        self.shard_ops: List[Tuple[str, int, Set[Tuple[int, int]]]] = []
+        self._held: Optional[list] = [] if shards else None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -79,6 +106,17 @@ class OpRecorder(TorchDispatchMode):
         name = func.overloadpacket.__name__.rstrip("_")
         if name in COMPARES and isinstance(out, torch.Tensor):
             self.compares.append((name, tuple(out.shape)))
+        if name in COLLECTIVES:
+            self.collectives.append((name, tuple(
+                tuple(t.shape) for t in _tensors(args))))
+        if self._held is not None:
+            seen = [t for t in _tensors((args, tuple(kwargs.values()), out))
+                    if t.numel()]
+            self._held.extend(seen)
+            shard = current_shard()
+            if shard is not None:
+                self.shard_ops.append(
+                    (name, shard, {storage_key(t) for t in seen}))
         for i, a in enumerate(func._schema.arguments):
             if a.alias_info is None or not a.alias_info.is_write:
                 continue
@@ -91,11 +129,19 @@ class OpRecorder(TorchDispatchMode):
 
 @dataclasses.dataclass
 class BeatRecord:
-    """One recorded body: its compares, and which of the body's buffers
-    it wrote in place (labels from ``_buffer_labels``)."""
+    """One recorded body: its compares, which of the body's buffers it
+    wrote in place (labels from ``_buffer_labels``), its collectives and,
+    on a sharded engine, its shard-scoped ops and the storages each
+    shard owns from the start (``_shard_owners``)."""
     flavour: str
     compares: List[Tuple[str, Tuple[int, ...]]]
     wrote: Set[str]
+    collectives: List[Tuple[str, Tuple[Tuple[int, ...], ...]]] = \
+        dataclasses.field(default_factory=list)
+    shard_ops: List[Tuple[str, int, Set[Tuple[int, int]]]] = \
+        dataclasses.field(default_factory=list)
+    owners: Dict[Tuple[int, int], int] = dataclasses.field(
+        default_factory=dict)
 
 
 def _leaves(tree):
@@ -154,14 +200,34 @@ def _buffer_labels(buf, staging, slot: int) -> Dict[Tuple[int, int], str]:
     return labels
 
 
+def _shard_owners(buf, staging, slot: int, n_shards: int
+                  ) -> Dict[Tuple[int, int], int]:
+    """Storage -> shard, for the per-shard buffers one body of slot
+    ``slot`` sees: each shard's state, carry, rid carry read, results
+    written and staged admission copy."""
+    n = len(buf.results)
+    owners = {}
+    for i in range(n_shards):
+        for tree in (buf.state[i], buf.carry[i],
+                     buf.results[(slot - 1) % n]["_join_rids"][i],
+                     buf.results[slot]["_join_rids"][i],
+                     buf.results[slot]["_shard"][i], staging[slot].staged[i]):
+            for t in _leaves(tree):
+                if t.numel():
+                    owners[storage_key(t)] = i
+    return owners
+
+
 def record_beats(eng) -> Dict[str, BeatRecord]:
     """One body of each flavour of ``eng``'s installed generation, run
     in order (full seeds the carry the delta flavours read) on clones of
     its state, carry and results, with its cycles rebuilt on the
-    ``torch`` backend; slot 1's staged admission in, slot 0's rids read.
-    Nothing of the engine changes and no kernel launches.  Raises on an
-    engine with one pipeline slot."""
+    ``torch`` backend (the sharded flavours on a mesh engine); slot 1's
+    staged admission in, slot 0's rids read.  Nothing of the engine
+    changes and no kernel launches.  Raises on an engine with one
+    pipeline slot."""
     from repro_torch import kernels as K
+    from repro_torch.core import sharding
     from repro_torch.core.backends import get_backend
     from repro_torch.core.executor import FLAVOURS, _BeatBuffers
     from repro_torch.core.graphs import clone_tree
@@ -169,24 +235,34 @@ def record_beats(eng) -> Dict[str, BeatRecord]:
     h = eng._gen
     if len(h.results) < 2:
         raise ValueError("record_beats needs two pipeline slots or more")
-    be, dev = get_backend("torch"), eng.device
-    cycles = {"full": build_cycle(h.lowered, be, dev),
-              "delta": build_delta_cycle(h.lowered, be, device=dev),
-              "delta_join": build_delta_cycle(h.lowered, be,
-                                              delta_joins=True, device=dev)}
+    be, dev, spec = get_backend("torch"), eng.device, h.spec
+    if spec is None:
+        cycles = {"full": build_cycle(h.lowered, be, dev),
+                  "delta": build_delta_cycle(h.lowered, be, device=dev),
+                  "delta_join": build_delta_cycle(
+                      h.lowered, be, delta_joins=True, device=dev)}
+    else:
+        cycles = {"full": sharding.build_sharded_cycle(h.lowered, be, spec),
+                  "delta": sharding.build_sharded_delta_cycle(
+                      h.lowered, be, spec),
+                  "delta_join": sharding.build_sharded_delta_cycle(
+                      h.lowered, be, spec, delta_joins=True)}
     twin = dataclasses.replace(h, cycles=cycles, graphs={})
     buf = _BeatBuffers(clone_tree(eng.state), clone_tree(h.carry),
                        [clone_tree(r) for r in h.results])
     slot = 1
     labels = _buffer_labels(buf, h.staging, slot)
+    owners = {} if spec is None else \
+        _shard_owners(buf, h.staging, slot, spec.n_shards)
     out = {}
     with K.recording():
         for f in FLAVOURS:
-            with OpRecorder() as rec:
+            with OpRecorder(shards=spec is not None) as rec:
                 eng._body(twin, buf, f, slot)
             out[f] = BeatRecord(f, rec.compares,
                                 {labels[k] for k in rec.written
-                                 if k in labels})
+                                 if k in labels},
+                                rec.collectives, rec.shard_ops, owners)
     return out
 
 
@@ -195,10 +271,23 @@ def record_beats(eng) -> Dict[str, BeatRecord]:
 # ---------------------------------------------------------------------------
 
 
-def _width_shape_sets(lowered) -> Tuple[Dict[Tuple[int, int], str],
-                                        Set[Tuple[int, int]]]:
+def _row_candidates(lowered, table: str, spec=None) -> Set[int]:
+    """Row extents a compare over ``table`` could legitimately carry:
+    the schema capacity and, under a mesh, the padded and per-shard
+    extents."""
+    cap = lowered.plan.catalog.schemas[table].capacity
+    cands = {cap}
+    if spec is not None:
+        cands.add(spec.padded.get(table, cap))
+        cands.add(spec.shard_rows.get(table, cap))
+    return cands
+
+
+def _width_shape_sets(lowered, spec=None
+                      ) -> Tuple[Dict[Tuple[int, int], str],
+                                 Set[Tuple[int, int]]]:
     """(forbidden shapes -> stage location, legitimate shapes), the
-    reference's split on one device.
+    reference's split (``spec``: a mesh's row counts too).
 
     Forbidden: a range compare at (table rows, FULL stage q_window) for
     any stage whose pane is narrower than its window — the full-rescan
@@ -209,19 +298,20 @@ def _width_shape_sets(lowered) -> Tuple[Dict[Tuple[int, int], str],
     for st in lowered.scans:
         if not st.cols:
             continue
-        legit.add((cat.schemas[st.table].capacity, 32 * st.delta_words))
+        for rows in _row_candidates(lowered, st.table, spec):
+            legit.add((rows, 32 * st.delta_words))
         legit.add((cat.schemas[st.table].dirty_cap, st.q_window))
         legit.add((1, st.q_window))
     forbidden: Dict[Tuple[int, int], str] = {}
     for st in lowered.scans:
         if not st.cols or 32 * st.delta_words >= st.q_window:
             continue                          # pane IS the window: exempt
-        forbidden[(cat.schemas[st.table].capacity, st.q_window)] = \
-            f"scan[{st.table}]"
+        for rows in _row_candidates(lowered, st.table, spec):
+            forbidden[(rows, st.q_window)] = f"scan[{st.table}]"
     return forbidden, legit
 
 
-def _probe_shape_sets(lowered, update_slots=None
+def _probe_shape_sets(lowered, update_slots=None, spec=None
                       ) -> Tuple[Dict[Tuple[int, int], str],
                                  Set[Tuple[int, int]]]:
     """Same split for join probes on the delta-join path: a full-probe
@@ -235,18 +325,20 @@ def _probe_shape_sets(lowered, update_slots=None
     if update_slots is not None:
         for t, schema in cat.schemas.items():
             if schema.pk and not schema.indexed:
-                legit.add((update_slots.n_update, schema.capacity))
-                legit.add((update_slots.n_delete, schema.capacity))
+                for rows in _row_candidates(lowered, t, spec):
+                    legit.add((update_slots.n_update, rows))
+                    legit.add((update_slots.n_delete, rows))
     for j in lowered.joins:
         if j.kind == "gather":
             continue
-        spine_rows = cat.schemas[j.spine].capacity
         dirty = cat.schemas[j.spine].dirty_cap
-        w = j.bucket_cap if j.kind == "partitioned" \
-            else cat.schemas[j.pk_table].capacity
-        legit.add((dirty, w))
-        legit.add((1, w))
-        forbidden[(spine_rows, w)] = f"join[{j.spine}->{j.pk_table}]"
+        widths = {j.bucket_cap} if j.kind == "partitioned" \
+            else _row_candidates(lowered, j.pk_table, spec)
+        for w in widths:
+            legit.add((dirty, w))
+            legit.add((1, w))
+            for rows in _row_candidates(lowered, j.spine, spec):
+                forbidden[(rows, w)] = f"join[{j.spine}->{j.pk_table}]"
     return forbidden, legit
 
 
@@ -254,15 +346,16 @@ def _probe_shape_sets(lowered, update_slots=None
                "no full-window compare/probe recorded on the delta path")
 def lint_delta_width(compares: Sequence[Tuple[str, Tuple[int, ...]]],
                      lowered, *, delta_joins: bool = False,
-                     update_slots=None,
+                     update_slots=None, spec=None,
                      location: str = "delta") -> List[LintFinding]:
     """No full-window range compare (and, on the delta-join flavour, no
-    full-spine probe) among a delta beat's recorded ``compares``."""
+    full-spine probe) among a delta beat's recorded ``compares``
+    (``spec``: a mesh's padded and per-shard row counts as well)."""
     out = []
-    forbidden, legit = _width_shape_sets(lowered)
+    forbidden, legit = _width_shape_sets(lowered, spec)
     prims = {"ge", "le"}
     if delta_joins:
-        pf, pl_ = _probe_shape_sets(lowered, update_slots)
+        pf, pl_ = _probe_shape_sets(lowered, update_slots, spec)
         for shape, loc in pf.items():
             forbidden.setdefault(shape, loc)
         legit |= pl_
@@ -288,6 +381,90 @@ def lint_delta_width(compares: Sequence[Tuple[str, Tuple[int, ...]]],
 
 
 # ---------------------------------------------------------------------------
+# Collectives and shard locality (a sharded engine's beats)
+# ---------------------------------------------------------------------------
+
+
+def lint_shard_locality(record: BeatRecord, rule: str,
+                        location: str = "") -> List[LintFinding]:
+    """Each shard's ops touch only that shard's storages: the per-shard
+    buffers ``record.owners`` names, and every other storage belongs to
+    the first shard whose op touched it (its constants, its temporaries,
+    its half of a collective's outputs).  A storage two shards touch is
+    a read across shards outside the collective."""
+    owner = dict(record.owners)
+    crossings: Dict[Tuple[str, int, int], int] = {}
+    for name, shard, keys in record.shard_ops:
+        for k in keys:
+            o = owner.setdefault(k, shard)
+            if o != shard:
+                crossings[(name, shard, o)] = \
+                    crossings.get((name, shard, o), 0) + 1
+    return [LintFinding(
+        rule, f"shard {i}'s {name} touches shard {j}'s storage ({n} "
+        "time(s)): a read across shards outside the collective",
+        location=location) for (name, i, j), n in sorted(crossings.items())]
+
+
+@register_pass("delta-collectives", "jaxpr", (R.JAXPR_DELTA_COLLECTIVE,),
+               "delta beats: no collective, each shard on its own storage")
+def lint_delta_collectives(record: BeatRecord,
+                           location: str = "delta") -> List[LintFinding]:
+    """A recorded delta or delta_join body of a sharded engine holds no
+    collective op, and each shard's ops stay on that shard's storages."""
+    out = []
+    hits = sorted({name for name, _ in record.collectives})
+    if hits:
+        out.append(LintFinding(
+            R.JAXPR_DELTA_COLLECTIVE,
+            f"collective ops on the delta path: {hits} — delta beats must "
+            "be shard-local", location=location))
+    return out + lint_shard_locality(record, R.JAXPR_DELTA_COLLECTIVE,
+                                     location)
+
+
+@register_pass("reseed-collectives", "jaxpr", (R.JAXPR_RESEED_COLLECTIVE,),
+               "reseed = one all_gather per mirrored predicated stage")
+def lint_reseed_collectives(record: BeatRecord, lowered, spec,
+                            location: str = "full") -> List[LintFinding]:
+    """The recorded full / reseed body's only collective is one
+    ``all_gather_rows`` per mirrored predicated scan stage, each over the
+    shards' ``[Ts, w]`` slices of that stage — the rescan touched every
+    shard once before re-assembly — and no shard reads another's storage
+    besides."""
+    out = []
+    names = {name for name, _ in record.collectives}
+    mi_pred = [st for st in lowered.scans
+               if spec.is_mirrored(st.table) and st.cols]
+    if names - {"all_gather_rows"}:
+        out.append(LintFinding(
+            R.JAXPR_RESEED_COLLECTIVE,
+            f"unexpected collectives on the reseed path: "
+            f"{sorted(names - {'all_gather_rows'})}", location=location))
+    gathers = [shapes for name, shapes in record.collectives
+               if name == "all_gather_rows"]
+    if len(gathers) != len(mi_pred):
+        out.append(LintFinding(
+            R.JAXPR_RESEED_COLLECTIVE,
+            f"{len(gathers)} all_gathers != {len(mi_pred)} mirrored "
+            "predicated scan stages", location=location))
+    else:
+        got = sorted((shapes[0] if len(set(shapes)) == 1
+                      and len(shapes) == spec.n_shards else shapes
+                      for shapes in gathers), key=repr)
+        want = sorted(((spec.shard_rows[st.table], st.whi - st.wlo)
+                       for st in mi_pred), key=repr)
+        if got != want:
+            out.append(LintFinding(
+                R.JAXPR_RESEED_COLLECTIVE,
+                f"all_gather operand shapes {got} != per-shard stage "
+                f"slices {want} on each of {spec.n_shards} shards",
+                location=location))
+    return out + lint_shard_locality(record, R.JAXPR_RESEED_COLLECTIVE,
+                                     location)
+
+
+# ---------------------------------------------------------------------------
 # Fixed buffers and the donation contract
 # ---------------------------------------------------------------------------
 
@@ -301,13 +478,29 @@ def lint_buffer_aliasing(handle, state,
     buffers and the state occupy pairwise disjoint storage, so an in-place
     write of one beat never reaches a buffer a slot in flight still
     reads; and there are two slots at least, so slot s's body never
-    reads the rids it writes."""
+    reads the rids it writes.  On a mesh generation every shard's leaves
+    are groups of their own (results, carry, staging, state per shard,
+    the merged results apart), so two shards never share storage."""
     out = []
-    groups = [(f"results[{s}]", r) for s, r in enumerate(handle.results)]
-    groups.append(("carry", handle.carry))
-    groups += [(f"staging[{s}]", b.staged)
-               for s, b in enumerate(handle.staging)]
-    groups.append(("state", state))
+    spec = getattr(handle, "spec", None)
+    if spec is None:
+        groups = [(f"results[{s}]", r) for s, r in enumerate(handle.results)]
+        groups.append(("carry", handle.carry))
+        groups += [(f"staging[{s}]", b.staged)
+                   for s, b in enumerate(handle.staging)]
+        groups.append(("state", state))
+    else:
+        groups = []
+        for s, r in enumerate(handle.results):
+            groups += [(f"results[{s}] shard {i}",
+                        (r["_join_rids"][i], r["_shard"][i]))
+                       for i in range(spec.n_shards)]
+            groups.append((f"results[{s}] merged", r["_merged"]))
+        for i in range(spec.n_shards):
+            groups.append((f"carry shard {i}", handle.carry[i]))
+            groups += [(f"staging[{s}] shard {i}", b.staged[i])
+                       for s, b in enumerate(handle.staging)]
+            groups.append((f"state shard {i}", state[i]))
     spans = []                  # (start, end, group)
     for label, tree in groups:
         for t in _leaves(tree):
@@ -389,14 +582,22 @@ def run_trace_passes(eng, location: str = "") -> List[LintFinding]:
     flavour (``record_beats``) and hold the delta flavours to the width
     classifier, the bodies to the donation spec, and the installed
     generation's buffers (with the engine's state) to disjoint
-    storage."""
+    storage; on a sharded engine also the delta flavours to no
+    collective and shard locality, and the reseed to its all_gathers."""
     recs = record_beats(eng)
-    lowered = eng._gen.lowered
-    return (lint_delta_width(recs["delta"].compares, lowered,
-                             location=f"{location} delta".strip())
-            + lint_delta_width(recs["delta_join"].compares, lowered,
-                               delta_joins=True,
-                               update_slots=eng.update_slots,
-                               location=f"{location} delta_join".strip())
-            + lint_donation(recs, location=location)
-            + lint_buffer_aliasing(eng._gen, eng.state, location=location))
+    lowered, spec = eng._gen.lowered, eng._gen.spec
+    out = (lint_delta_width(recs["delta"].compares, lowered, spec=spec,
+                            location=f"{location} delta".strip())
+           + lint_delta_width(recs["delta_join"].compares, lowered,
+                              delta_joins=True,
+                              update_slots=eng.update_slots, spec=spec,
+                              location=f"{location} delta_join".strip())
+           + lint_donation(recs, location=location)
+           + lint_buffer_aliasing(eng._gen, eng.state, location=location))
+    if spec is not None:
+        for f in ("delta", "delta_join"):
+            out += lint_delta_collectives(
+                recs[f], location=f"{location} {f}".strip())
+        out += lint_reseed_collectives(recs["full"], lowered, spec,
+                                       location=f"{location} full".strip())
+    return out

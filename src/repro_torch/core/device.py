@@ -25,9 +25,12 @@ def upload(a, device, dtype=None) -> torch.Tensor:
     To a CUDA card the copy goes through pinned memory and is enqueued
     asynchronously on the current stream, so the calling thread never
     waits for the card: cycles built on a background fold thread, while
-    the serving thread enqueues beats, make no synchronising copy."""
+    the serving thread enqueues beats, make no synchronising copy.  The
+    tensor is always a copy of its own, on the CPU too (it never shares
+    the array's memory): each shard of a row mesh holds its own
+    constants."""
     t = torch.as_tensor(np.asarray(a), dtype=dtype)
     device = torch.device(device)
     if device.type != "cuda":
-        return t.to(device)
+        return t.to(device, copy=True)
     return t.pin_memory().to(device, non_blocking=True)

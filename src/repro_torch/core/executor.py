@@ -47,6 +47,13 @@ captures) the cycles of an extended plan on a background thread while
 the installed ones keep serving; the next dispatch() after the build
 lands drains the in-flight beats, installs the new generation, migrates
 the carries into its buffers and forces one full-rescan beat.
+
+Under a row mesh (``mesh=``, core/sharding.py) the same lowered plan runs
+sharded by spine-row range: state, carries, rids and the staged admission
+hold one tree per shard, each beat runs the S shard bodies (and, in a
+reseed, one all_gather per mirrored predicated stage) and then the
+cross-shard merge, all in the one captured graph when every shard is on
+one card; ``collect`` assembles the merged results.
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ from repro_torch.analysis_static.ir_passes import run_construction_passes
 from repro_torch.analysis_static.registry import FOLD_IN_FLIGHT
 from repro_torch.core import folding
 from repro_torch.core import graphs as cg
+from repro_torch.core import sharding
 from repro_torch.core.backends import counting_backend, resolve_backend
 from repro_torch.core.device import resolve_device
 from repro_torch.core.lowering import (PARTITIONED_MIN_CAPACITY, build_cycle,
@@ -142,10 +150,14 @@ class _StagingBuffers:
     then two asynchronous copies into the slot's two fixed device
     buffers, whatever the template and table counts; ``staged`` is the
     device tree, views into those two buffers, the same every beat.
+
+    ``copies`` (a row mesh's shard devices) gives every shard device
+    buffers of its own, filled by the same two copies each: ``staged`` is
+    then a tuple of one tree per shard.
     """
 
     def __init__(self, plan: CompiledPlan, slots: UpdateSlots,
-                 device: torch.device):
+                 device: torch.device, copies=None):
         self.device = device
         layout = {
             "params": np.zeros((plan.qcap, plan.n_params_max, 2), np.int32),
@@ -172,10 +184,11 @@ class _StagingBuffers:
         self._i32 = torch.zeros(size[False], dtype=torch.int32,
                                 pin_memory=pin)
         self._u8 = torch.zeros(size[True], dtype=torch.uint8, pin_memory=pin)
-        self._dev_i32 = torch.empty_like(self._i32, device=device)
-        self._dev_u8 = torch.empty_like(self._u8, device=device)
+        devices = (device,) if copies is None else tuple(copies)
+        self._dev = [(torch.empty_like(self._i32, device=d),
+                      torch.empty_like(self._u8, device=d)) for d in devices]
         i32, u8 = self._i32.numpy(), self._u8.numpy().view(np.bool_)
-        views, self.staged = {}, {}
+        views, staged = {}, [{} for _ in devices]
         for path, b, off, n, shape in self._fields:
             src = layout
             for k in path:
@@ -183,9 +196,11 @@ class _StagingBuffers:
             view = (u8 if b else i32)[off:off + n].reshape(shape)
             view[...] = src
             self._put(views, path, view)
-            leaf = self._dev_u8[off:off + n].view(torch.bool) if b \
-                else self._dev_i32[off:off + n]
-            self._put(self.staged, path, leaf.view(shape))
+            for tree, (d_i32, d_u8) in zip(staged, self._dev):
+                leaf = d_u8[off:off + n].view(torch.bool) if b \
+                    else d_i32[off:off + n]
+                self._put(tree, path, leaf.view(shape))
+        self.staged = staged[0] if copies is None else tuple(staged)
         self.params = views["params"]
         self.active = views["active"]
         self.changed = views["changed"]
@@ -205,10 +220,12 @@ class _StagingBuffers:
                 b[field][:] = fill
 
     def stage(self) -> None:
-        """Enqueue the admission's two copies into ``staged``."""
-        cuda = self.device.type == "cuda"
-        self._dev_i32.copy_(self._i32, non_blocking=cuda)
-        self._dev_u8.copy_(self._u8, non_blocking=cuda)
+        """Enqueue the admission's two copies into ``staged`` (into every
+        shard's)."""
+        for d_i32, d_u8 in self._dev:
+            cuda = d_i32.device.type == "cuda"
+            d_i32.copy_(self._i32, non_blocking=cuda)
+            d_u8.copy_(self._u8, non_blocking=cuda)
 
 
 @dataclasses.dataclass
@@ -288,6 +305,11 @@ class _CompiledHandle:
     ready: Any = None            # CUDA event behind the build's work on
     #                              its side stream (None on the CPU)
     gate_s: float = 0.0          # the construction gate's host seconds
+    # under a row mesh: the layout, the device merge enqueued behind each
+    # beat and the host epilogue of collect (core/sharding.build_merge)
+    spec: Optional[sharding.ShardSpec] = None
+    merge: Any = None
+    assemble: Any = None
 
 
 @dataclasses.dataclass
@@ -312,6 +334,7 @@ class _InFlight:
     admitted: Dict[str, List[Ticket]]
     results: Any
     done: Any = None            # CUDA event recorded behind the cycle
+    assemble: Any = None        # a mesh generation's collect epilogue
     n_admitted: int = 0
     n_dirty: int = 0
     scan_path: str = "full"
@@ -324,13 +347,14 @@ class _InFlight:
 
 
 class SharedDBEngine:
-    """The always-on global plan + admission queues, on one device."""
+    """The always-on global plan + admission queues, on one device or
+    sharded over a row mesh."""
 
     def __init__(self, plan: CompiledPlan, update_slots: UpdateSlots,
                  initial_data: Dict[str, Dict[str, np.ndarray]],
                  kernels: str = "auto", device=None,
                  pipeline_depth: int = 2, delta_scans: bool = True,
-                 delta_joins: bool = True, jit: bool = True):
+                 delta_joins: bool = True, jit: bool = True, mesh=None):
         """``device=None`` runs on the CUDA card and raises when there is
         none; ``device="cpu"`` runs the plain PyTorch path.  ``kernels``:
         "auto" (``hopper`` on a card of capability 9.0+, ``torch`` on the
@@ -341,7 +365,37 @@ class SharedDBEngine:
         every pipeline slot as a CUDA graph, once per plan generation,
         and every beat replays one; a capture that fails raises.
         ``jit=False``, and any engine on the CPU, runs the same body
-        eagerly.  ``graphed`` says which mode is in force."""
+        eagerly.  ``graphed`` says which mode is in force.
+
+        ``mesh``: an optional ``sharding.RowMesh`` (``make_row_mesh``) —
+        the always-on plan then runs SHARDED by spine-row range
+        (core/sharding.py): row-sharded spine tables and carries, mirrored
+        join probe sides, shard-local delta beats, all-shard reseed beats
+        and a device merge of the per-shard results enqueued behind each
+        beat (collect assembles).  The engine's ``device`` is then the
+        mesh's first (``device`` must be None or that one).  ``mesh=None``
+        is the single-device path, untouched; a 1-shard mesh is
+        bit-identical to it.  With ``jit=True`` a mesh whose shards all
+        sit on one card captures each whole sharded beat (the shard
+        bodies, the all_gather and the merge) as one graph; on distinct
+        CUDA devices it raises (graphs across devices are unverified).
+        A mesh the engine cannot run raises; nothing falls back to one
+        shard."""
+        self._mesh = mesh
+        if mesh is not None:
+            mesh_dev = mesh.devices[0]
+            if device is not None and \
+                    sharding._mesh_device(device) != mesh_dev:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh_dev}")
+            device = mesh_dev
+            if jit and mesh_dev.type == "cuda" and not mesh.one_device:
+                raise NotImplementedError(
+                    "jit=True on a mesh of distinct CUDA devices: graphs "
+                    "across devices are unverified; pass jit=False")
+            kinds = {d.type for d in mesh.devices}
+            if len(kinds) != 1:
+                raise ValueError(f"a mesh mixes device types {kinds}")
         self.device = resolve_device(device)
         self.graphed = bool(jit) and self.device.type == "cuda"
         self.plan = plan
@@ -358,7 +412,11 @@ class SharedDBEngine:
         self.delta_scans = delta_scans
         self.delta_joins = delta_joins
         self.pipeline_depth = max(1, pipeline_depth)
-        self.state = plan.catalog.init_state(initial_data, self.device)
+        if mesh is not None:
+            self.state = sharding.init_sharded_state(
+                sharding.build_shard_spec(plan, mesh), initial_data)
+        else:
+            self.state = plan.catalog.init_state(initial_data, self.device)
         # capture seconds, graph count and pool bytes of each generation
         self.capture_stats: List[Dict[str, Any]] = []
         # host seconds of the planlint construction gate, per generation
@@ -424,7 +482,12 @@ class SharedDBEngine:
         start and every fold build) right after lowering, before any
         buffer is allocated or any graph captured, and raise
         ``PlanLintError`` naming the rule.  The gate reads the host IR
-        only and never waits for the device."""
+        only and never waits for the device.
+
+        Under a mesh the flavours are the sharded ones
+        (``sharding.build_sharded_cycle`` / ``build_sharded_delta_cycle``)
+        with the generation's device merge and collect epilogue
+        (``sharding.build_merge``), built after the gate."""
         dev = self.device
         lowered = lower_plan(plan, key_stats=self._key_stats)
         t_gate = time.perf_counter()
@@ -433,6 +496,8 @@ class SharedDBEngine:
         backend_ops: Dict[str, Dict[str, int]] = {f: {} for f in FLAVOURS}
         cb = {f: counting_backend(self._backend, c)
               for f, c in backend_ops.items()}
+        spec = None if self._mesh is None else \
+            sharding.build_shard_spec(plan, self._mesh)
         h = _CompiledHandle(
             plan=plan, lowered=lowered, backend_ops=backend_ops,
             cycles={},
@@ -442,30 +507,46 @@ class SharedDBEngine:
             # the admission layout this generation's carries live under
             layout_token=(plan.qcap, plan.n_params_max,
                           tuple(sorted(plan.offsets.items())),
-                          tuple(sorted(plan.caps.items()))),
-            gate_s=gate_s)
+                          tuple(sorted(plan.caps.items())),
+                          spec.n_shards if spec else 0),
+            gate_s=gate_s, spec=spec)
         cuda = dev.type == "cuda"
         with (torch.cuda.stream(torch.cuda.Stream(dev)) if cuda
               else contextlib.nullcontext()):
-            h.cycles = {
-                f: _clear_counts_at_entry(c, backend_ops[f]) for f, c in (
+            if spec is None:
+                cycles = (
                     ("full", build_cycle(lowered, cb["full"], dev)),
                     ("delta", build_delta_cycle(lowered, cb["delta"],
                                                 device=dev)),
                     ("delta_join", build_delta_cycle(
                         lowered, cb["delta_join"], delta_joins=True,
-                        device=dev)))}
+                        device=dev)))
+            else:
+                cycles = (
+                    ("full", sharding.build_sharded_cycle(
+                        lowered, cb["full"], spec)),
+                    ("delta", sharding.build_sharded_delta_cycle(
+                        lowered, cb["delta"], spec)),
+                    ("delta_join", sharding.build_sharded_delta_cycle(
+                        lowered, cb["delta_join"], spec, delta_joins=True)))
+                h.merge, h.assemble = sharding.build_merge(lowered, spec)
+            h.cycles = {f: _clear_counts_at_entry(c, backend_ops[f])
+                        for f, c in cycles}
             n_slots = max(2, self.pipeline_depth)
-            h.staging = [_StagingBuffers(plan, self.update_slots, dev)
-                         for _ in range(n_slots)]
+            h.staging = [_StagingBuffers(
+                plan, self.update_slots, dev,
+                copies=None if spec is None else spec.devices)
+                for _ in range(n_slots)]
             # one throwaway full beat on an empty state: the shapes of the
             # carry and of a slot's results
             with _k.recording():
-                scratch = plan.catalog.init_state({}, dev)
+                scratch = plan.catalog.init_state({}, dev) if spec is None \
+                    else sharding.init_sharded_state(spec, {})
                 _, carry, results = self._cycle_out(
                     h, "full", scratch, None, None, h.staging[0].staged)
-            results["_delta_overflow"] = torch.zeros((), dtype=torch.int32,
-                                                     device=dev)
+            if spec is None:
+                results["_delta_overflow"] = torch.zeros(
+                    (), dtype=torch.int32, device=dev)
             h.carry = cg.empty_like_tree(carry)
             h.results = [cg.empty_like_tree(results) for _ in range(n_slots)]
             if self.graphed:
@@ -532,15 +613,25 @@ class SharedDBEngine:
                    staged):
         """One cycle of ``flavour`` on the given tensors: (state', carry',
         results), out of place except fused_delta's in-place carry."""
-        queries = {"params": staged["params"], "active": staged["active"]}
-        updates = staged["updates"]
+        keys = ("params", "active") if flavour == "full" \
+            else ("params", "active", "changed")
+        if h.spec is None:
+            queries = {k: staged[k] for k in keys}
+            updates = staged["updates"]
+        else:
+            queries = tuple({k: s[k] for k in keys} for s in staged)
+            updates = tuple(s["updates"] for s in staged)
         if flavour == "full":
-            return h.cycles["full"](state, queries, updates)
-        queries["changed"] = staged["changed"]
-        if flavour == "delta_join":
-            return h.cycles["delta_join"](state, carry, rids, queries,
-                                          updates)
-        return h.cycles["delta"](state, carry, queries, updates)
+            out = h.cycles["full"](state, queries, updates)
+        elif flavour == "delta_join":
+            out = h.cycles["delta_join"](state, carry, rids, queries,
+                                         updates)
+        else:
+            out = h.cycles["delta"](state, carry, queries, updates)
+        if h.spec is not None:
+            # the cross-shard merge, enqueued behind the shard bodies
+            out[2]["_merged"] = h.merge(out[2]["_shard"])
+        return out
 
     def _body(self, h: _CompiledHandle, buf: _BeatBuffers, flavour: str,
               slot: int) -> None:
@@ -551,7 +642,7 @@ class SharedDBEngine:
         state, carry, results = self._cycle_out(
             h, flavour, buf.state, buf.carry,
             buf.results[slot - 1]["_join_rids"], h.staging[slot].staged)
-        if "_delta_overflow" not in results:
+        if h.spec is None and "_delta_overflow" not in results:
             out["_delta_overflow"].zero_()
             results["_delta_overflow"] = out["_delta_overflow"]
         cg.copy_into(out, results)
@@ -590,6 +681,8 @@ class SharedDBEngine:
         new_templates = list(new_templates)
         new_plan = folding.extend_plan(self.plan, new_templates,
                                        dict(new_caps))
+        if self._mesh is not None:
+            sharding.check_fold_mirrors(self.plan, new_plan)
         for t in new_templates:
             self._queues.setdefault(t.name, collections.deque())
         fold = _PendingFold(plan=new_plan, t_begin=time.perf_counter())
@@ -675,16 +768,20 @@ class SharedDBEngine:
         prev_a[:old_plan.qcap] = self._prev_active
         self._prev_params, self._prev_active = prev_p, prev_a
         self._staging_idx = 0
-        carry, rids = folding.migrate_carry(
-            old_lowered, self._lowered, self._carry, self._rid_carry)
         h = self._gen
+        migrate = folding.migrate_carry if h.spec is None \
+            else sharding.migrate_carry
+        carry, rids = migrate(old_lowered, self._lowered, self._carry,
+                              self._rid_carry)
         self._carry = self._rid_carry = None
         if carry is not None:
             cg.copy_into(h.carry, carry)
             self._carry = h.carry
         if rids is not None:
             last = h.results[-1]["_join_rids"]
-            self._rid_carry = {k: last[k] for k in rids}
+            self._rid_carry = ({k: last[k] for k in rids} if h.spec is None
+                               else tuple({k: lr[k] for k in r}
+                                          for lr, r in zip(last, rids)))
             cg.copy_into(self._rid_carry, rids)
         for g in old.graphs.values():
             g.reset()
@@ -897,7 +994,7 @@ class SharedDBEngine:
         self._prev_params[...] = buf.params
         self._prev_active[...] = buf.active
         self._inflight.append(_InFlight(
-            admitted, results, done=done,
+            admitted, results, done=done, assemble=h.assemble,
             n_admitted=sum(len(ts) for ts in admitted.values()),
             n_dirty=sum(touches.values()),
             scan_path=self.last_scan_path,
@@ -946,6 +1043,8 @@ class SharedDBEngine:
         if flight.done is not None:
             flight.done.synchronize()
         t_ready = time.perf_counter()
+        if flight.assemble is not None:
+            results = flight.assemble(results)
         self.last_overflow = int(results["_overflow"])
         self.last_delta_overflow = int(results.get("_delta_overflow", 0))
         self.last_parts_rebuilt = {
@@ -1012,7 +1111,10 @@ class SharedDBEngine:
     # --------------------------------------------------- host-side fetch
     def snapshot(self, table: str) -> Dict[str, np.ndarray]:
         """Host copy of a table's columns/validity (the state is rolled
-        forward in place)."""
+        forward in place); under a mesh in row order at the ORIGINAL
+        (unpadded) capacity, whatever the layout."""
+        if self._gen.spec is not None:
+            return sharding.host_table(self._gen.spec, self.state, table)
         schema = self.plan.catalog.schemas[table]
         t = self.state[table]
         out = {c: t[c].to("cpu", copy=True).numpy() for c in schema.columns}
@@ -1028,7 +1130,7 @@ class SharedDBEngine:
         cols = cols or list(schema.columns)
         ids = np.asarray(row_ids)
         safe = np.clip(ids, 0, schema.capacity - 1)
-        out = {c: np.where(ids >= 0, self.state[table][c].cpu().numpy()[safe],
-                           0) for c in cols}
+        snap = self.snapshot(table)
+        out = {c: np.where(ids >= 0, snap[c][safe], 0) for c in cols}
         out["_row"] = ids
         return out

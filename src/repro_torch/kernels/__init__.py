@@ -20,10 +20,12 @@ Importing this package registers the ``hopper`` backend with
 ``LAUNCHES`` counts each wrapper's kernel launches (one per launch, and
 nowhere else), so a run can show that its main path went through the
 kernels; ``FLASH_ROUTE_LAUNCHES`` splits flash_attention's by kernel;
-``reset_launches()`` sets every count to 0.  Inside ``recording()`` a
-thread's launches count in a ``LaunchRecord`` instead: a CUDA graph's
-capture records what each of its replays launches, and the replay adds
-that record to the counts (``add_launches``).
+``COLLECTIVES`` counts a sharded beat's cross-shard collectives
+(``core/sharding.all_gather_rows``) the same way; ``reset_launches()``
+sets every count to 0.  Inside ``recording()`` a thread's launches count
+in a ``LaunchRecord`` instead: a CUDA graph's capture records what each
+of its replays launches, and the replay adds that record to the counts
+(``add_launches``).
 """
 from __future__ import annotations
 
@@ -57,6 +59,8 @@ LAUNCHES = {"clockscan": 0, "shared_groupby": 0, "partitioned_join": 0,
 # flash_attention's launches by route (flash_attention.route): which of its
 # two kernels ran
 FLASH_ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
+# a sharded beat's collectives by op (core/sharding.py)
+COLLECTIVES = {"all_gather_rows": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -64,7 +68,7 @@ _recording = threading.local()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTE_LAUNCHES):
+    for counts in (LAUNCHES, FLASH_ROUTE_LAUNCHES, COLLECTIVES):
         for k in counts:
             counts[k] = 0
 
@@ -76,6 +80,7 @@ class LaunchRecord:
     captured there replays those launches and reads those tensors."""
     launches: dict = dataclasses.field(default_factory=dict)
     routes: dict = dataclasses.field(default_factory=dict)
+    collectives: dict = dataclasses.field(default_factory=dict)
     held: list = dataclasses.field(default_factory=list)
 
 
@@ -104,10 +109,19 @@ def count_launch(name: str, route: str = None) -> None:
         routes[route] = routes.get(route, 0) + 1
 
 
+def count_collective(name: str) -> None:
+    """One collective ``name`` of a sharded beat, into the thread's record
+    if it has one."""
+    record = getattr(_recording, "record", None)
+    counts = COLLECTIVES if record is None else record.collectives
+    counts[name] = counts.get(name, 0) + 1
+
+
 def add_launches(record: LaunchRecord) -> None:
     """A replay of a graph captured with ``record``: its launches count."""
     for counts, extra in ((LAUNCHES, record.launches),
-                          (FLASH_ROUTE_LAUNCHES, record.routes)):
+                          (FLASH_ROUTE_LAUNCHES, record.routes),
+                          (COLLECTIVES, record.collectives)):
         for k, n in extra.items():
             counts[k] = counts.get(k, 0) + n
 

@@ -893,6 +893,126 @@ def test_planlint_on_the_card(cuda_device):
         geom, desc, n_block, sms=K.sm_count(dev))) == []
 
 
+# ------------------------------------------------- the sharded heartbeat
+# (updates) of each beat: a reseed, an item update (delta scans, full
+# join probes), then customer and cart updates (delta scans and joins)
+SHARDED_STREAM = (
+    [],
+    [("item", "update", {"key": 7, "col": "i_cost", "val": 1234})],
+    [("customer", "update", {"key": 3, "col": "c_expiration", "val": 900})],
+    [("customer", "update", {"key": 4, "col": "c_expiration", "val": 901}),
+     ("shopping_cart_line", "update", {"key": 2, "col": "scl_qty",
+                                       "val": 3})],
+    [("customer", "update", {"key": 5, "col": "c_expiration", "val": 902})])
+
+
+def _sharded_beats(engines):
+    """Drive every engine through SHARDED_STREAM; per beat and engine:
+    (tickets, paths, backend ops, kernel launches, collectives)."""
+    out = []
+    for ups in SHARDED_STREAM:
+        row = []
+        for e in engines:
+            for u in ups:
+                e.submit_update(*u)
+            tickets = [e.submit(n, {0: p}) for n, p in (
+                ("get_book", (5, 5)), ("get_cart", (12, 12)),
+                ("order_lines", (26, 26)), ("get_customer", (8, 8)))]
+            tickets.append(e.submit("best_sellers",
+                                    {0: (0, 2 ** 31 - 1), 1: (4, 4)}))
+            torch.cuda.synchronize()
+            before = dict(K.LAUNCHES)
+            gathers = K.COLLECTIVES["all_gather_rows"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                e.dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            e.collect()
+            row.append((tickets, (e.last_scan_path, e.last_join_path),
+                        e.last_collect_stats["backend_ops"],
+                        {k: n - before[k] for k, n in K.LAUNCHES.items()
+                         if n != before[k]},
+                        K.COLLECTIVES["all_gather_rows"] - gathers))
+        out.append(row)
+    return out
+
+
+def _sharded_engines(dev, meshes):
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.core.sharding import make_row_mesh
+    from repro_torch.workloads import tpcw
+    plan = tpcw.build_tpcw_plan(64, 128, dense_pk_index=False)
+    data = tpcw.generate_data(np.random.default_rng(0), 64, 128)
+    return [SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                           kernels="hopper", jit=jit,
+                           **({"device": dev} if n is None else
+                              {"mesh": make_row_mesh(n, [dev] * n)}))
+            for n, jit in meshes]
+
+
+@pytest.mark.cuda
+def test_sharded_mesh1_is_the_unsharded_engine_on_the_card(cuda_device):
+    """Graphed, one shard on the card: tickets bit for bit, paths,
+    backend ops, kernel launches and snapshots of the unsharded graphed
+    engine, every beat."""
+    base, s1 = _sharded_engines(cuda_device, [(None, True), (1, True)])
+    assert base.graphed and s1.graphed
+    for beat, (want, got) in enumerate(_sharded_beats([base, s1])):
+        assert got[1:4] == want[1:4], (beat, got[1:4], want[1:4])
+        for a, b in zip(got[0], want[0]):
+            for k, w in b.result.items():
+                assert a.result[k].dtype == w.dtype
+                assert np.array_equal(a.result[k], w), (beat, a.template, k)
+        for table in base.plan.catalog.schemas:
+            sa, sb = s1.snapshot(table), base.snapshot(table)
+            for k in sb:
+                assert np.array_equal(sa[k], sb[k]), (beat, table, k)
+
+
+@pytest.mark.cuda
+def test_sharded_graphed_equals_eager_and_unsharded(cuda_device):
+    """Two shards on the one card, graphed (one graph a flavour and slot:
+    both shard bodies, the all_gathers and the merge) against the
+    ``jit=False`` twin: tickets bit for bit, the same paths, backend ops,
+    launches and collectives (one all_gather per mirrored predicated
+    stage in the reseed, none in a delta beat); against the unsharded
+    engine: the same row sets and group scores.  The twin's recorded
+    bodies pass planlint's collective and locality rules on the card; a
+    graphed mesh over distinct devices raises."""
+    from repro_torch.analysis_static import errors_in, trace_passes
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.core.sharding import RowMesh
+
+    s2, eager, base = _sharded_engines(
+        cuda_device, [(2, True), (2, False), (None, True)])
+    assert s2.graphed and len(s2._gen.graphs) == 6 and not eager.graphed
+    spec = s2._gen.spec
+    n_mi = sum(1 for st in s2._lowered.scans
+               if spec.is_mirrored(st.table) and st.cols)
+    for beat, (g, e, u) in enumerate(_sharded_beats([s2, eager, base])):
+        assert g[1:] == e[1:], (beat, g[1:], e[1:])
+        assert g[1] == u[1], beat
+        assert g[4] == (n_mi if beat == 0 else 0), (beat, g[4])
+        for a, b in zip(g[0], e[0]):
+            for k, w in b.result.items():
+                assert np.array_equal(a.result[k], w), (beat, a.template, k)
+        for a, b in zip(g[0], u[0]):
+            if "rows" in b.result:
+                x, y = a.result["rows"], b.result["rows"]
+                assert set(x[x >= 0].tolist()) == \
+                    set(y[y >= 0].tolist()), beat
+            else:
+                assert np.allclose(np.sort(a.result["scores"], axis=-1),
+                                   np.sort(b.result["scores"], axis=-1),
+                                   rtol=1e-6)
+    assert errors_in(trace_passes.run_trace_passes(eager)) == []
+    two = RowMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
+    with pytest.raises(NotImplementedError, match="unverified"):
+        SharedDBEngine(s2.plan, s2.update_slots, {}, kernels="hopper",
+                       mesh=two)
+
+
 @pytest.mark.cuda
 def test_graphed_decode_equals_eager(cuda_device):
     """A bfloat16 smoke LM's CycleServer with the decode step captured

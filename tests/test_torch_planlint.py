@@ -141,7 +141,7 @@ def test_registry_holds_the_reference_rules():
         {k: r.family for k, r in rregistry.RULES.items()}
     assert len(registry.RULES) == 22
     for k in ("jaxpr-delta-collective", "jaxpr-reseed-collective",
-              "fold-mirror-set"):       # waiting for the sharded engine
+              "fold-mirror-set"):       # the sharded engine's rules
         assert dataclasses.astuple(registry.RULES[k]) == \
             dataclasses.astuple(rregistry.RULES[k])
 
@@ -372,8 +372,8 @@ def test_corpus_mutation_caught(ctx, name):
 
 
 def test_cli_exit_codes(monkeypatch, capsys):
-    """0 on both workloads, 1 on a corrupted plan; a sharded cell and
-    hopper on the CPU raise instead of skipping; --rules lists 22."""
+    """0 on both workloads, 1 on a corrupted plan; a negative shard count
+    and hopper on the CPU raise instead of skipping; --rules lists 22."""
     assert lint.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "[  ok] tpcw/torch" in out and "[  ok] tpcw-nopk/torch" in out
@@ -383,8 +383,8 @@ def test_cli_exit_codes(monkeypatch, capsys):
                             *real(*a)))
     assert lint.main(["--device", "cpu", "--workloads", "tpcw"]) == 1
     assert "ir-slot-overlap" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="sharded engine"):
-        lint.main(["--device", "cpu", "--shards", "2"])
+    with pytest.raises(ValueError, match="a shard count is >= 0"):
+        lint.main(["--device", "cpu", "--shards", "-1"])
     with pytest.raises(ValueError, match="needs the CUDA card"):
         lint.main(["--device", "cpu", "--backends", "hopper"])
     assert lint.main(["--rules"]) == 0

@@ -7,7 +7,10 @@ the LM server) on one NVIDIA GPU.
 from the repository root, on a machine with a CUDA card of compute
 capability 9.0+ and the CUDA toolkit.  It:
 
-  1. prints the card's name and power limit (nvidia-smi);
+  1. prints the card's name and power limit (nvidia-smi) and the int32
+     yardstick: 64 INT32 lanes an SM x the card's SMs x its max SM clock
+     (repro_torch.roofline.analysis.int32_ops_per_s), the rate every
+     SharedDB kernel's bound and core/sla's HwModel hold int32 work to;
   2. builds the hand-written kernels from src/repro_torch/kernels/csrc
      into build/ (nvcc, one process per source, in parallel), and prints
      ptxas's report (registers, stack and spills of partitioned_join,
@@ -30,7 +33,8 @@ capability 9.0+ and the CUDA toolkit.  It:
      on the reference's five test shapes, ragged S (24, 200), Sq < Sk,
      D 16 and 128, causal Sq > Sk (rows that see no key), and the LM
      paths' prefill shapes (yi-6b's 512 tokens, gemma3-27b's 2048-token
-     local and global layers) on standard-normal inputs, in float32 and
+     local and global layers, qwen2-moe-a2.7b's 512 tokens over 16 heads
+     and 16 KV heads) on standard-normal inputs, in float32 and
      bfloat16.  Tolerance: words, rids and group counts bit-equal;
      group sums within rtol 1e-6 (float atomics add in a varying order;
      TPC-W's integer sums are exact); attention within rtol = atol / 5 =
@@ -91,9 +95,17 @@ capability 9.0+ and the CUDA toolkit.  It:
          (one 5:1 local/global group and a leftover local layer, for chip
          time): capacity 4, max_seq 4096, prefill_len 2048 (over the 1024
          window: the ring cache), 4 requests of 16 new tokens;
+       lm-qwen2-moe-a2.7b — the MoE server: qwen2-moe-a2.7b at full width
+         and depth (24 layers, 60 routed experts top-4 and 4 shared,
+         14.3 B parameters, 2.7 B active), yi-6b's traffic; its MoE
+         blocks dispatch by sort into capacity-padded expert buffers;
      every prefill layer of the server under test is re-run with the
      plain attention from the server's own input to that layer, and its
-     output must agree within 2e-2 of the tensor's largest magnitude.
+     output must agree within 2e-2 of the tensor's largest magnitude; of
+     a MoE layer, the residual after the attention (its K/V too), and
+     its MoE block, re-run from the server's own residual, must give the
+     server's output bit for bit (the tokens the plain residual routes
+     otherwise are counted, not gated: a near-tie route can flip).
      With random weights at the reference's init scales the attention
      is nearly one-hot (the score spread of a recorded call is printed),
      so the kernel's online-softmax rescaling is held to its plain
@@ -106,8 +118,12 @@ capability 9.0+ and the CUDA toolkit.  It:
      layer under one-hot attention, and the two reach O(1) within about
      ten layers) and gives the eager beats' walls, printed beside the
      graphed ones.  On yi-6b every decode-only beat's graphed step is run
-     again eagerly on a copy of the cache: greedy tokens equal, logits
-     within LM_EAGER_REL_TOL of scale.  Every request must end with its
+     again eagerly on a copy of the cache (on qwen2-moe-a2.7b too):
+     greedy tokens equal, logits within LM_EAGER_REL_TOL of scale; the
+     ``roofline:`` lines give each LM path's model FLOPs
+     (roofline.model_flops: active parameters) of its profiled
+     admission and decode-only beats over their card busy time, as a
+     share of the bf16 peak (information).  Every request must end with its
      tokens and no NaN, and flash_attention must launch once per layer
      per admission, every launch on its tensor-core kernel (bf16, D
      128); one admission beat and one decode-only beat of the server and
@@ -121,7 +137,12 @@ capability 9.0+ and the CUDA toolkit.  It:
      cached on the card for each path's generation, the trace passes on
      each path's eager twin (bodies re-run on the torch backend), the
      graphed engine's fixed buffers and the hot-path source pass; any
-     error finding fails the run;
+     error finding fails the run; then the ``sla:`` and ``roofline:``
+     lines of the dense, index-less and 2-shard engines: the paper's
+     worst-case cycle (core/sla.cycle_cost, H100 HwModel) and
+     provision(plan, 3 s) beside the measured reseed wall and a forced,
+     profiled reseed's card busy; fused_delta_footprint of the steady
+     beat; the 2-shard reseed's collective schedule (3 all-gathers);
   5. replays recorded kernel inputs (the main paths' own shapes and data)
      through each kernel and its plain version, the plain version first
      (the recorded fused_delta calls also through planlint's kernel
@@ -136,12 +157,14 @@ capability 9.0+ and the CUDA toolkit.  It:
      call; bitmask_join once more with its right side's rows shuffled
      (staged out of key order: rids by the scan); the recorded
      delta_join buckets must be in the layout its binary search needs;
-     flash attention at three recorded calls (yi-6b's 512-token
-     prefill, gemma3-27b's 2048-token window-1024 and causal layers),
-     each beside one PyTorch
-     call of the same function (scaled_dot_product_attention, with the
-     causal and window band as a boolean mask at the window layer; timed
-     here only), and its CUDA-core kernel once at yi-6b's call;
+     flash attention at four recorded calls (yi-6b's 512-token
+     prefill, gemma3-27b's 2048-token window-1024 and causal layers,
+     qwen2-moe-a2.7b's 512-token layer, 16 heads over 16 KV heads),
+     each beside one PyTorch call of the same function
+     (scaled_dot_product_attention, with the causal and window band as a
+     boolean mask at the window layer; timed here only), and its
+     CUDA-core kernel once at yi-6b's call; the fused_delta footprint's
+     worst-case bound beside the fused_delta row;
   6. prints one JSON line of per-kernel results, then the one-line device
      record as the last line.
 
@@ -150,6 +173,7 @@ device it exits non-zero before printing any result.  The data is made
 from ``SEED`` with numpy.
 """
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -159,11 +183,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s fp32 outside
-# the tensor cores, the rate used here for the kernels' int32 compares and
-# float adds (none of them run on tensor cores)
+# H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3.  The SharedDB kernels'
+# int32 compares (none runs on the tensor cores) are held to the CUDA
+# cores' int32 rate, repro_torch.roofline.analysis.int32_ops_per_s: 64
+# INT32 lanes an SM x the card's SMs x its max SM clock (16.73e12 on an
+# H100 SXM, a quarter of the 67 TFLOP/s FP32 rate, which counts an FMA as
+# two operations on 128 FP32 lanes)
 HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
 # bf16 dense tensor-core peak: the rate flash attention's bound is held to
 TENSOR_CORE_BF16_FLOPS = 989e12
 # each kernel's symbol, as it appears in a profiler trace
@@ -206,6 +232,7 @@ PATH_KERNELS = {
                 "fused_delta"),
     "lm-yi-6b": ("flash_attention",),
     "lm-gemma3-27b": ("flash_attention",),
+    "lm-qwen2-moe-a2.7b": ("flash_attention",),
 }
 # flash attention at the LM paths' shapes on standard-normal inputs: the
 # largest ||kernel - plain|| / ||plain|| over output rows (one query, one
@@ -365,7 +392,12 @@ def cold_l2_ms(fn, name, flush):
     return device_ms(fn, KERNEL_SYMBOLS[name], setup=flush.zero_)[1]
 
 
-def bound_ms(nbytes, nops, ops_per_s=CUDA_CORE_OPS_PER_S):
+def bound_ms(nbytes, nops, ops_per_s=None):
+    """The least milliseconds the card could take: bytes over HBM, or
+    operations over ``ops_per_s`` (default the CUDA cores' int32 rate),
+    whichever is larger, and which of the two it is."""
+    from repro_torch.roofline.analysis import int32_ops_per_s
+    ops_per_s = int32_ops_per_s() if ops_per_s is None else ops_per_s
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -672,8 +704,15 @@ def edge_cases(dev):
 
 # (B, Sq, Sk, H, KV, D, causal, window): tests/test_kernels.py's five,
 # then ragged S, Sq < Sk, Sq > Sk (causal: rows that see no key), D 16,
-# then the LM paths' own prefill shapes: yi-6b's, gemma3-27b's local
-# (window 1024) and global layers
+# then the LM paths' own prefill shapes (FLASH_LM_SHAPES): yi-6b's,
+# gemma3-27b's local (window 1024) and global layers, qwen2-moe-a2.7b's
+# (MHA: 16 heads over 16)
+FLASH_LM_SHAPES = (
+    (1, 512, 512, 32, 4, 128, True, 0),
+    (1, 2048, 2048, 32, 16, 128, True, 1024),
+    (1, 2048, 2048, 32, 16, 128, True, 0),
+    (1, 512, 512, 16, 16, 128, True, 0),
+)
 FLASH_EDGE = (
     (1, 128, 128, 4, 4, 64, True, 0), (2, 256, 256, 8, 2, 64, True, 0),
     (2, 256, 256, 8, 4, 32, True, 64), (1, 128, 256, 4, 1, 128, False, 0),
@@ -681,10 +720,7 @@ FLASH_EDGE = (
     (1, 24, 24, 4, 2, 16, True, 0), (1, 200, 200, 8, 2, 128, True, 0),
     (2, 100, 300, 4, 2, 64, True, 0), (1, 300, 100, 4, 4, 128, True, 0),
     (1, 200, 70, 2, 1, 16, True, 16), (1, 77, 130, 4, 4, 32, False, 20),
-    (1, 512, 512, 32, 4, 128, True, 0),
-    (1, 2048, 2048, 32, 16, 128, True, 1024),
-    (1, 2048, 2048, 32, 16, 128, True, 0),
-)
+) + FLASH_LM_SHAPES
 
 
 def flash_edge_cases(dev, rng):
@@ -693,8 +729,9 @@ def flash_edge_cases(dev, rng):
     that see no key average v, they are not NaN).  Standard-normal q, k,
     v give scores of unit spread, a soft softmax, whose outputs average
     many keys and are small (~sqrt(1/keys) an element), so the elementwise
-    atol can pass a lost key tile; at the LM paths' shapes (H 32) each
-    output row is also held to FLASH_ROW_REL_TOL of its own norm: that is
+    atol can pass a lost key tile; at the LM paths' shapes
+    (FLASH_LM_SHAPES) each output row is also held to FLASH_ROW_REL_TOL of
+    its own norm: that is
     the gate on the kernel's online-softmax rescaling and tile skipping,
     which the paths' own one-hot attention (random weights) hardly
     exercises."""
@@ -716,7 +753,7 @@ def flash_edge_cases(dev, rng):
             if not torch.allclose(got.float(), want.float(), rtol=tol,
                                   atol=5 * tol):
                 fail(f"{what}: max abs err {max_abs_err(got, want)}")
-            if H == 32:                    # the LM paths' prefill shapes
+            if (B, Sq, Sk, H, KV, D, causal, window) in FLASH_LM_SHAPES:
                 worst = float(row_rel_err(got, want).max())
                 print(f"{what}: max abs err {max_abs_err(got, want)}, "
                       f"largest row-relative err {worst}")
@@ -1738,20 +1775,95 @@ def planlint_phase(kept, fold, card):
           f"{len(source_passes.HOT_PATH_MODULES)} hot-path modules")
 
 
-# ------------------------------------------------------- 4e. LM serving
+# ------------------------------------ 4e. the SLA model and the roofline
+SLA_SECONDS = 3.0          # TPC-W's tightest interaction timeout (3-10 s)
+
+
+def sla_phase(kept, log, card, scale_i, scale_c):
+    """``sla:`` lines, for the dense, index-less and 2-shard engines: the
+    paper's worst-case cycle (``core/sla.cycle_cost`` under the H100
+    ``HwModel``) and ``provision(plan, SLA_SECONDS)``, beside the path's
+    measured reseed (its beat 0, unprofiled) and one more reseed of the
+    graphed engine, forced (``_force_full``) and run under torch.profiler:
+    its wall and the card's busy time, each over the model's worst cycle.
+    ``roofline:`` lines: ``fused_delta_footprint`` of each engine's
+    steady beat (shards 2 on the sharded one: its terms assume a card a
+    shard), and ``collective_schedule`` of the 2-shard reseed as
+    planlint's recorder sees it (its ``all_gather_rows`` and their output
+    bytes).  Runs after the planlint phase; the forced beats count in no
+    path's launches.  Returns the footprints by path."""
+    from repro_torch.analysis_static import trace_passes
+    from repro_torch.core import sla
+    from repro_torch.roofline import (HW, collective_schedule,
+                                      fused_delta_footprint)
+    hw = sla.HwModel()
+    print(f"sla: HwModel flops_per_s {hw.flops_per_s:.6e} (int32 on the "
+          f"CUDA cores), bytes_per_s {hw.bytes_per_s:.6e} [{card}]")
+    queries = workload(scale_i, scale_c)[0]
+    out = {}
+    for path, shards in (("dense", 1), ("indexless", 1), ("sharded", 2)):
+        eng = kept[path]["eng"]
+        plan = eng._lowered.plan
+        cost = sla.cycle_cost(plan, hw)
+        prov = sla.provision(plan, SLA_SECONDS, hw)
+        model_ms = cost["worst_cycle_s"] * 1e3
+        reseed = next(e["wall_ms"] for e in log if e["path"] == path
+                      and e["graphed"] and e["beat"] == 0)
+        eng._force_full = True
+        tickets = [eng.submit(n, prm) for n, prm in queries]
+        wall, prof, _ = timed_beat(eng, True)
+        check_beat(eng, f"sla {path} forced reseed", tickets,
+                   ("full", "full" if path != "dense" else ""), None)
+        busy = busy_ms(prof)[0]
+        print(f"sla: {path}: model worst cycle {model_ms:.6f} ms "
+              f"({cost['total_flops']:.6e} int ops, "
+              f"{cost['total_bytes']:.6e} bytes over {len(cost['nodes'])} "
+              f"nodes); provision({SLA_SECONDS} s): "
+              f"{prov['chips_required']} card(s), cycle budget "
+              f"{prov['cycle_budget_s']} s; measured: reseed wall "
+              f"{reseed:.3f} ms (beat 0), forced reseed {wall * 1e3:.3f} ms "
+              f"wall under the profiler, card busy {busy:.3f} ms; reseed "
+              f"wall / model {reseed / model_ms:.3f}, busy / model "
+              f"{busy / model_ms:.3f} [{card}]")
+        fp = fused_delta_footprint(eng._lowered, shards)
+        out[path] = fp
+        print(f"roofline: {path}: fused_delta_footprint (shards {shards}, "
+              f"worst case): {fp['bytes']:.6e} bytes, {fp['int_ops']:.6e} "
+              f"int ops, {len(fp['per_stage'])} stages, bound "
+              f"{fp['step_time_s'] * 1e3:.6f} ms by {fp['dominant']} "
+              f"(a card a shard)")
+    rec = trace_passes.record_beats(kept["sharded"]["eager"])["full"]
+    sched = collective_schedule(rec.collective_bytes, 2)
+    print(f"roofline: sharded S=2 reseed collectives (planlint's recorder): "
+          f"{json.dumps(sched)}; {sched['total_link_traffic']:.6e} bytes a "
+          f"link would take "
+          f"{sched['total_link_traffic'] / HW['nvlink_bw'] * 1e3:.6f} ms at "
+          f"NVLink's {HW['nvlink_bw']:.3e} B/s (both shards are on this one "
+          f"card: no link is crossed) [{card}]")
+    if sched["counts"] != {"all-gather": 3}:
+        fail(f"roofline: S=2 reseed collectives {sched['counts']}, not 3 "
+             f"all-gathers")
+    return out
+
+
+# ------------------------------------------------------- 4f. LM serving
 # (arch, depth cut or None, capacity, max_seq, prefill_len, requests,
 #  prompt lengths [lo, hi], new tokens)
 LM_PATHS = {
     "lm-yi-6b": ("yi-6b", None, 8, 1024, 512, 16, (64, 512), 32),
     "lm-gemma3-27b": ("gemma3-27b", 7, 4, 4096, 2048, 4, (256, 2048), 16),
+    "lm-qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", None, 8, 1024, 512, 16,
+                           (64, 512), 32),
 }
 # every prefill layer of the server under test, re-run with the plain
 # attention from the server's own input to that layer: max |kernel path -
-# plain path| <= LM_REL_TOL * max |plain path|, outputs and K/V
+# plain path| <= LM_REL_TOL * max |plain path|, outputs and K/V; of a MoE
+# layer, the residual after the attention (the input of its MoE block)
 LM_REL_TOL = 2e-2
 LM_PROFILED_BEAT = 1       # an admission beat after the first
-# yi-6b's decode-only beats: the graphed step's logits against an eager
-# run of the same step, relative to the logits' largest magnitude
+# the decode-only beats of these paths: the graphed step's logits against
+# an eager run of the same step, relative to the logits' largest magnitude
+LM_EAGER_PATHS = ("lm-yi-6b", "lm-qwen2-moe-a2.7b")
 LM_EAGER_REL_TOL = 1e-3
 
 
@@ -1804,37 +1916,81 @@ def eager_step_check(srv, what):
 
 class LayerRecorder:
     """While armed, keeps every prefill sublayer's arguments and result
-    (``transformer._sublayer_train``), so that each layer can be re-run
-    with the plain attention from the same input."""
+    (``transformer._sublayer_train``) and, of a MoE sublayer, its MoE
+    block's input and output (``transformer._apply_mlp_part``), so that
+    each layer can be re-run with the plain attention from the same
+    input."""
 
     def __init__(self):
         from repro_torch.models import transformer
         self.tf = transformer
         self.orig = transformer._sublayer_train
-        self.calls = []
+        self.orig_mlp = transformer._apply_mlp_part
+        self.calls, self.mlp = [], None
 
     def __enter__(self):
         def rec(*args):
+            self.mlp = None
             out = self.orig(*args)
-            self.calls.append((args, out))
+            self.calls.append((args, out, self.mlp))
+            return out
+
+        def rec_mlp(p, spec, x, cfg):
+            out = self.orig_mlp(p, spec, x, cfg)
+            if spec.moe:
+                self.mlp = (x, out[0])
             return out
         self.tf._sublayer_train = rec
+        self.tf._apply_mlp_part = rec_mlp
         return self
 
     def __exit__(self, *exc):
         self.tf._sublayer_train = self.orig
+        self.tf._apply_mlp_part = self.orig_mlp
 
-    def replay_plain(self):
-        """The largest relative error of a recorded layer's output against
-        its re-run with kernels="torch" (the layer's K/V come before its
-        attention, so only the output can differ), and the layer count."""
-        worst = 0.0
-        for args, (x, _) in self.calls:
-            x2, _ = self.orig(*args[:-1], "torch")
-            worst = max(worst, rel_err(x, x2))
+    def replay_plain(self, what):
+        """Each recorded layer re-run with kernels="torch" from its own
+        input.  A dense layer: its output against the re-run's (its K/V
+        come before its attention, so only the output can differ).  A MoE
+        layer: the residual after the attention and the K/V against the
+        re-run's; then its MoE block re-run from the server's own
+        residual must give the server's output bit for bit (same code,
+        same input), and the tokens that the plain-attention residual
+        routes to another expert set are counted (a bf16 difference can
+        flip a near-tie route, and move a token by a whole expert's
+        output: information, not a gate).  Returns (the largest relative
+        error, the layer count, tokens routed otherwise, tokens routed)."""
+        import torch
+        from repro_torch.models import moe
+        from repro_torch.models.common import apply_norm
+        worst, flips, routed = 0.0, 0, 0
+        for args, (x, entry), mlp in self.calls:
+            p, spec, cfg = args[0], args[1], args[3]
+            if not spec.moe:
+                x2, _ = self.orig(*args[:-1], "torch")
+                worst = max(worst, rel_err(x, x2))
+                continue
+            r, y = mlp
+            r2, entry2 = self.tf._sublayer_attn(*args[:-1], "torch")
+            worst = max(worst, rel_err(r, r2), rel_err(entry["k"],
+                                                       entry2["k"]),
+                        rel_err(entry["v"], entry2["v"]))
+            again, _ = self.orig_mlp(p, spec, r, cfg)
+            if not torch.equal(again, y):
+                fail(f"{what}: a MoE block re-run from the server's own "
+                     f"input differs from the server's output (max abs "
+                     f"{max_abs_err(again, y)})")
+            sets = []
+            for res in (r, r2):
+                h = apply_norm(res, p["mlp_norm"], cfg.norm)
+                _, _, e = moe.route(p["mlp"], h.reshape(-1, h.shape[-1]),
+                                    cfg.moe)
+                sets.append(torch.sort(e, dim=-1).values)
+            flips += int((sets[0] != sets[1]).any(dim=-1).sum())
+            routed += sets[0].shape[0]
         n = len(self.calls)
         self.calls = []
-        return worst, n
+        return worst, n, flips, routed
 
 
 def count_params(tree):
@@ -1866,8 +2022,11 @@ def lm_path(dev, name, recorded):
     same weights whose prefill attention is the plain version (torch),
     beat for beat, to drain.  Every prefill layer of the server under
     test is re-run with the plain attention from its own input (the gate,
-    LM_REL_TOL).  The twin gates nothing: it only measures how far the
-    two diverge end to end.  Returns the beat log and the path's summary;
+    LM_REL_TOL; a MoE layer's block also re-run from the server's own
+    residual, bit-equal: ``LayerRecorder.replay_plain``).  The twin gates
+    nothing: it only measures how far the two diverge end to end.  On the
+    LM_EAGER_PATHS every decode-only beat's graphed step is held to its
+    eager re-run.  Returns the beat log and the path's summary;
     per (causal, window), ``recorded[name]`` gets the path's count of
     flash-attention calls and the first such call of the profiled
     beat."""
@@ -1912,6 +2071,7 @@ def lm_path(dev, name, recorded):
     plain_fa = fa.flash_attention
     mine = recorded.setdefault(name, {})
     log, admissions, beat, n_layer_checks, worst = [], 0, 0, 0, 0.0
+    route_flips, routed = 0, 0
     twin_err = {"logits": 0.0, "cache": 0.0}
     eager_checks, eager_err = 0, 0.0
     divergence, decode_profiled = None, False
@@ -1965,7 +2125,8 @@ def lm_path(dev, name, recorded):
             entry["host_ops"] = host_ops(prof)
         log.append(entry)
         what = f"{name} beat {beat}"
-        w, n = layers.replay_plain()
+        w, n, flips, r = layers.replay_plain(what)
+        route_flips, routed = route_flips + flips, routed + r
         n_layer_checks += n
         if n != cfg.n_layers * admitted:
             fail(f"{what}: {n} prefill layers recorded for {admitted} "
@@ -1974,7 +2135,7 @@ def lm_path(dev, name, recorded):
         if w > LM_REL_TOL:
             fail(f"{what}: prefill layer outputs vs their plain re-run "
                  f"{w} > {LM_REL_TOL} of scale")
-        if name == "lm-yi-6b" and admitted == 0:
+        if name in LM_EAGER_PATHS and admitted == 0:
             eager_err = max(eager_err, eager_step_check(srv, what))
             eager_checks += 1
         # the twin's beat, timed (and profiled) like the server's; it
@@ -2017,7 +2178,7 @@ def lm_path(dev, name, recorded):
         fail(f"{name}: the tensor-core flash_attention kernel launched "
              f"{K.FLASH_ROUTE_LAUNCHES['wgmma']} times for {admissions} "
              f"admissions of {cfg.n_layers} layers")
-    if name == "lm-yi-6b" and not eager_checks:
+    if name in LM_EAGER_PATHS and not eager_checks:
         fail(f"{name}: no decode-only beat held to the eager step")
     for r in reqs:
         if len(r.output) != new or r.truncated or r.done_time is None:
@@ -2039,8 +2200,41 @@ def lm_path(dev, name, recorded):
                "twin_end_to_end_rel_err_logits": twin_err["logits"],
                "twin_end_to_end_rel_err_cache": twin_err["cache"],
                "twin_first_admission_k_rel_err_by_layer": divergence,
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "roofline": lm_model_flops(cfg, cap, plen, log)}
+    if cfg.moe is not None:
+        summary["moe_tokens_routed_otherwise_by_plain_attention"] = \
+            route_flips
+        summary["moe_tokens_routed"] = routed
+    print(f"{name}: peak memory {summary['peak_mem_gb']:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated over the path)")
     return log, summary
+
+
+def lm_model_flops(cfg, capacity, prefill_len, log):
+    """``roofline.model_flops`` of the graphed server's profiled admission
+    beat (its prefills at ``prefill_len`` and one decode step of every
+    slot) and of its profiled decode-only beat, beside the beat's card
+    busy time: the share of the bf16 tensor-core peak that busy time
+    would give (information)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.roofline import model_flops
+    decode = model_flops(cfg, ShapeSpec("decode", 1, capacity, "decode"))
+    out = {}
+    for e in log:
+        if not (e["graphed"] and e["profiled"]) or not e["device_events"]:
+            continue
+        kind = "admission" if e["admitted"] else "decode-only"
+        flops = decode + (model_flops(cfg, ShapeSpec(
+            "prefill", prefill_len, e["admitted"], "prefill"))
+            if e["admitted"] else 0.0)
+        out[kind] = {"beat": e["beat"], "admitted": e["admitted"],
+                     "model_flops": flops,
+                     "card_busy_ms": e["device_busy_ms"],
+                     "share_of_bf16_peak": flops / (
+                         e["device_busy_ms"] / 1e3
+                         * TENSOR_CORE_BF16_FLOPS)}
+    return out
 
 
 # ------------------------------------------------- 5. kernels at main-path
@@ -2293,14 +2487,17 @@ def kernel_rows(calls, launches, attn):
 
     # flash_attention: the first recorded prefill call of yi-6b (B 1, S
     # 512, H 32, KV 4, D 128, bf16, causal) is the row; gemma3-27b's
-    # 2048-token window-1024 and causal layers ride along in "shapes"
+    # 2048-token window-1024 and causal layers and qwen2-moe-a2.7b's
+    # 512-token layer (H 16 over 16 KV heads) ride along in "shapes"
     from repro_torch import kernels as K
     from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     calls_fa = [("yi-6b 512 causal", attn["lm-yi-6b"][(True, 0)]),
                 ("gemma3-27b 2048 window 1024",
                  attn["lm-gemma3-27b"][(True, 1024)]),
-                ("gemma3-27b 2048 causal", attn["lm-gemma3-27b"][(True, 0)])]
+                ("gemma3-27b 2048 causal", attn["lm-gemma3-27b"][(True, 0)]),
+                ("qwen2-moe-a2.7b 512 causal (MHA)",
+                 attn["lm-qwen2-moe-a2.7b"][(True, 0)])]
     shapes = []
     for label, c in calls_fa:
         q, k, v = c["q"], c["k"], c["v"]
@@ -2404,6 +2601,12 @@ def print_lm_summary(summary, log):
         print_graphed_beside_eager(
             f"{kind} beat, {path}",
             [e for e in beats if bool(e["admitted"]) == admitting])
+    for kind, r in summary["roofline"].items():
+        print(f"roofline: {path} {kind} beat {r['beat']} ({r['admitted']} "
+              f"admitted): model FLOPs {r['model_flops']:.6e} in "
+              f"{r['card_busy_ms']:.3f} ms of card busy: "
+              f"{r['share_of_bf16_peak']:.6f} of the bf16 peak "
+              f"({TENSOR_CORE_BF16_FLOPS:.3e} FLOP/s)")
 
 
 def ptxas_report(lib, names):
@@ -2483,6 +2686,15 @@ def main():
     if B.resolve_backend("auto", dev).name != "hopper":
         fail("kernels='auto' does not resolve to the hopper backend")
 
+    from repro_torch.roofline.analysis import (INT32_LANES_PER_SM,
+                                               int32_ops_per_s)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rate = int32_ops_per_s()
+    print(f"int32 yardstick: {INT32_LANES_PER_SM} INT32 lanes an SM x {sms} "
+          f"SMs x max SM clock {rate / INT32_LANES_PER_SM / sms / 1e6:.0f} "
+          f"MHz = {rate:.6e} ops/s (the kernels' bound_ms and core/sla's "
+          f"HwModel)")
+
     t0 = time.perf_counter()
     lib = K.build()
     K.library()
@@ -2541,13 +2753,20 @@ def main():
     sharded_kernel_check(sharded_rec.calls)
     log += sharded["log"]
     planlint_phase(kept, fold, smi[0])
+    footprints = sla_phase(kept, log, smi[0], si, sc)
     del kept
+    gc.collect()
     torch.cuda.empty_cache()
     attn, lm_summaries = {}, []
     for name in LM_PATHS:
+        print(f"{name}: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+              f"allocated before the path")
         lm_log, summary = run_path(name, lambda: lm_path(dev, name, attn))
         log += lm_log
         lm_summaries.append(summary)
+        # the path's servers (a graph holds its server's decode body) go
+        # before the next path's weights come
+        gc.collect()
         torch.cuda.empty_cache()
     for entry in log:
         print("beat:", json.dumps(entry))
@@ -2591,6 +2810,14 @@ def main():
     planlint_recorded(calls["fused_delta"], smi[0])
     rows = kernel_rows(calls, launches, attn)
     torch.cuda.synchronize()
+    fd_row = next(r for r in rows if r["name"] == "fused_delta")
+    fp = footprints["indexless"]
+    print(f"roofline: fused_delta, the index-less steady beat: "
+          f"fused_delta_footprint bound {fp['step_time_s'] * 1e3:.6f} ms "
+          f"(worst case: every pane at its full span, every dirty set "
+          f"full) beside the recorded call's device time "
+          f"{fd_row['ms']:.6f} ms and its bound from this run's data "
+          f"{fd_row['bound_ms']:.6f} ms (kernel row) [{smi[0]}]")
     for r in rows:
         if r["name"] in PREVIOUS_DESIGN_MS:
             print(f"{r['name']}: device ms {r['ms']:.6f} a set of "

@@ -83,8 +83,10 @@ class OpRecorder(TorchDispatchMode):
     """Records, per ATen op run inside it: the output shape of every
     ``ge`` / ``le`` / ``eq`` (``compares``, (op, shape) pairs), the
     storage of every argument the op's schema marks as written
-    (``written``: the in-place and ``out=`` ops) and every collective op
-    with its operands' shapes (``collectives``).
+    (``written``: the in-place and ``out=`` ops), every collective op
+    with its operands' shapes (``collectives``) and with the bytes of its
+    first output, one device's (``collective_bytes``, (op, bytes) pairs:
+    the gathered tensor of an all-gather).
 
     ``shards=True`` also records, for each op run inside a
     ``sharding.shard_scope``, its shard and the storages of all its
@@ -97,6 +99,7 @@ class OpRecorder(TorchDispatchMode):
         self.compares: List[Tuple[str, Tuple[int, ...]]] = []
         self.written: Set[Tuple[int, int]] = set()
         self.collectives: List[Tuple[str, Tuple[Tuple[int, ...], ...]]] = []
+        self.collective_bytes: List[Tuple[str, int]] = []
         self.shard_ops: List[Tuple[str, int, Set[Tuple[int, int]]]] = []
         self._held: Optional[list] = [] if shards else None
 
@@ -109,6 +112,10 @@ class OpRecorder(TorchDispatchMode):
         if name in COLLECTIVES:
             self.collectives.append((name, tuple(
                 tuple(t.shape) for t in _tensors(args))))
+            first = next(_tensors(out), None)
+            self.collective_bytes.append((name, 0 if first is None else
+                                          first.numel()
+                                          * first.element_size()))
         if self._held is not None:
             seen = [t for t in _tensors((args, tuple(kwargs.values()), out))
                     if t.numel()]
@@ -132,7 +139,9 @@ class BeatRecord:
     """One recorded body: its compares, which of the body's buffers it
     wrote in place (labels from ``_buffer_labels``), its collectives and,
     on a sharded engine, its shard-scoped ops and the storages each
-    shard owns from the start (``_shard_owners``)."""
+    shard owns from the start (``_shard_owners``); ``collective_bytes``
+    are the collectives' (op, one device's output bytes), what
+    ``roofline.collective_schedule`` takes."""
     flavour: str
     compares: List[Tuple[str, Tuple[int, ...]]]
     wrote: Set[str]
@@ -142,6 +151,8 @@ class BeatRecord:
         dataclasses.field(default_factory=list)
     owners: Dict[Tuple[int, int], int] = dataclasses.field(
         default_factory=dict)
+    collective_bytes: List[Tuple[str, int]] = \
+        dataclasses.field(default_factory=list)
 
 
 def _leaves(tree):
@@ -262,7 +273,8 @@ def record_beats(eng) -> Dict[str, BeatRecord]:
             out[f] = BeatRecord(f, rec.compares,
                                 {labels[k] for k in rec.written
                                  if k in labels},
-                                rec.collectives, rec.shard_ops, owners)
+                                rec.collectives, rec.shard_ops, owners,
+                                rec.collective_bytes)
     return out
 
 

@@ -2,6 +2,7 @@
 the CUDA card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --smoke --device cpu --requests 8
 """

@@ -1,4 +1,5 @@
-"""Language models of the port (``repro.models``'s dense serving half).
+"""Language models of the port (``repro.models``'s serving half: the dense
+and MoE attention programs).
 
 Entry point: :func:`repro_torch.models.registry.get_model`.
 """

@@ -60,9 +60,11 @@ class ParamStore:
             if scale is None:
                 scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2
                                         else shape[-1])
-            val = (torch.randn(full, generator=self.generator,
-                               dtype=torch.float32, device=self.device)
-                   * scale).to(dtype)
+            # scaled in place: one float32 copy of a leaf at a time (a
+            # full-size MoE expert stack is 16.6 GB in float32)
+            val = torch.randn(full, generator=self.generator,
+                              dtype=torch.float32,
+                              device=self.device).mul_(scale).to(dtype)
         self.params[name] = val
         return val
 

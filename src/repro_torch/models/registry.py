@@ -1,4 +1,5 @@
-"""Model registry of the port: one API over the dense language models.
+"""Model registry of the port: one API over the dense and MoE language
+models.
 
 ``get_model(cfg)`` returns a :class:`ModelApi`:
 

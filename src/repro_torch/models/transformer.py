@@ -7,6 +7,8 @@ A model compiles to a *layer program*: a group of sublayers repeated
 
   dense GQA           group = [attn]                          x L
   gemma3 (5:1)        group = [attn(w)]*5 + [attn(0)]         x 10  + 2 local
+  mixtral (MoE, SWA)  group = [attn(w, moe)]                  x L
+  qwen2-moe           group = [attn(moe)]                     x L
 
 Parameters are plain nested dicts in the JAX package's layout: the
 group's sublayer ``idx`` lives under ``g{idx}`` with every leaf stacked,
@@ -17,9 +19,12 @@ W]`` (-1 = empty slot) for group entries, the same without the layer axis
 for leftovers.  The group is a Python loop over layers (PyTorch runs
 eagerly; there is no scan and no remat).
 
-The ``moe``, ``ssm``, ``rec`` (recurrent), ``cross`` and encoder-decoder
-programs are not ported yet: ``build_program`` raises for them (ROADMAP
-§1 item 12).  Training (``loss_fn``) comes with the training slice.
+A ``moe`` sublayer's MLP is the sort-dispatch MoE block
+(``models/moe.py``); its load-balance loss is discarded in prefill and
+decode, as the reference discards it.  The ``ssm``, ``rec``
+(recurrent), ``cross`` and encoder-decoder programs are not ported yet:
+``build_program`` raises for them (ROADMAP §1 item 12).  Training
+(``loss_fn``) comes with the training slice.
 """
 from __future__ import annotations
 
@@ -61,25 +66,28 @@ class Program:
 
 
 def build_program(cfg: ArchConfig) -> Program:
-    """The dense attention programs; raises NotImplementedError for the
-    programs the port does not have yet."""
+    """The attention programs, dense and MoE; raises NotImplementedError
+    for the programs the port does not have yet."""
     kind = ("enc-dec" if cfg.enc_dec else "ssm" if cfg.family == "ssm"
             else "rec" if cfg.rglru_pattern else "cross" if cfg.cross_every
-            else "moe" if cfg.moe is not None else None)
+            else None)
     if kind is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {kind} layer program is not ported to "
             f"repro_torch yet (ROADMAP.md §1 item 12)")
     loc, glob = cfg.local_global
+    is_moe = cfg.moe is not None
     if loc > 0 and glob > 0:
-        group = tuple([LayerSpec("attn", window=cfg.window)] * loc
-                      + [LayerSpec("attn", window=0)] * glob)
+        group = tuple([LayerSpec("attn", window=cfg.window, moe=is_moe)] * loc
+                      + [LayerSpec("attn", window=0, moe=is_moe)] * glob)
         per = loc + glob
         n = cfg.n_layers // per
         rest = cfg.n_layers - n * per
-        leftover = tuple([LayerSpec("attn", window=cfg.window)] * rest)
+        leftover = tuple([LayerSpec("attn", window=cfg.window,
+                                    moe=is_moe)] * rest)
         return Program(n, group, leftover)
-    return Program(cfg.n_layers, (LayerSpec("attn", window=cfg.window),))
+    return Program(cfg.n_layers,
+                   (LayerSpec("attn", window=cfg.window, moe=is_moe),))
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +121,9 @@ def _init_sublayer(store: ParamStore, spec: LayerSpec, cfg: ArchConfig):
     if spec.has_mlp:
         _init_norm(store, "mlp_norm", cfg.d_model, cfg.norm)
         mstore = store.subtree("mlp")
-        if cfg.act in ("swiglu", "gelu_glu"):
+        if spec.moe:
+            moe_lib.init_moe(mstore, cfg.d_model, cfg.moe)
+        elif cfg.act in ("swiglu", "gelu_glu"):
             moe_lib.init_mlp(mstore, cfg.d_model, cfg.d_ff)
         else:
             moe_lib.init_mlp_nonglu(mstore, cfg.d_model, cfg.d_ff)
@@ -193,12 +203,19 @@ def _attn_decode(p, x, spec: LayerSpec, cfg, cache, positions):
 
 
 def _apply_mlp_part(p, spec: LayerSpec, x, cfg):
+    """The MLP half of a sublayer on the residual ``x``: (x + mlp, aux),
+    aux the MoE load-balance loss (0.0 for a dense MLP)."""
     if not spec.has_mlp:
-        return x
+        return x, 0.0
     h = apply_norm(x, p["mlp_norm"], cfg.norm)
-    if cfg.act in ("swiglu", "gelu_glu"):
-        return x + moe_lib.apply_mlp(p["mlp"], h, cfg.act)
-    return x + moe_lib.apply_mlp_nonglu(p["mlp"], h, cfg.act)
+    if spec.moe:
+        y, aux = moe_lib.apply_moe(p["mlp"], h, cfg.moe, cfg.act,
+                                   dispatch=cfg.moe_dispatch)
+    elif cfg.act in ("swiglu", "gelu_glu"):
+        y, aux = moe_lib.apply_mlp(p["mlp"], h, cfg.act), 0.0
+    else:
+        y, aux = moe_lib.apply_mlp_nonglu(p["mlp"], h, cfg.act), 0.0
+    return x + y, aux
 
 
 def _pack_kv_cache(k, v, spec: LayerSpec, capacity: int):
@@ -225,19 +242,30 @@ def _pack_kv_cache(k, v, spec: LayerSpec, capacity: int):
     return {"k": k_c, "v": v_c, "pos": pos_c}
 
 
-def _sublayer_train(p, spec: LayerSpec, x, cfg, positions,
-                    cache_capacity: int, kernels: str):
-    """One prefill sublayer.  Returns (x, its cache entry)."""
+def _sublayer_attn(p, spec: LayerSpec, x, cfg, positions,
+                   cache_capacity: int, kernels: str):
+    """The attention half of a prefill sublayer.  Returns (the residual
+    after it, its cache entry)."""
     h = apply_norm(x, p["norm"], cfg.norm)
     y, (k, v) = _attn_full(p["attn"], h, spec, cfg, positions, kernels)
-    entry = _pack_kv_cache(k, v, spec, cache_capacity)
-    return _apply_mlp_part(p, spec, x + y, cfg), entry
+    return x + y, _pack_kv_cache(k, v, spec, cache_capacity)
+
+
+def _sublayer_train(p, spec: LayerSpec, x, cfg, positions,
+                    cache_capacity: int, kernels: str):
+    """One prefill sublayer.  Returns (x, its cache entry); a MoE
+    block's aux loss is discarded."""
+    x, entry = _sublayer_attn(p, spec, x, cfg, positions, cache_capacity,
+                              kernels)
+    x, _ = _apply_mlp_part(p, spec, x, cfg)
+    return x, entry
 
 
 def _sublayer_decode(p, spec: LayerSpec, x, cfg, positions, cache):
     h = apply_norm(x, p["norm"], cfg.norm)
     y, cache = _attn_decode(p["attn"], h, spec, cfg, cache, positions)
-    return _apply_mlp_part(p, spec, x + y, cfg), cache
+    x, _ = _apply_mlp_part(p, spec, x + y, cfg)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -285,10 +313,12 @@ def prefill(params, batch, cfg: ArchConfig,
 
     ``last_pos`` (an int, default S - 1) selects which position's logits
     to return: a server right-pads short prompts to one prefill length,
-    and under causal attention the true last prompt position's hidden
-    state equals an unpadded prefill's.  The cache's K/V keep the
-    activations' dtype.  ``kernels`` picks the attention: "hopper" (the
-    kernel; its plain version on CPU tensors) or "torch"."""
+    and under causal attention a dense model's true last prompt position's
+    hidden state equals an unpadded prefill's (not a MoE model's: the pads
+    compete with the prompt for expert capacity, as in the reference).
+    The cache's K/V keep the activations' dtype.  ``kernels`` picks the
+    attention: "hopper" (the kernel; its plain version on CPU tensors) or
+    "torch"."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     cap = cache_capacity or S

@@ -633,7 +633,8 @@ def test_chained_beat_launches_one_delta_join(cuda_device):
     (1, 200, 70, 2, 1, 16, True, 16), (1, 77, 130, 4, 4, 32, False, 20),
     (1, 512, 512, 32, 4, 128, True, 0),         # yi-6b's prefill
     (1, 2048, 2048, 32, 16, 128, True, 1024),   # gemma3-27b's local layer
-    (1, 2048, 2048, 32, 16, 128, True, 0)])     # and its global layer
+    (1, 2048, 2048, 32, 16, 128, True, 0),      # and its global layer
+    (1, 512, 512, 16, 16, 128, True, 0)])       # qwen2-moe-a2.7b's (MHA)
 def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV,
                                        D, causal, window):
     """Ragged S, Sq < Sk, D 16 and 128, causal Sq > Sk (its first rows
@@ -1031,6 +1032,74 @@ def test_graphed_decode_equals_eager(cuda_device):
         reqs.append([s.submit(r.integers(1, cfg.vocab, n).tolist(), 12)
                      for n in (5, 16, 9, 3, 12)])
     srv.run_until_drained()
+    twin.run_until_drained()
+    for a, b in zip(*reqs):
+        assert a.output == b.output and len(a.output) == 12
+
+
+# ------------------------------------------------------------------- MoE
+@pytest.mark.cuda
+def test_moe_block_on_the_card_never_syncs_and_reruns_bit_equal(cuda_device):
+    """The sort-dispatch MoE block on bfloat16 CUDA tensors, at a size
+    with drops: no host synchronisation (sync-debug mode "error"), a
+    re-run bit-equal (no atomics in the combine), and the float32 CPU
+    run of the same block within 5e-2 of scale."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe
+    rng = np.random.default_rng(0)
+    E, k, D, F = 8, 2, 64, 32
+    cfg = MoEConfig(num_experts=E, top_k=k, num_shared=1, d_ff_expert=F)
+    p = {"router": rng.standard_normal((D, E)),
+         "we_gate": rng.standard_normal((E, D, F)) / 8,
+         "we_up": rng.standard_normal((E, D, F)) / 8,
+         "we_down": rng.standard_normal((E, F, D)) / 8,
+         "shared": {"w_gate": rng.standard_normal((D, F)) / 8,
+                    "w_up": rng.standard_normal((D, F)) / 8,
+                    "w_down": rng.standard_normal((F, D)) / 8}}
+    p["router"][:, 0] += 0.3                 # expert 0 overfills
+    x = rng.standard_normal((2, 64, D)) + 1.0
+
+    def on(dev, dt, tree):
+        if isinstance(tree, dict):
+            return {key: on(dev, dt, v) for key, v in tree.items()}
+        return torch.as_tensor(tree, dtype=dt, device=dev)
+    pc, xc = on(cuda_device, torch.bfloat16, p), \
+        on(cuda_device, torch.bfloat16, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y1, _ = moe.apply_moe(pc, xc, cfg, "swiglu")
+        y2, _ = moe.apply_moe(pc, xc, cfg, "swiglu")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert y1.device.type == "cuda" and torch.equal(y1, y2)
+    want, _ = moe.apply_moe(on("cpu", torch.float32, p),
+                            on("cpu", torch.float32, x), cfg, "swiglu")
+    assert (y1.float().cpu() - want).abs().max() <= \
+        5e-2 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_graphed_moe_decode_equals_eager(cuda_device):
+    """qwen2-moe's bfloat16 smoke config (MHA, QKV bias, a shared expert)
+    at head dim 128: the CycleServer with the decode step, MoE blocks and
+    all, captured as a graph against the same server run eagerly: the
+    same greedy tokens, and its prefills on the tensor-core kernel."""
+    from repro_torch.serving import CycleServer
+    cfg = dataclasses.replace(smoke_config("qwen2-moe-a2.7b"), head_dim=128)
+    kw = dict(capacity=4, max_seq=64, prefill_len=16, prefill_budget=2,
+              device=cuda_device)
+    srv = CycleServer(cfg, seed=0, **kw)
+    twin = CycleServer(cfg, params=srv.params, jit=False, **kw)
+    assert srv.graphed and not twin.graphed
+    reqs = []
+    for s in (srv, twin):
+        r = np.random.default_rng(0)
+        reqs.append([s.submit(r.integers(1, cfg.vocab, n).tolist(), 12)
+                     for n in (5, 16, 9, 3, 12)])
+    routed = K.FLASH_ROUTE_LAUNCHES["wgmma"]
+    srv.run_until_drained()
+    assert K.FLASH_ROUTE_LAUNCHES["wgmma"] - routed == 5 * cfg.n_layers
     twin.run_until_drained()
     for a, b in zip(*reqs):
         assert a.output == b.output and len(a.output) == 12

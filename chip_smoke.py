@@ -34,8 +34,11 @@ capability 9.0+ and the CUDA toolkit.  It:
      D 16 and 128, causal Sq > Sk (rows that see no key), and the LM
      paths' prefill shapes (yi-6b's 512 tokens, gemma3-27b's 2048-token
      local and global layers, qwen2-moe-a2.7b's 512 tokens over 16 heads
-     and 16 KV heads) on standard-normal inputs, in float32 and
-     bfloat16.  Tolerance: words, rids and group counts bit-equal;
+     and 16 KV heads, recurrentgemma-2b's 512 tokens at D 256 over one KV
+     head in a 2048 window, whisper-small's 1536-frame encoder and its
+     192-over-1536 cross layer, llama-3.2-vision-90b's 512-over-6404 cross
+     layer: the last three not causal) on standard-normal inputs, in
+     float32 and bfloat16.  Tolerance: words, rids and group counts bit-equal;
      group sums within rtol 1e-6 (float atomics add in a varying order;
      TPC-W's integer sums are exact); attention within rtol = atol / 5 =
      1e-5 in float32 and 2e-2 in bfloat16 (the reference's own test),
@@ -99,9 +102,28 @@ capability 9.0+ and the CUDA toolkit.  It:
          and depth (24 layers, 60 routed experts top-4 and 4 shared,
          14.3 B parameters, 2.7 B active), yi-6b's traffic; its MoE
          blocks dispatch by sort into capacity-padded expert buffers;
-     every prefill layer of the server under test is re-run with the
-     plain attention from the server's own input to that layer, and its
-     output must agree within 2e-2 of the tensor's largest magnitude; of
+       lm-recurrentgemma-2b — the recurrent program at full width and
+         depth (26 layers: 8 groups of two RG-LRU layers and one local
+         attention layer at D 256, 10 heads over 1, window 2048, then two
+         RG-LRU layers; 2.67 B parameters), yi-6b's traffic;
+       lm-mamba2-370m — the SSD program at full width and depth (48
+         layers, 0.37 B parameters: a 512-token prefill is two SSD chunks
+         of 256), yi-6b's traffic; attention-free, so no kernel runs;
+       lm-whisper-small — the encoder-decoder at full width and depth (12
+         encoder and 12 decoder layers): capacity 8, max_seq 448 (its
+         decoder context), prefill_len 192 over 1536 zero frames, 16
+         requests of 16-192 tokens, 32 new each;
+       lm-llama-3.2-vision-90b — the cross program at full width (d
+         8192, 64 / 8 heads, FFN 28 672, 6404 vision tokens), depth cut
+         100 -> 20 layers (4 groups of 4 self and 1 cross: 19.3 B
+         parameters, 38.6 GB) to fit the card: capacity 4, max_seq 1024,
+         prefill_len 512, 8 requests of 64-512 tokens, 16 new each;
+     the servers feed zero frames / vision tokens, as the reference's;
+     every prefill layer of the server under test (an encoder's too) is
+     re-run with the plain attention from the server's own input to that
+     layer, and its output must agree within 2e-2 of the tensor's largest
+     magnitude (a recurrent or SSD layer, which runs no kernel, bit for
+     bit); of
      a MoE layer, the residual after the attention (its K/V too), and
      its MoE block, re-run from the server's own residual, must give the
      server's output bit for bit (the tokens the plain residual routes
@@ -117,17 +139,18 @@ capability 9.0+ and the CUDA toolkit.  It:
      the end-to-end divergence (one bf16 rounding grows several-fold a
      layer under one-hot attention, and the two reach O(1) within about
      ten layers) and gives the eager beats' walls, printed beside the
-     graphed ones.  On yi-6b every decode-only beat's graphed step is run
-     again eagerly on a copy of the cache (on qwen2-moe-a2.7b too):
+     graphed ones.  On every LM path every decode-only beat's graphed step
+     is run again eagerly on a copy of the cache taken before the step:
      greedy tokens equal, logits within LM_EAGER_REL_TOL of scale; the
      ``roofline:`` lines give each LM path's model FLOPs
      (roofline.model_flops: active parameters) of its profiled
      admission and decode-only beats over their card busy time, as a
      share of the bf16 peak (information).  Every request must end with its
-     tokens and no NaN, and flash_attention must launch once per layer
-     per admission, every launch on its tensor-core kernel (bf16, D
-     128); one admission beat and one decode-only beat of the server and
-     of its twin run under torch.profiler;
+     tokens and no NaN, and flash_attention must launch once per
+     attending sublayer (attention, cross, encoder) per admission, every
+     launch on its tensor-core kernel (bf16, D 64 / 128 / 256); one
+     admission beat and one decode-only beat of the server and of its
+     twin run under torch.profiler;
      between the SharedDB and the LM paths, planlint (``planlint:``
      lines; on the sharded path the collective and locality rules too):
      the construction gate's host time per plan generation of
@@ -157,14 +180,16 @@ capability 9.0+ and the CUDA toolkit.  It:
      call; bitmask_join once more with its right side's rows shuffled
      (staged out of key order: rids by the scan); the recorded
      delta_join buckets must be in the layout its binary search needs;
-     flash attention at four recorded calls (yi-6b's 512-token
-     prefill, gemma3-27b's 2048-token window-1024 and causal layers,
-     qwen2-moe-a2.7b's 512-token layer, 16 heads over 16 KV heads),
+     flash attention at every (causal, window, Sq, Sk) that an LM path
+     launched (yi-6b's 512-token prefill, gemma3-27b's 2048-token
+     window-1024 and causal layers, qwen2-moe-a2.7b's 512-token layer,
+     recurrentgemma-2b's D-256 layer, whisper-small's encoder, decoder
+     and cross layers, llama-3.2-vision-90b's self and cross layers),
      each beside one PyTorch call of the same function
-     (scaled_dot_product_attention, with the causal and window band as a
-     boolean mask at the window layer; timed here only), and its
-     CUDA-core kernel once at yi-6b's call; the fused_delta footprint's
-     worst-case bound beside the fused_delta row;
+     (scaled_dot_product_attention, with the window band as a boolean
+     mask at a window layer; timed here only), and its CUDA-core kernel
+     once at yi-6b's call and once at recurrentgemma-2b's; the
+     fused_delta footprint's worst-case bound beside the fused_delta row;
   6. prints one JSON line of per-kernel results, then the one-line device
      record as the last line.
 
@@ -233,6 +258,10 @@ PATH_KERNELS = {
     "lm-yi-6b": ("flash_attention",),
     "lm-gemma3-27b": ("flash_attention",),
     "lm-qwen2-moe-a2.7b": ("flash_attention",),
+    "lm-recurrentgemma-2b": ("flash_attention",),
+    "lm-mamba2-370m": (),           # attention-free: no kernel on its path
+    "lm-whisper-small": ("flash_attention",),
+    "lm-llama-3.2-vision-90b": ("flash_attention",),
 }
 # flash attention at the LM paths' shapes on standard-normal inputs: the
 # largest ||kernel - plain|| / ||plain|| over output rows (one query, one
@@ -318,7 +347,7 @@ def wall_ms(fn, setup=None, reps=30):
     return statistics.median(samples)
 
 
-def device_ms(fn, kernel, setup=None, reps=20, launches_kernel=True):
+def device_ms(fn, kernel, setup=None, reps=20, launches=1):
     """Time on the card per call of ``fn``, from a torch.profiler trace:
     (all device work that the call launched, that of the kernels whose
     name holds ``kernel``, launches of those kernels per call).
@@ -326,17 +355,18 @@ def device_ms(fn, kernel, setup=None, reps=20, launches_kernel=True):
     Each call runs inside its own ``record_function`` range; the device
     work of a call is every kernel, copy and fill linked to that range or
     to an op inside it; kernels launched through ctypes are linked to no
-    range.  The trace can lose an event or two of a run, so the work
-    other than ``kernel`` is the mean over the calls whose ranges hold
-    the most device work items (the whole calls), and ``kernel``'s is
-    the mean of its events in the trace times its launches per call (the
-    whole number nearest to its events per call).  ``setup`` runs before
-    each call, outside the range.  The third value is the events of
+    range.  The trace loses events of a window (up to half of a
+    one-launch kernel's), so the work other than ``kernel`` is the mean
+    over the calls whose ranges hold the most device work items (the
+    whole calls), and ``kernel``'s is the mean of its events in the trace
+    times ``launches``, the launches of it that one call of ``fn`` makes
+    (0 for a function that launches none).  ``setup`` runs before each
+    call, outside the range.  The third value is the events of
     ``kernel`` that the trace holds per call, the fourth the device ops
     (kernels, copies, fills) that one whole call enqueues.  A trace that
-    holds no device event, or none of ``kernel`` where ``fn`` launches it
-    (``launches_kernel``), is taken again, up to PROFILE_ATTEMPTS
-    windows: now and then a trace comes back without them."""
+    holds no device event, or none of ``kernel`` where ``fn`` launches
+    it, is taken again, up to PROFILE_ATTEMPTS windows: now and then a
+    trace comes back without them."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     for _ in range(3):
@@ -356,8 +386,7 @@ def device_ms(fn, kernel, setup=None, reps=20, launches_kernel=True):
         events = prof.events()
         names = [e.name for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names and (not launches_kernel
-                      or any(kernel in n for n in names)):
+        if names and (not launches or any(kernel in n for n in names)):
             break
         print(f"profiler: no device event{' of ' + kernel if names else ''}"
               f" in the trace (attempt {attempt + 1} of "
@@ -378,7 +407,6 @@ def device_ms(fn, kernel, setup=None, reps=20, launches_kernel=True):
     own = [e.time_range.elapsed_us() for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA
            and kernel in e.name]
-    launches = round(len(own) / reps)
     own_us = sum(own) / len(own) * launches if own else 0.0
     other_us = sum(map(sum, whole)) / len(whole)
     return ((other_us + own_us) / 1e3, own_us / 1e3, len(own) / reps,
@@ -706,12 +734,19 @@ def edge_cases(dev):
 # then ragged S, Sq < Sk, Sq > Sk (causal: rows that see no key), D 16,
 # then the LM paths' own prefill shapes (FLASH_LM_SHAPES): yi-6b's,
 # gemma3-27b's local (window 1024) and global layers, qwen2-moe-a2.7b's
-# (MHA: 16 heads over 16)
+# (MHA: 16 heads over 16), recurrentgemma-2b's (D 256, 10 heads over 1,
+# window 2048 over 512 tokens), whisper-small's encoder (1536 frames, not
+# causal) and cross layer (192 over 1536), llama-3.2-vision-90b's cross
+# layer (512 over 6404 vision tokens)
 FLASH_LM_SHAPES = (
     (1, 512, 512, 32, 4, 128, True, 0),
     (1, 2048, 2048, 32, 16, 128, True, 1024),
     (1, 2048, 2048, 32, 16, 128, True, 0),
     (1, 512, 512, 16, 16, 128, True, 0),
+    (1, 512, 512, 10, 1, 256, True, 2048),
+    (1, 1536, 1536, 12, 12, 64, False, 0),
+    (1, 192, 1536, 12, 12, 64, False, 0),
+    (1, 512, 6404, 64, 8, 128, False, 0),
 )
 FLASH_EDGE = (
     (1, 128, 128, 4, 4, 64, True, 0), (2, 256, 256, 8, 2, 64, True, 0),
@@ -1854,16 +1889,32 @@ LM_PATHS = {
     "lm-gemma3-27b": ("gemma3-27b", 7, 4, 4096, 2048, 4, (256, 2048), 16),
     "lm-qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", None, 8, 1024, 512, 16,
                            (64, 512), 32),
+    "lm-recurrentgemma-2b": ("recurrentgemma-2b", None, 8, 1024, 512, 16,
+                             (64, 512), 32),
+    "lm-mamba2-370m": ("mamba2-370m", None, 8, 1024, 512, 16, (64, 512),
+                       32),
+    # 192 decoder tokens hear 1536 zero frames (whisper's 30 s of audio
+    # are 1500); max_seq 448 is whisper's decoder context
+    "lm-whisper-small": ("whisper-small", None, 8, 448, 192, 16, (16, 192),
+                         32),
+    # depth cut 100 -> 20 layers (4 groups of 4 self + 1 cross): the
+    # whole model is 181 GB in bf16, the cut one 40 GB
+    "lm-llama-3.2-vision-90b": ("llama-3.2-vision-90b", 20, 4, 1024, 512,
+                                8, (64, 512), 16),
 }
 # every prefill layer of the server under test, re-run with the plain
 # attention from the server's own input to that layer: max |kernel path -
 # plain path| <= LM_REL_TOL * max |plain path|, outputs and K/V; of a MoE
-# layer, the residual after the attention (the input of its MoE block)
+# layer, the residual after the attention (the input of its MoE block);
+# a recurrent or SSD layer (no kernel) bit-equal
 LM_REL_TOL = 2e-2
 LM_PROFILED_BEAT = 1       # an admission beat after the first
 # the decode-only beats of these paths: the graphed step's logits against
-# an eager run of the same step, relative to the logits' largest magnitude
-LM_EAGER_PATHS = ("lm-yi-6b", "lm-qwen2-moe-a2.7b")
+# an eager run of the same step from the cache as it stood before the
+# step, relative to the logits' largest magnitude
+LM_EAGER_PATHS = ("lm-yi-6b", "lm-qwen2-moe-a2.7b", "lm-recurrentgemma-2b",
+                  "lm-mamba2-370m", "lm-whisper-small",
+                  "lm-llama-3.2-vision-90b")
 LM_EAGER_REL_TOL = 1e-3
 
 
@@ -1891,17 +1942,19 @@ class StepRecorder:
         return out
 
 
-def eager_step_check(srv, what):
-    """The decode step that the graph just replayed, run again eagerly
-    on a copy of the cache with the same token and position buffers:
-    greedy tokens equal, logits within LM_EAGER_REL_TOL of scale (the
-    step writes its own K/V before its attention reads them, so the
-    cache after the step serves as the cache before it).  Returns the
-    relative error."""
+def clone_cache(cache):
+    return {k: {f: t.clone() for f, t in e.items()} for k, e in
+            cache.items()}
+
+
+def eager_step_check(srv, before, what):
+    """The decode step that the graph just replayed, run again eagerly on
+    ``before`` (a copy of the cache taken before the step: a recurrent
+    layer's state moves on with every step) with the same token and
+    position buffers: greedy tokens equal, logits within LM_EAGER_REL_TOL
+    of scale.  Returns the relative error."""
     import torch
-    cache = {k: {f: t.clone() for f, t in e.items()}
-             for k, e in srv.cache.items()}
-    want, _ = srv._decode(srv.params, cache, srv._tokens, srv._positions)
+    want, _ = srv._decode(srv.params, before, srv._tokens, srv._positions)
     got = srv._logits
     if not torch.equal(got.argmax(-1), want.argmax(-1)):
         fail(f"{what}: graphed decode's greedy tokens "
@@ -1958,8 +2011,10 @@ class LayerRecorder:
         same input), and the tokens that the plain-attention residual
         routes to another expert set are counted (a bf16 difference can
         flip a near-tie route, and move a token by a whole expert's
-        output: information, not a gate).  Returns (the largest relative
-        error, the layer count, tokens routed otherwise, tokens routed)."""
+        output: information, not a gate).  A recurrent or SSD layer runs
+        no kernel: its re-run must equal its output bit for bit.  Returns
+        (the largest relative error, the layer count, tokens routed
+        otherwise, tokens routed)."""
         import torch
         from repro_torch.models import moe
         from repro_torch.models.common import apply_norm
@@ -1968,6 +2023,10 @@ class LayerRecorder:
             p, spec, cfg = args[0], args[1], args[3]
             if not spec.moe:
                 x2, _ = self.orig(*args[:-1], "torch")
+                if spec.kind in ("rec", "ssm") and not torch.equal(x, x2):
+                    fail(f"{what}: a {spec.kind} layer re-run from the "
+                         f"server's own input differs from the server's "
+                         f"output (max abs {max_abs_err(x, x2)})")
                 worst = max(worst, rel_err(x, x2))
                 continue
             r, y = mlp
@@ -2007,13 +2066,17 @@ def rel_err(a, b):
 
 
 def layer_divergence(c1, c2):
-    """Relative error of each layer's cached K between two prefills, in
-    layer order (group layers, then leftovers)."""
+    """Relative error of each layer's cached K (a recurrent layer's h, an
+    SSD layer's state) between two prefills, in layer order (group
+    layers, then leftovers)."""
+    def field(entry):
+        return next(f for f in ("k", "h", "state") if f in entry)
     out = []
     for key in sorted(k for k in c1 if k.startswith("g")):
-        for layer in range(c1[key]["k"].shape[0]):
-            out.append(rel_err(c1[key]["k"][layer], c2[key]["k"][layer]))
-    return out + [rel_err(c1[k]["k"], c2[k]["k"])
+        f = field(c1[key])
+        for layer in range(c1[key][f].shape[0]):
+            out.append(rel_err(c1[key][f][layer], c2[key][f][layer]))
+    return out + [rel_err(c1[k][field(c1[k])], c2[k][field(c1[k])])
                   for k in sorted(k for k in c1 if k.startswith("x"))]
 
 
@@ -2027,8 +2090,8 @@ def lm_path(dev, name, recorded):
     nothing: it only measures how far the two diverge end to end.  On the
     LM_EAGER_PATHS every decode-only beat's graphed step is held to its
     eager re-run.  Returns the beat log and the path's summary;
-    per (causal, window), ``recorded[name]`` gets the path's count of
-    flash-attention calls and the first such call of the profiled
+    per (causal, window, Sq, Sk), ``recorded[name]`` gets the path's count
+    of flash-attention calls and the first such call of the profiled
     beat."""
     import dataclasses
     import numpy as np
@@ -2036,12 +2099,19 @@ def lm_path(dev, name, recorded):
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
     from repro_torch.serving import CycleServer
 
     arch, depth, cap, max_seq, plen, n_req, (lo, hi), new = LM_PATHS[name]
     cfg = get_config(arch)
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth)
+    # prefill sublayers an admission runs (an encoder's too), and those of
+    # them that attend (attention, cross): one flash launch each
+    specs = [s for prog in (transformer.build_program(cfg),) + ((
+        transformer.build_encoder_program(cfg),) if cfg.enc_dec else ())
+        for s in prog.group * prog.n_groups + prog.leftover]
+    attending = sum(s.kind in ("attn", "cross") for s in specs)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     srv = CycleServer(cfg, capacity=cap, max_seq=max_seq, prefill_len=plen,
@@ -2088,13 +2158,15 @@ def lm_path(dev, name, recorded):
             beat > LM_PROFILED_BEAT and decode_only and not decode_profiled)
         decode_profiled |= profiled and beat > LM_PROFILED_BEAT
         def recording(q, k, v, _keep=beat == LM_PROFILED_BEAT, **kw):
-            call = mine.setdefault((kw["causal"], kw["window"]),
-                                   {"launches": 0})
+            call = mine.setdefault((kw["causal"], kw["window"], q.shape[1],
+                                    k.shape[1]), {"launches": 0})
             call["launches"] += 1
             if _keep and "q" not in call:
                 call.update(q=q.clone(), k=k.clone(), v=v.clone(), **kw)
             return plain_fa(q, k, v, **kw)
         fa.flash_attention = recording
+        before = clone_cache(srv.cache) \
+            if name in LM_EAGER_PATHS and decode_only else None
         torch.cuda.synchronize()
         prof = beat_profiler() if profiled else contextlib.nullcontext()
         try:
@@ -2128,16 +2200,17 @@ def lm_path(dev, name, recorded):
         w, n, flips, r = layers.replay_plain(what)
         route_flips, routed = route_flips + flips, routed + r
         n_layer_checks += n
-        if n != cfg.n_layers * admitted:
+        if n != len(specs) * admitted:
             fail(f"{what}: {n} prefill layers recorded for {admitted} "
                  f"admissions")
         worst = max(worst, w)
         if w > LM_REL_TOL:
             fail(f"{what}: prefill layer outputs vs their plain re-run "
                  f"{w} > {LM_REL_TOL} of scale")
-        if name in LM_EAGER_PATHS and admitted == 0:
-            eager_err = max(eager_err, eager_step_check(srv, what))
+        if before is not None and admitted == 0:
+            eager_err = max(eager_err, eager_step_check(srv, before, what))
             eager_checks += 1
+        before = None
         # the twin's beat, timed (and profiled) like the server's; it
         # admits the same requests on the same beats: the schedule does
         # not depend on the logits (no EOS, fixed lengths)
@@ -2170,14 +2243,14 @@ def lm_path(dev, name, recorded):
             fail(f"{what}: non-finite decode logits")
         admissions += admitted
         beat += 1
-    if K.LAUNCHES["flash_attention"] != cfg.n_layers * admissions:
+    if K.LAUNCHES["flash_attention"] != attending * admissions:
         fail(f"{name}: {K.LAUNCHES['flash_attention']} flash_attention "
-             f"launches for {admissions} admissions of {cfg.n_layers} "
-             f"layers")
-    if K.FLASH_ROUTE_LAUNCHES["wgmma"] != cfg.n_layers * admissions:
+             f"launches for {admissions} admissions of {attending} "
+             f"attending layers")
+    if K.FLASH_ROUTE_LAUNCHES["wgmma"] != attending * admissions:
         fail(f"{name}: the tensor-core flash_attention kernel launched "
              f"{K.FLASH_ROUTE_LAUNCHES['wgmma']} times for {admissions} "
-             f"admissions of {cfg.n_layers} layers")
+             f"admissions of {attending} attending layers")
     if name in LM_EAGER_PATHS and not eager_checks:
         fail(f"{name}: no decode-only beat held to the eager step")
     for r in reqs:
@@ -2186,6 +2259,8 @@ def lm_path(dev, name, recorded):
                  f"(truncated={r.truncated})")
     tokens = sum(len(r.output) for r in reqs)
     summary = {"path": name, "arch": arch, "layers": cfg.n_layers,
+               "prefill_sublayers": len(specs),
+               "attending_sublayers": attending,
                "params": count_params(srv.params), "init_s": init_s,
                "admissions": admissions, "beats": beat,
                "beats_s": own_s, "tokens": tokens,
@@ -2225,8 +2300,10 @@ def lm_model_flops(cfg, capacity, prefill_len, log):
         if not (e["graphed"] and e["profiled"]) or not e["device_events"]:
             continue
         kind = "admission" if e["admitted"] else "decode-only"
+        # an enc-dec model's prefill shape counts the frames it hears
+        seq = prefill_len * (cfg.dec_ratio if cfg.enc_dec else 1)
         flops = decode + (model_flops(cfg, ShapeSpec(
-            "prefill", prefill_len, e["admitted"], "prefill"))
+            "prefill", seq, e["admitted"], "prefill"))
             if e["admitted"] else 0.0)
         out[kind] = {"beat": e["beat"], "admitted": e["admitted"],
                      "model_flops": flops,
@@ -2304,12 +2381,12 @@ def kernel_rows(calls, launches, attn):
         err = max_abs_err(got, want)
         b, by = bound_ms(*work)
         ms, kernel_ms, per_call, ops = device_ms(kern, KERNEL_SYMBOLS[name],
-                                                 setup)
+                                                 setup, launches=calls)
         plain_ms = device_ms(plain, KERNEL_SYMBOLS[name], setup,
-                             launches_kernel=False)[0]
+                             launches=0)[0]
         library_ms = None if library is None else \
             device_ms(library, "no kernel of this repository",
-                      launches_kernel=False)[0]
+                      launches=0)[0]
         if per_call == 0:
             fail(f"{name}: the profiler saw no launch of the kernel")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2486,18 +2563,25 @@ def kernel_rows(calls, launches, attn):
         lambda: fused_delta.delta_join(dj), "delta_join", flush)
 
     # flash_attention: the first recorded prefill call of yi-6b (B 1, S
-    # 512, H 32, KV 4, D 128, bf16, causal) is the row; gemma3-27b's
-    # 2048-token window-1024 and causal layers and qwen2-moe-a2.7b's
-    # 512-token layer (H 16 over 16 KV heads) ride along in "shapes"
+    # 512, H 32, KV 4, D 128, bf16, causal) is the row; every other
+    # (causal, window, Sq, Sk) that an LM path launched rides along in
+    # "shapes": gemma3-27b's 2048-token window-1024 and causal layers,
+    # qwen2-moe-a2.7b's 512-token layer (H 16 over 16 KV heads),
+    # recurrentgemma-2b's (D 256, 10 heads over 1, window 2048), whisper-
+    # small's encoder (1536, not causal), decoder (192, causal) and cross
+    # (192 over 1536) layers, llama-3.2-vision-90b's self (512, causal)
+    # and cross (512 over 6404) layers
     from repro_torch import kernels as K
     from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    calls_fa = [("yi-6b 512 causal", attn["lm-yi-6b"][(True, 0)]),
-                ("gemma3-27b 2048 window 1024",
-                 attn["lm-gemma3-27b"][(True, 1024)]),
-                ("gemma3-27b 2048 causal", attn["lm-gemma3-27b"][(True, 0)]),
-                ("qwen2-moe-a2.7b 512 causal (MHA)",
-                 attn["lm-qwen2-moe-a2.7b"][(True, 0)])]
+
+    def call_label(path, causal, window, Sq, Sk):
+        size = f"{Sq}" if Sq == Sk else f"{Sq} over {Sk}"
+        kind = (f"window {window}" if window else "causal" if causal
+                else "not causal")
+        return f"{path[3:]} {size} {kind}"
+    calls_fa = [(call_label(path, *key), c) for path in LM_PATHS
+                for key, c in attn.get(path, {}).items()]
     shapes = []
     for label, c in calls_fa:
         q, k, v = c["q"], c["k"], c["v"]
@@ -2519,46 +2603,52 @@ def kernel_rows(calls, launches, attn):
                 fail(f"flash_attention ({label}): max abs err "
                      f"{max_abs_err(g, w)}")
         # SDPA on the same inputs in its [B, H, S, D] view: is_causal for
-        # a causal call, else the visible band as a boolean mask (built
-        # here, outside the timed call); checked like the kernel
+        # a causal call, no mask for a call that sees every key, else the
+        # visible band as a boolean mask (built here, outside the timed
+        # call); checked like the kernel
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        band = None if causal and not window else \
+        band = None if not window else \
             visible(q.shape[1], k.shape[1], causal, window, q.device)
 
-        def library(qt=qt, kt=kt, vt=vt, band=band):
-            return sdpa(qt, kt, vt, attn_mask=band, is_causal=band is None,
-                        enable_gqa=True)
+        def library(qt=qt, kt=kt, vt=vt, band=band, causal=causal):
+            return sdpa(qt, kt, vt, attn_mask=band,
+                        is_causal=causal and band is None, enable_gqa=True)
         fa_check(library().transpose(1, 2), plain(), label="SDPA, " + label)
         m = measure("flash_attention", kern, plain, fa_check, work,
                     library=library)
         m["launches"] = c["launches"]
         m["loss_ms"] = c["launches"] * (m["ms"] - m["bound_ms"])
-        shapes.append(dict(shape=label, **m))
+        shapes.append(dict(shape=label, head_dim=q.shape[3],
+                           query_tile=fa.tiles("wgmma", q.shape[3])[0], **m))
     line("flash_attention", {k2: v2 for k2, v2 in shapes[0].items()
-                             if k2 not in ("shape", "launches")},
+                             if k2 not in ("shape", "launches", "head_dim",
+                                           "query_tile")},
          loss_ms=sum(x["loss_ms"] for x in shapes), shapes=shapes)
 
-    # the CUDA-core kernel on yi-6b's call, straight through its launcher:
-    # timed, and compared, never counted
-    c = calls_fa[0][1]
-    q, k, v, causal, window = c["q"], c["k"], c["v"], c["causal"], c["window"]
+    # the CUDA-core kernel on yi-6b's call and on recurrentgemma-2b's (D
+    # 256), straight through its launcher: timed, and compared, never
+    # counted
+    for at, (lbl, c) in (("", calls_fa[0]), ("_d256", next(
+            x for x in calls_fa if x[1]["q"].shape[3] == 256))):
+        q, k, v = c["q"], c["k"], c["v"]
+        causal, window = c["causal"], c["window"]
 
-    def simt():
-        B, Sq, H, D = q.shape
-        out = torch.empty_like(q)
-        K.check_launch(K.library().shareddb_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            k.shape[1], H, k.shape[2], D, int(causal), int(window), 1,
-            fa.q_tiles(Sq, fa.TILES["simt"][0]), K.stream_of(q)),
-            "flash_attention (simt)")
-        return out
-    if not torch.allclose(simt().float(), ref.flash_attention_ref(
-            q, k, v, causal=causal, window=window).float(), rtol=2e-2,
-            atol=1e-1):
-        fail(f"flash_attention (simt, {calls_fa[0][0]}) disagrees with its "
-             f"plain version")
-    rows[-1]["simt_ms"], rows[-1]["simt_kernel_ms"] = device_ms(
-        simt, FLASH_SIMT_SYMBOL)[:2]
+        def simt(q=q, k=k, v=v, causal=causal, window=window):
+            B, Sq, H, D = q.shape
+            out = torch.empty_like(q)
+            K.check_launch(K.library().shareddb_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                Sq, k.shape[1], H, k.shape[2], D, int(causal), int(window),
+                1, fa.q_tiles(Sq, fa.TILES["simt"][0]), K.stream_of(q)),
+                "flash_attention (simt)")
+            return out
+        if not torch.allclose(simt().float(), ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window).float(), rtol=2e-2,
+                atol=1e-1):
+            fail(f"flash_attention (simt, {lbl}) disagrees with its plain "
+                 f"version")
+        rows[-1][f"simt{at}_ms"], rows[-1][f"simt{at}_kernel_ms"] = \
+            device_ms(simt, FLASH_SIMT_SYMBOL)[:2]
     if sum(x["launches"] for x in shapes) != launches["flash_attention"]:
         fail("flash_attention: the recorded shapes do not cover every "
              "launch of the main path")
@@ -2636,9 +2726,11 @@ def flash_build_report(lib):
     from repro_torch import kernels as K
     sym = KERNEL_SYMBOLS["flash_attention"]
     log = (lib.parent / "ptxas.log").read_text().splitlines()
+    def head_dim(fn):
+        return next(D for D in (256, 128, 64) if f"ILi{D}E" in fn)
     for i, line in enumerate(log):
         if "Compiling entry" in line and sym in line:
-            D = 128 if "ILi128E" in line else 64
+            D = head_dim(line)
             props = "; ".join(x.split("ptxas info    :")[-1].strip()
                               for x in log[i + 1:i + 4]
                               if "spill" in x or "registers" in x)
@@ -2657,8 +2749,7 @@ def flash_build_report(lib):
             fn = line.split("Function :")[-1].strip()
         elif "HGMMA" in line and fn is not None:
             counts[fn] = counts.get(fn, 0) + 1
-    ours = {("D 128" if "ILi128E" in f else "D 64"): n
-            for f, n in counts.items() if sym in f}
+    ours = {f"D {head_dim(f)}": n for f, n in counts.items() if sym in f}
     print(f"SASS: HGMMA instructions in {sym}: {json.dumps(ours)}; in the "
           f"whole library: {sum(counts.values())}")
     if not ours:

@@ -1,5 +1,6 @@
-// Flash attention for Hopper: causal / sliding-window GQA attention with
-// an online softmax, the LM server's prefill attention.
+// Flash attention for Hopper: causal, sliding-window or full (an
+// encoder's, a cross sublayer's) GQA attention with an online softmax,
+// the LM server's prefill attention.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
 // _kernel).  q [B,Sq,H,D], k/v [B,Sk,KV,D] -> o [B,Sq,H,D] in q's type;
@@ -15,7 +16,7 @@
 // Two kernels; the wrapper (flash_attention.py::route) picks one from the
 // dtype and D alone, and never retries on the other:
 //
-// flash_attention_wgmma_kernel (bf16, D 64 / 128: every dense LM config
+// flash_attention_wgmma_kernel (bf16, D 64 / 128 / 256: every LM config
 // the port serves).  What bounds it: at yi-6b's prefill (S 512, H 32, KV
 // 4, D 128, causal) bytes and FLOPs nearly tie on the card (9.4 MB of q,
 // k, v, o in 2.8 us at 3.35 TB/s; 2.2 GFLOP in 2.2 us at 989 TFLOP/s);
@@ -33,6 +34,9 @@
 // barriers), one's softmax runs under the other's products.  128-query
 // tiles over 64-key tiles; the grid launches the heaviest (last) causal
 // query tiles of every head first, so the tail of a wave is light tiles.
+// At D 256 (recurrentgemma's 10 heads over 1) a block holds one consumer
+// warpgroup and 64-query tiles (WgSmem: registers and shared memory), so
+// only the in-warpgroup overlap remains.
 //
 // flash_attention_simt_kernel (float32 at any D, bf16 at D 16 / 32): the
 // multiply-adds on the CUDA cores in float32 (67 TFLOP/s).  float32 stays
@@ -47,7 +51,8 @@
 //      turn the scores into probabilities;
 //   3. values: each thread keeps a 4 x D/16 patch of the accumulator in
 //      registers (32 floats at D = 128), rescales it and adds P.V.
-// About 116 KB of dynamic shared memory at D = 128: one block per SM.
+// About 116 KB of dynamic shared memory at D = 128, 215 KB at D = 256:
+// one block per SM.
 #include <cuda.h>
 #include <cuda_bf16.h>
 
@@ -288,27 +293,37 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
                                   window, n_qtiles, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal,
                                     window, n_qtiles, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, causal,
+                                    window, n_qtiles, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 
 // ---------------------------------------------------------------------------
-// The tensor-core route: bf16, D 64 or 128 (flash_attention_wgmma_kernel).
+// The tensor-core route: bf16, D 64, 128 or 256
+// (flash_attention_wgmma_kernel).
 // ---------------------------------------------------------------------------
 
-constexpr int kWgBlockQ = 128;      // two consumer warpgroups of 64 rows
 constexpr int kWgBlockK = 64;
 constexpr int kWgStages = 3;        // K/V ring depth
-constexpr int kWgConsumers = 2;
-constexpr int kWgThreads = kWgConsumers * 128 + 32;   // + one producer warp
 constexpr int kSwizzleCols = 64;    // bf16 columns in one 128-byte row
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The tensor-core kernel's geometry at head dim D: consumer warpgroups of
+// 64 query rows each, two at D 64 / 128 (128-query tiles), one at D 256
+// (64-query tiles): there a lane's float32 O accumulator alone is 128
+// registers, which fits beside the scores and P only in a block of one
+// consumer warpgroup and the producer warp (255 registers a thread, where
+// two consumers would cap them at 224), and the ring of three 64-key
+// stages of K and V (192 KB) leaves room for a 64-row Q tile only.
 template <int D>
 struct WgSmem {
+  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static constexpr int kBlockQ = 64 * kConsumers;     // query rows a block
+  static constexpr int kThreads = kConsumers * 128 + 32;  // + the producer
   static constexpr int kHalves = D / kSwizzleCols;
-  static constexpr int kQ = kWgBlockQ * D * 2;        // bytes of the Q tile
+  static constexpr int kQ = kBlockQ * D * 2;          // bytes of the Q tile
   static constexpr int kKV = kWgBlockK * D * 2;       // bytes of a K or V tile
   static constexpr int kBarOffset = kWgStages * kKV * 2 + kQ;
   // tiles, then 1 + 2 * stages mbarriers; + 1024 to align the base
@@ -317,14 +332,12 @@ struct WgSmem {
 };
 
 // Named barriers 1 + w (w = 0, 1) order the two consumer warpgroups'
-// wgmma issues; 0 is __syncthreads'.
+// wgmma issues (D 64 / 128); 0 is __syncthreads'.
 __device__ __forceinline__ void wg_turn_wait(int w) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "n"(kWgConsumers * 128)
-               : "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "n"(2 * 128) : "memory");
 }
 __device__ __forceinline__ void wg_turn_pass(int w) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + w), "n"(kWgConsumers * 128)
-               : "memory");
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + w), "n"(2 * 128) : "memory");
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -449,15 +462,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
 }
 
 // S = Q.K^T of one key tile (issued, not committed): m64n64k16 x D/16,
-// both operands K-major in shared memory, 16 columns = 32 bytes a step;
-// the first step overwrites sc.
-template <int D>
+// both operands K-major in shared memory (the Q tile's 64-column halves
+// of BQ rows each), 16 columns = 32 bytes a step; the first step
+// overwrites sc.
+template <int D, int BQ>
 __device__ __forceinline__ void issue_qk(float* sc, uint32_t qa, uint32_t kb) {
   constexpr int kRow = kSwizzleCols * 2;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int half = kk / 4, at = (kk % 4) * 32;
-    wgmma_ss_n64(sc, wg_desc(qa + half * kWgBlockQ * kRow + at, 16, 1024),
+    wgmma_ss_n64(sc, wg_desc(qa + half * BQ * kRow + at, 16, 1024),
                  wg_desc(kb + half * kWgBlockK * kRow + at, 16, 1024),
                  kk > 0);
   }
@@ -465,7 +479,9 @@ __device__ __forceinline__ void issue_qk(float* sc, uint32_t qa, uint32_t kb) {
 
 // O += P.V of one key tile (issued, not committed): m64nDk16 x 4, A = P
 // from registers, B = V read MN-major; 16 keys = 16 swizzled rows a step,
-// LBO steps to the next 64 columns of D.
+// LBO steps to the next 64 columns of D.  D 256 takes two m64n128k16 a
+// step, on columns 0-127 (acc[0..63]) and 128-255 (acc[64..127]): the
+// fragment stays the one of a 256-column accumulator.
 template <int D>
 __device__ __forceinline__ void issue_pv(float* acc, const uint32_t* pa,
                                          uint32_t vb) {
@@ -473,8 +489,16 @@ __device__ __forceinline__ void issue_pv(float* acc, const uint32_t* pa,
 #pragma unroll
   for (int kk = 0; kk < kWgBlockK / 16; ++kk) {
     const uint64_t db = wg_desc(vb + kk * 16 * kRow, kWgBlockK * kRow, 1024);
-    if constexpr (D == 128) wgmma_rs_n128(acc, pa + 4 * kk, db);
-    else wgmma_rs_n64(acc, pa + 4 * kk, db);
+    if constexpr (D == 256) {
+      wgmma_rs_n128(acc, pa + 4 * kk, db);
+      wgmma_rs_n128(acc + 64, pa + 4 * kk,
+                    wg_desc(vb + 2 * kWgBlockK * kRow + kk * 16 * kRow,
+                            kWgBlockK * kRow, 1024));
+    } else if constexpr (D == 128) {
+      wgmma_rs_n128(acc, pa + 4 * kk, db);
+    } else {
+      wgmma_rs_n64(acc, pa + 4 * kk, db);
+    }
   }
 }
 
@@ -536,8 +560,9 @@ __device__ __forceinline__ void to_a_fragment(const float* sc, uint32_t* pa,
   }
 }
 
-// One block: a (b*h, 128-query tile); warps 0-7 are two consumer
-// warpgroups of 64 query rows each, warp 8 the producer.  The producer
+// One block: a (b*h, query tile of L::kBlockQ rows); warps 0-7 are two
+// consumer warpgroups of 64 query rows each (D 64 / 128; at D 256 warps
+// 0-3 are the one consumer warpgroup), the next warp the producer.  The producer
 // loads the Q tile once and the K / V tiles of key_tile_range into a ring
 // of kWgStages stages (TMA, 128-byte swizzle, one "full" mbarrier per
 // stage); each consumer warp frees a stage (its "empty" mbarrier) once its
@@ -556,7 +581,7 @@ __device__ __forceinline__ void to_a_fragment(const float* sc, uint32_t* pa,
 // round have completed: a register that a wgmma in flight may read and
 // that other instructions write makes ptxas serialise every wgmma.
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(WgSmem<D>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
@@ -567,7 +592,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kRow = kSwizzleCols * 2;           // bytes of a swizzled row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sQ = base;                        // [D/64][128 rows][64]
+  const uint32_t sQ = base;                        // [D/64][kBlockQ][64]
   const uint32_t sK = sQ + L::kQ;                  // stage s: + s * kKV
   const uint32_t sV = sK + kWgStages * L::kKV;     // [D/64][64 keys][64]
   const uint32_t bar_q = base + L::kBarOffset;
@@ -579,24 +604,24 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int qt = gridDim.y - 1 - blockIdx.y;       // heaviest tiles first
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
   int j_lo, j_hi;
-  key_tile_range<kWgBlockQ, kWgBlockK>(qt, Sq, Sk, causal, window, &j_lo,
-                                       &j_hi);
+  key_tile_range<L::kBlockQ, kWgBlockK>(qt, Sq, Sk, causal, window, &j_lo,
+                                        &j_hi);
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kWgStages; ++s) {
       mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, kWgConsumers * 4);
+      mbar_init(bar_empty + 8 * s, L::kConsumers * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == kWgConsumers * 4) {                  // the producer warp
+  if (warp == L::kConsumers * 4) {                 // the producer warp
     if (lane == 0) {
       mbar_expect_tx(bar_q, L::kQ);
       for (int half = 0; half < L::kHalves; ++half)
-        tma_load(sQ + half * kWgBlockQ * kRow, &tq, half * kSwizzleCols, h,
-                 qt * kWgBlockQ, b, bar_q);
+        tma_load(sQ + half * L::kBlockQ * kRow, &tq, half * kSwizzleCols, h,
+                 qt * L::kBlockQ, b, bar_q);
       for (int j = j_lo; j < j_hi; ++j) {
         const int n = j - j_lo, s = n % kWgStages;
         if (n >= kWgStages)
@@ -617,7 +642,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int wg = warp / 4;
   const int off = Sk - Sq;
-  const int q0 = qt * kWgBlockQ + wg * 64;         // the warpgroup's row 0
+  const int q0 = qt * L::kBlockQ + wg * 64;        // the warpgroup's row 0
   const int r0 = q0 + (warp % 4) * 16 + lane / 4;  // this lane: r0, r0 + 8
   const int c0 = (lane % 4) * 2;                   // its column pair
   float acc[D / 2];                                // O, fragment as S's
@@ -631,7 +656,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float sc[32];
     mbar_wait(bar_full, 0);
     wg_fence();
-    issue_qk<D>(sc, qa, sK);
+    issue_qk<D, L::kBlockQ>(sc, qa, sK);
     wg_commit();
     wg_wait<0>();
     fence_regs<32>(sc);
@@ -644,15 +669,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // enters wgmma's registers only once both products are done.  The two
   // warpgroups take turns to issue (warpgroup 0 first), so one's softmax
   // runs under the other's products.
-  if (wg == 1 && j_hi - j_lo > 1) wg_turn_pass(0);
+  constexpr bool kTurns = L::kConsumers == 2;
+  if (kTurns && wg == 1 && j_hi - j_lo > 1) wg_turn_pass(0);
   for (int j = j_lo + 1; j < j_hi; ++j) {
     const int n = j - j_lo, s = n % kWgStages;
     const int prev = (n - 1) % kWgStages;
     float sc[32];
     mbar_wait(bar_full + 8 * s, (n / kWgStages) & 1);
-    wg_turn_wait(wg);
+    if (kTurns) wg_turn_wait(wg);
     wg_fence();
-    issue_qk<D>(sc, qa, sK + s * L::kKV);
+    issue_qk<D, L::kBlockQ>(sc, qa, sK + s * L::kKV);
     wg_commit();
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
@@ -660,7 +686,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
     issue_pv<D>(acc, pa, sV + prev * L::kKV);
     wg_commit();
-    if (wg == 0 || j + 1 < j_hi) wg_turn_pass(1 - wg);
+    if (kTurns && (wg == 0 || j + 1 < j_hi)) wg_turn_pass(1 - wg);
     wg_wait<1>();
     fence_regs<32>(sc);
     softmax_tile(sc, m, l, corr, j * kWgBlockK, q0, r0, c0, off, Sk,
@@ -753,17 +779,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int Sq, int Sk, int H, int KV, int causal, int window,
                  int n_qtiles, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = encode_map(&tq, q, B, Sq, H, D, kWgBlockQ);
+  using L = WgSmem<D>;
+  int err = encode_map(&tq, q, B, Sq, H, D, L::kBlockQ);
   if (!err) err = encode_map(&tk, k, B, Sk, KV, D, kWgBlockK);
   if (!err) err = encode_map(&tv, v, B, Sk, KV, D, kWgBlockK);
   if (err) return err;
-  constexpr size_t smem = WgSmem<D>::kBytes;
+  constexpr size_t smem = L::kBytes;
   auto kernel = flash_attention_wgmma_kernel<D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (attr != cudaSuccess) return int(attr);
   const dim3 grid(B * H, n_qtiles);
-  kernel<<<grid, kWgThreads, smem, stream>>>(
+  kernel<<<grid, L::kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, causal,
       window, kLog2e / sqrtf(float(D)));
   return int(cudaGetLastError());
@@ -772,7 +799,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 }  // namespace shareddb
 
-// is_bf16: 1 for bfloat16 q/k/v/o, 0 for float32.  n_qtiles = ceil(Sq/64).
+// is_bf16: 1 for bfloat16 q/k/v/o, 0 for float32; D 16, 32, 64, 128 or
+// 256.  n_qtiles = ceil(Sq/64).
 extern "C" int shareddb_flash_attention(const void* q, const void* k,
                                         const void* v, void* o, int B,
                                         int Sq, int Sk, int H, int KV, int D,
@@ -789,11 +817,14 @@ extern "C" int shareddb_flash_attention(const void* q, const void* k,
 // Dynamic shared memory of the tensor-core kernel at head dim D, bytes.
 extern "C" int shareddb_flash_attention_wgmma_smem(int D) {
   using namespace shareddb;
-  return D == 64 ? int(WgSmem<64>::kBytes)
-                 : D == 128 ? int(WgSmem<128>::kBytes) : 0;
+  return D == 64    ? int(WgSmem<64>::kBytes)
+         : D == 128 ? int(WgSmem<128>::kBytes)
+         : D == 256 ? int(WgSmem<256>::kBytes)
+                    : 0;
 }
 
-// bf16 q/k/v/o (16-byte aligned), D 64 or 128; n_qtiles = ceil(Sq/128).
+// bf16 q/k/v/o (16-byte aligned), D 64, 128 or 256; n_qtiles =
+// ceil(Sq/128) at D 64 / 128, ceil(Sq/64) at D 256.
 extern "C" int shareddb_flash_attention_wgmma(const void* q, const void* k,
                                               const void* v, void* o, int B,
                                               int Sq, int Sk, int H, int KV,
@@ -806,6 +837,9 @@ extern "C" int shareddb_flash_attention_wgmma(const void* q, const void* k,
                             n_qtiles, stream);
   if (D == 128)
     return launch_wgmma<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                             n_qtiles, stream);
+  if (D == 256)
+    return launch_wgmma<256>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
                              n_qtiles, stream);
   return int(cudaErrorInvalidValue);
 }

@@ -1,21 +1,22 @@
-"""Flash attention (causal / sliding-window, GQA): the LM server's prefill
-attention, every layer of every admission.
+"""Flash attention (causal, sliding-window or full, GQA): the LM server's
+prefill attention, every attention and cross layer of every admission
+(and every encoder layer of an encoder-decoder's).
 
 The kernels are in ``csrc/flash_attention.cu`` (they replace the JAX
 package's ``repro/kernels/flash_attention.py::flash_attention_pallas``).
 ``route`` picks one from the dtype and the head dim alone:
 
-- ``"wgmma"`` (bfloat16, D 64 / 128, every dense LM config the port
+- ``"wgmma"`` (bfloat16, D 64 / 128 / 256, every LM config the port
   serves): ``flash_attention_wgmma_kernel``, both products on the tensor
   cores (wgmma), K / V in a TMA-fed ring of shared-memory stages; one
-  block per (batch x head, 128-query tile) over 64-key tiles, P rounded
-  to bfloat16 for P.V.
+  block per (batch x head, 128-query tile; 64-query at D 256, ``tiles``)
+  over 64-key tiles, P rounded to bfloat16 for P.V.
 - ``"simt"`` (float32 at any D, bfloat16 at D 16 / 32):
   ``flash_attention_simt_kernel``, float32 multiply-adds on the CUDA
   cores; one block per (batch x head, 64-query tile) over 64-key tiles.
 
 Both loop over the key tiles that the query tile's causal or window range
-reaches (``key_tile_range``, with the route's ``TILES``), with the online
+reaches (``key_tile_range``, with the route's ``tiles``), with the online
 softmax's running max, sum and accumulator in float32.  Unlike the TPU
 kernel they take any ``Sq`` / ``Sk`` (ragged tails are masked) and skip
 key tiles that no row of the query tile can see, as the model's
@@ -33,19 +34,26 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import ref
 
-# (query tile, key tile) of each route: kBlockQ / kBlockK and kWgBlockQ /
-# kWgBlockK in csrc/flash_attention.cu
+# (query tile, key tile) of each route: kBlockQ / kBlockK and
+# WgSmem<D>::kBlockQ / kWgBlockK in csrc/flash_attention.cu; the
+# tensor-core route's at D 256 is WGMMA_D256_TILES (``tiles``)
 TILES = {"simt": (64, 64), "wgmma": (128, 64)}
-WGMMA_HEAD_DIMS = (64, 128)
-HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_D256_TILES = (64, 64)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535         # simt: B * H rides gridDim.y
 
 
 def route(dtype, D: int) -> str:
     """The kernel that a call of this dtype and head dim runs: "wgmma"
-    for bfloat16 at D 64 / 128, else "simt"."""
+    for bfloat16 at D 64 / 128 / 256, else "simt"."""
     return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
         else "simt"
+
+
+def tiles(kind: str, D: int) -> tuple:
+    """(query tile, key tile) of route ``kind`` at head dim ``D``."""
+    return WGMMA_D256_TILES if kind == "wgmma" and D == 256 else TILES[kind]
 
 
 def q_tiles(Sq: int, block_q: int) -> int:
@@ -119,7 +127,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     kind = route(q.dtype, D)
-    n_q = q_tiles(Sq, TILES[kind][0])
+    n_q = q_tiles(Sq, tiles(kind, D)[0])
     out = torch.empty_like(q)
     if kind == "wgmma":
         # TMA reads whole 16-byte units from each tensor's base

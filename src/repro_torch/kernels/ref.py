@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of every op the ``torch`` backend registers.
+"""Plain PyTorch versions of every op the ``torch`` backend registers,
+and of the flash-attention kernel and the SSD scan oracle.
 
 Each is the semantic ground truth its hand-written kernel is held
 against (``chip_smoke.py`` on the card, ``tests/test_torch_kernels.py``
@@ -171,3 +172,19 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     s = s.masked_fill(~ok[None, :, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqhk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C):
+    """The naive per-step Mamba-2 recurrence, the oracle of
+    ``models/ssm.ssd_chunked`` (no kernel computes it).  x [b,s,h,p],
+    dt [b,s,h], A [h], B / C [b,s,n] -> (y [b,s,h,p], final_state
+    [b,h,p,n]), from a zero float32 state."""
+    b, s, h, p = x.shape
+    state = x.new_zeros((b, h, p, B.shape[-1]), dtype=torch.float32)
+    ys = []
+    for t in range(s):
+        dA = torch.exp(dt[:, t] * A)                           # [b,h]
+        upd = torch.einsum("bn,bh,bhp->bhpn", B[:, t], dt[:, t], x[:, t])
+        state = state * dA[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t], state))
+    return torch.stack(ys, dim=1), state

@@ -3,6 +3,11 @@ the CUDA card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+
+Every LM configuration serves: dense, MoE, recurrent (recurrentgemma),
+SSD (mamba2), cross-attention (llama-vision: zero vision tokens) and
+encoder-decoder (whisper: zero frames).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --smoke --device cpu --requests 8
 """

@@ -146,12 +146,14 @@ def block_attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
     -> [B,Sq,H,D].
 
     Query i sits at position q_offset + i, which must be Sk - Sq (always
-    so in prefill); ``window`` > 0 keeps keys fewer than ``window``
-    positions back.  ``kernels="hopper"`` runs the flash-attention
-    kernel (its plain version on CPU tensors), ``"torch"`` the plain
-    version."""
+    so in prefill) when the call is causal or windowed; a call that is
+    neither (an encoder's, a cross sublayer's) sees every key, so its
+    query positions do not matter.  ``window`` > 0 keeps keys fewer than
+    ``window`` positions back.  ``kernels="hopper"`` runs the
+    flash-attention kernel (its plain version on CPU tensors),
+    ``"torch"`` the plain version."""
     Sq, Sk = q.shape[1], k.shape[1]
-    if int(q_offset) != Sk - Sq:
+    if (causal or window > 0) and int(q_offset) != Sk - Sq:
         raise ValueError(f"block_attention: q_offset {q_offset} != Sk - Sq "
                          f"= {Sk - Sq}; the kernel places query i at "
                          f"i + Sk - Sq")

@@ -1,5 +1,5 @@
-"""Model registry of the port: one API over the dense and MoE language
-models.
+"""Model registry of the port: one API over the language models (dense,
+MoE, recurrent, SSD, cross-attention and encoder-decoder).
 
 ``get_model(cfg)`` returns a :class:`ModelApi`:
 
@@ -7,6 +7,8 @@ models.
   prefill(params, batch, cache_capacity,
           last_pos)                         -> (last_logits, cache)
   decode_step(params, cache, tokens, pos)   -> (logits, cache)
+  init_cache(batch, capacity, ctx_len)      -> cache
+  ctx_len(seq_len) / dec_len(seq_len)       -> context / decoder length
 
 ``params_from_numpy`` carries the JAX package's parameter tree across.
 Training (``train_step``, the optimizer) and the dry-run's analytic specs
@@ -60,9 +62,27 @@ class ModelApi:
         return transformer.decode_step(params, caches, tokens, positions,
                                        self.cfg)
 
-    def init_cache(self, batch: int, capacity: int) -> dict:
+    def init_cache(self, batch: int, capacity: int,
+                   ctx_len: int = 0) -> dict:
         return transformer.init_cache(self.cfg, batch, capacity,
-                                      self.device)
+                                      self.device, ctx_len)
+
+    def ctx_len(self, seq_len: int) -> int:
+        """The cross sublayers' context length for a step of
+        ``seq_len``: the encoder's frames (enc-dec), the vision tokens
+        (cross), else 0."""
+        if self.cfg.enc_dec:
+            return seq_len
+        if self.cfg.cross_every:
+            return self.cfg.n_vision_tokens
+        return 0
+
+    def dec_len(self, seq_len: int) -> int:
+        """The decoder's length for a step of ``seq_len`` (an enc-dec
+        model decodes ``dec_ratio`` times fewer tokens than it hears)."""
+        if self.cfg.enc_dec:
+            return max(self.cfg.conv_kernel, seq_len // self.cfg.dec_ratio)
+        return seq_len
 
 
 def get_model(cfg: ArchConfig, *, device=None,

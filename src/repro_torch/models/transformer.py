@@ -1,6 +1,5 @@
-"""The dense decoder-only language model of the port: layer programs,
-init, prefill and one decode step (``repro.models.transformer``'s dense
-serving half).
+"""The language models of the port: layer programs, init, prefill and
+one decode step (``repro.models.transformer``'s serving half).
 
 A model compiles to a *layer program*: a group of sublayers repeated
 ``n_groups`` times plus optional leftover sublayers.
@@ -9,21 +8,33 @@ A model compiles to a *layer program*: a group of sublayers repeated
   gemma3 (5:1)        group = [attn(w)]*5 + [attn(0)]         x 10  + 2 local
   mixtral (MoE, SWA)  group = [attn(w, moe)]                  x L
   qwen2-moe           group = [attn(moe)]                     x L
+  llama-vision        group = [attn]*4 + [cross]              x 20
+  recurrentgemma      group = [rec, rec, attn(w)]             x 8   + 2 rec
+  mamba2              group = [ssm]                           x 48
+  whisper             encoder program [attn(non-causal)] x 12 under the
+                      ``enc_`` prefix + decoder [attn(no MLP), cross] x 12
 
 Parameters are plain nested dicts in the JAX package's layout: the
 group's sublayer ``idx`` lives under ``g{idx}`` with every leaf stacked,
 the layer axis first; leftover sublayer ``idx`` under ``x{idx}``; then
 ``embed``, ``unembed`` (untied only) and ``final_norm``.  Caches follow
-the same keys: ``k/v [n_groups, B, W, KV, D]`` and ``pos [n_groups, B,
-W]`` (-1 = empty slot) for group entries, the same without the layer axis
-for leftovers.  The group is a Python loop over layers (PyTorch runs
-eagerly; there is no scan and no remat).
+the same keys: an attention entry ``k/v [n_groups, B, W, KV, D]`` and
+``pos [n_groups, B, W]`` (-1 = empty slot), a cross entry ``k/v
+[n_groups, B, ctx_len, KV, D]`` (no ``pos``: every context position is
+visible), a ``rec`` entry ``conv [n_groups, B, K-1, d]`` and ``h
+[n_groups, B, d]``, an ``ssm`` entry ``conv [n_groups, B, K-1, conv_dim]``
+and ``state [n_groups, B, heads, head_dim, state]``; the same without the
+layer axis for leftovers.  The group is a Python loop over layers
+(PyTorch runs eagerly; there is no scan and no remat).
 
 A ``moe`` sublayer's MLP is the sort-dispatch MoE block
 (``models/moe.py``); its load-balance loss is discarded in prefill and
-decode, as the reference discards it.  The ``ssm``, ``rec``
-(recurrent), ``cross`` and encoder-decoder programs are not ported yet:
-``build_program`` raises for them (ROADMAP §1 item 12).  Training
+decode, as the reference discards it.  A cross sublayer attends, without
+RoPE, causality or window, to a context: the encoder's output of
+``batch["frames"]`` (whisper) or ``batch["vision"]`` projected
+(llama-vision).  The recurrent (``models/rglru.py``) and SSD
+(``models/ssm.py``) sublayers carry their state through prefill into the
+cache, right-padding included, as the reference's do.  Training
 (``loss_fn``) comes with the training slice.
 """
 from __future__ import annotations
@@ -35,6 +46,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru, ssm
 from repro_torch.models.common import (ParamStore, apply_norm, apply_rope,
                                        block_attention, decode_attention,
                                        rope_tables)
@@ -47,7 +59,7 @@ from repro_torch.models.common import (ParamStore, apply_norm, apply_rope,
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str               # attn (cross | rec | ssm: not ported yet)
+    kind: str               # attn | cross | rec | ssm
     window: int = 0         # 0 = full attention
     causal: bool = True
     moe: bool = False
@@ -66,15 +78,27 @@ class Program:
 
 
 def build_program(cfg: ArchConfig) -> Program:
-    """The attention programs, dense and MoE; raises NotImplementedError
-    for the programs the port does not have yet."""
-    kind = ("enc-dec" if cfg.enc_dec else "ssm" if cfg.family == "ssm"
-            else "rec" if cfg.rglru_pattern else "cross" if cfg.cross_every
-            else None)
-    if kind is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} layer program is not ported to "
-            f"repro_torch yet (ROADMAP.md §1 item 12)")
+    """The decoder's layer program (whisper's: ``build_decoder_program``)."""
+    if cfg.enc_dec:
+        return build_decoder_program(cfg)
+    if cfg.family == "ssm":
+        return Program(cfg.n_layers, (LayerSpec("ssm", has_mlp=False),))
+    if cfg.rglru_pattern:
+        kinds = {"rec": LayerSpec("rec", window=0),
+                 "attn": LayerSpec("attn", window=cfg.window)}
+        group = tuple(kinds[k] for k in cfg.rglru_pattern)
+        n = cfg.n_layers // len(group)
+        rest = cfg.n_layers - n * len(group)
+        leftover = tuple(kinds[k] for k in cfg.rglru_pattern[:rest])
+        return Program(n, group, leftover)
+    if cfg.cross_every:
+        per = cfg.cross_every
+        if cfg.n_layers % per:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not a "
+                             f"whole number of groups of {per}")
+        group = tuple([LayerSpec("attn", moe=cfg.moe is not None)]
+                      * (per - 1) + [LayerSpec("cross")])
+        return Program(cfg.n_layers // per, group)
     loc, glob = cfg.local_global
     is_moe = cfg.moe is not None
     if loc > 0 and glob > 0:
@@ -88,6 +112,17 @@ def build_program(cfg: ArchConfig) -> Program:
         return Program(n, group, leftover)
     return Program(cfg.n_layers,
                    (LayerSpec("attn", window=cfg.window, moe=is_moe),))
+
+
+def build_encoder_program(cfg: ArchConfig) -> Program:
+    return Program(cfg.n_enc_layers, (LayerSpec("attn", causal=False),))
+
+
+def build_decoder_program(cfg: ArchConfig) -> Program:
+    """An encoder-decoder's decoder layer: self-attention (no MLP), then
+    cross-attention with the MLP."""
+    return Program(cfg.n_layers,
+                   (LayerSpec("attn", has_mlp=False), LayerSpec("cross")))
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +152,12 @@ def _init_attn(store: ParamStore, cfg: ArchConfig):
 
 def _init_sublayer(store: ParamStore, spec: LayerSpec, cfg: ArchConfig):
     _init_norm(store, "norm", cfg.d_model, cfg.norm)
-    _init_attn(store.subtree("attn"), cfg)
+    if spec.kind in ("attn", "cross"):
+        _init_attn(store.subtree("attn"), cfg)
+    elif spec.kind == "rec":
+        rglru.init_rglru(store.subtree("rec"), cfg)
+    elif spec.kind == "ssm":
+        ssm.init_ssm(store.subtree("ssm"), cfg)
     if spec.has_mlp:
         _init_norm(store, "mlp_norm", cfg.d_model, cfg.norm)
         mstore = store.subtree("mlp")
@@ -139,15 +179,28 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig, device,
     if not cfg.tie_embeddings:
         store.add("unembed", (cfg.d_model, Vp), scale=0.02)
     _init_norm(store, "final_norm", cfg.d_model, cfg.norm)
-    prog = build_program(cfg)
+    _init_program(store, build_program(cfg), cfg, "")
+    if cfg.enc_dec:
+        store.add("w_frontend", (cfg.d_model, cfg.d_model))
+        _init_norm(store, "enc_final_norm", cfg.d_model, cfg.norm)
+        _init_program(store, build_encoder_program(cfg), cfg, "enc_")
+    if cfg.cross_every:
+        store.add("w_vision_proj", (cfg.d_model, cfg.d_model))
+    return store.params
+
+
+def _init_program(store: ParamStore, prog: Program, cfg: ArchConfig,
+                  prefix: str):
+    """The program's sublayers under ``{prefix}g{idx}`` (stacked) and
+    ``{prefix}x{idx}``."""
     if prog.n_groups:
         for idx, spec in enumerate(prog.group):
-            sub = ParamStore(generator, device, dtype, stack=prog.n_groups)
+            sub = ParamStore(store.generator, store.device, store.dtype,
+                             stack=prog.n_groups)
             _init_sublayer(sub, spec, cfg)
-            store.params[f"g{idx}"] = sub.params
+            store.params[f"{prefix}g{idx}"] = sub.params
     for idx, spec in enumerate(prog.leftover):
-        _init_sublayer(store.subtree(f"x{idx}"), spec, cfg)
-    return store.params
+        _init_sublayer(store.subtree(f"{prefix}x{idx}"), spec, cfg)
 
 
 def layer_params(tree, layer: int):
@@ -162,23 +215,29 @@ def layer_params(tree, layer: int):
 # ---------------------------------------------------------------------------
 
 
-def _qkv(p, x, cfg):
-    """-> q [B,S,H,hd], k, v [B,S,KV,hd]."""
+def _qkv(p, x, cfg, ctx=None):
+    """-> q [B,S,H,hd], k, v [B,Sk,KV,hd]: keys and values from ``ctx``
+    (a cross sublayer) or from ``x``."""
+    src = x if ctx is None else ctx
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
 
 
-def _attn_full(p, x, spec: LayerSpec, cfg, positions, kernels):
-    """Prefill attention.  Returns (out, (k, v)); k, v for the cache."""
-    q, k, v = _qkv(p, x, cfg)
-    sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
-    out = block_attention(q, k, v, causal=spec.causal, window=spec.window,
+def _attn_full(p, x, spec: LayerSpec, cfg, positions, kernels, ctx=None):
+    """Prefill attention.  Returns (out, (k, v)); k, v for the cache.
+    With a context (cross): no RoPE, not causal, no window."""
+    q, k, v = _qkv(p, x, cfg, ctx)
+    if ctx is None:
+        sin, cos = rope_tables(positions, cfg.resolved_head_dim,
+                               cfg.rope_theta)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    out = block_attention(q, k, v, causal=spec.causal and ctx is None,
+                          window=spec.window if ctx is None else 0,
                           kernels=kernels)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
 
@@ -200,6 +259,19 @@ def _attn_decode(p, x, spec: LayerSpec, cfg, cache, positions):
     out = decode_attention(q, cache["k"], cache["v"], cache["pos"],
                            positions, window=spec.window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+def _cross_decode(p, x, cfg, cache):
+    """Decode-time cross-attention against the context's (k, v), all of
+    it visible."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    k_c = cache["k"]
+    pos = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+    kv_pos = torch.zeros(k_c.shape[:2], dtype=torch.int32, device=x.device)
+    out = decode_attention(q, k_c, cache["v"], kv_pos, pos)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def _apply_mlp_part(p, spec: LayerSpec, x, cfg):
@@ -242,28 +314,65 @@ def _pack_kv_cache(k, v, spec: LayerSpec, capacity: int):
     return {"k": k_c, "v": v_c, "pos": pos_c}
 
 
-def _sublayer_attn(p, spec: LayerSpec, x, cfg, positions,
+def _sublayer_attn(p, spec: LayerSpec, x, cfg, positions, ctx,
                    cache_capacity: int, kernels: str):
-    """The attention half of a prefill sublayer.  Returns (the residual
-    after it, its cache entry)."""
+    """The token-mixing half of a prefill sublayer: attention, cross-
+    attention (to ``ctx``), RG-LRU or SSD.  Returns (the residual after
+    it, its cache entry; None when ``cache_capacity`` is 0, as for the
+    encoder)."""
     h = apply_norm(x, p["norm"], cfg.norm)
-    y, (k, v) = _attn_full(p["attn"], h, spec, cfg, positions, kernels)
-    return x + y, _pack_kv_cache(k, v, spec, cache_capacity)
+    if spec.kind in ("attn", "cross"):
+        y, (k, v) = _attn_full(p["attn"], h, spec, cfg, positions, kernels,
+                               ctx=ctx if spec.kind == "cross" else None)
+        entry = {"k": k, "v": v}
+    elif spec.kind == "rec":
+        y, (conv, hs) = rglru.apply_rglru(p["rec"], h, cfg)
+        entry = {"conv": conv, "h": hs}
+    elif spec.kind == "ssm":
+        y, (conv, st) = ssm.apply_ssm(p["ssm"], h, cfg)
+        entry = {"conv": conv, "state": st}
+    else:
+        raise ValueError(f"unknown sublayer kind {spec.kind!r}")
+    if not cache_capacity:
+        return x + y, None
+    if spec.kind == "attn":
+        entry = _pack_kv_cache(k, v, spec, cache_capacity)
+    return x + y, entry
 
 
-def _sublayer_train(p, spec: LayerSpec, x, cfg, positions,
+def _sublayer_train(p, spec: LayerSpec, x, cfg, positions, ctx,
                     cache_capacity: int, kernels: str):
     """One prefill sublayer.  Returns (x, its cache entry); a MoE
     block's aux loss is discarded."""
-    x, entry = _sublayer_attn(p, spec, x, cfg, positions, cache_capacity,
-                              kernels)
+    x, entry = _sublayer_attn(p, spec, x, cfg, positions, ctx,
+                              cache_capacity, kernels)
     x, _ = _apply_mlp_part(p, spec, x, cfg)
     return x, entry
 
 
 def _sublayer_decode(p, spec: LayerSpec, x, cfg, positions, cache):
+    """One decode sublayer.  Every state it updates (K/V and positions,
+    RG-LRU and SSD states) is written into ``cache`` IN PLACE, so a
+    captured step replays against the live cache."""
     h = apply_norm(x, p["norm"], cfg.norm)
-    y, cache = _attn_decode(p["attn"], h, spec, cfg, cache, positions)
+    if spec.kind == "attn":
+        y, _ = _attn_decode(p["attn"], h, spec, cfg, cache, positions)
+    elif spec.kind == "cross":
+        y = _cross_decode(p["attn"], h, cfg, cache)
+    elif spec.kind == "rec":
+        y, (conv, hs) = rglru.apply_rglru(
+            p["rec"], h, cfg, conv_state=cache["conv"], h_state=cache["h"],
+            decode=True)
+        cache["conv"].copy_(conv)
+        cache["h"].copy_(hs)
+    elif spec.kind == "ssm":
+        y, (conv, st) = ssm.apply_ssm(
+            p["ssm"], h, cfg, conv_state=cache["conv"],
+            ssd_state=cache["state"], decode=True)
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(st)
+    else:
+        raise ValueError(f"unknown sublayer kind {spec.kind!r}")
     x, _ = _apply_mlp_part(p, spec, x + y, cfg)
     return x, cache
 
@@ -273,26 +382,30 @@ def _sublayer_decode(p, spec: LayerSpec, x, cfg, positions, cache):
 # ---------------------------------------------------------------------------
 
 
-def _run_program(params, prog: Program, x, cfg, positions, *,
-                 cache_capacity: int, kernels: str):
-    """Every prefill layer in order.  Returns (x, caches dict)."""
+def _run_program(params, prog: Program, x, cfg, positions, ctx=None, *,
+                 cache_capacity: int, kernels: str, prefix: str = ""):
+    """Every prefill layer of the program under ``prefix`` in order.
+    Returns (x, caches dict; empty when ``cache_capacity`` is 0)."""
     caches = {}
-    if "g0" in params:          # n_groups may be 0 (depth-probe configs)
-        entries = {f"g{idx}": [] for idx in range(len(prog.group))}
+    if f"{prefix}g0" in params:     # n_groups may be 0 (depth probes)
+        entries = {f"{prefix}g{idx}": [] for idx in range(len(prog.group))}
         for layer in range(prog.n_groups):
             for idx, spec in enumerate(prog.group):
-                key = f"g{idx}"
+                key = f"{prefix}g{idx}"
                 x, entry = _sublayer_train(
                     layer_params(params[key], layer), spec, x, cfg,
-                    positions, cache_capacity, kernels)
+                    positions, ctx, cache_capacity, kernels)
                 entries[key].append(entry)
-        for key, per_layer in entries.items():
-            caches[key] = {f: torch.stack([e[f] for e in per_layer])
-                           for f in ("k", "v", "pos")}
+        if cache_capacity:
+            for key, per_layer in entries.items():
+                caches[key] = {f: torch.stack([e[f] for e in per_layer])
+                               for f in per_layer[0]}
     for idx, spec in enumerate(prog.leftover):
-        x, caches[f"x{idx}"] = _sublayer_train(
-            params[f"x{idx}"], spec, x, cfg, positions, cache_capacity,
-            kernels)
+        key = f"{prefix}x{idx}"
+        x, entry = _sublayer_train(params[key], spec, x, cfg, positions,
+                                   ctx, cache_capacity, kernels)
+        if cache_capacity:
+            caches[key] = entry
     return x, caches
 
 
@@ -306,6 +419,26 @@ def _unembed(params, cfg, x):
     return torch.einsum("bsd,dv->bsv", x, w)
 
 
+def _encode(params, cfg, frames, kernels: str):
+    """The encoder program on the frame embeddings [B, Se, d]."""
+    x = frames.to(params["w_frontend"].dtype) @ params["w_frontend"]
+    pos = torch.arange(frames.shape[1], device=frames.device)[None]
+    x, _ = _run_program(params, build_encoder_program(cfg), x, cfg, pos,
+                        cache_capacity=0, kernels=kernels, prefix="enc_")
+    return apply_norm(x, params["enc_final_norm"], cfg.norm)
+
+
+def _get_ctx(params, cfg, batch, kernels: str):
+    """The cross sublayers' context: the encoded ``frames`` (enc-dec),
+    the projected ``vision`` tokens (cross), else None."""
+    if cfg.enc_dec:
+        return _encode(params, cfg, batch["frames"], kernels)
+    if cfg.cross_every:
+        w = params["w_vision_proj"]
+        return batch["vision"].to(w.dtype) @ w
+    return None
+
+
 def prefill(params, batch, cfg: ArchConfig,
             cache_capacity: Optional[int] = None, last_pos=None, *,
             kernels: str = "hopper"):
@@ -315,17 +448,22 @@ def prefill(params, batch, cfg: ArchConfig,
     to return: a server right-pads short prompts to one prefill length,
     and under causal attention a dense model's true last prompt position's
     hidden state equals an unpadded prefill's (not a MoE model's: the pads
-    compete with the prompt for expert capacity, as in the reference).
-    The cache's K/V keep the activations' dtype.  ``kernels`` picks the
+    compete with the prompt for expert capacity, as in the reference; nor
+    the state that a recurrent or SSD layer carries into decode: it has
+    run through the pads, as the reference's has).  ``batch`` holds
+    ``tokens`` [B,S], and ``frames`` [B,Se,d] (enc-dec) or ``vision``
+    [B,n_vision_tokens,d] (cross).  The cache keeps the activations'
+    dtype.  ``kernels`` picks the
     attention: "hopper" (the kernel; its plain version on CPU tensors) or
     "torch"."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     cap = cache_capacity or S
     prog = build_program(cfg)
+    ctx = _get_ctx(params, cfg, batch, kernels)
     x = _embed(params, tokens)
     positions = torch.arange(S, device=tokens.device)[None]
-    x, caches = _run_program(params, prog, x, cfg, positions,
+    x, caches = _run_program(params, prog, x, cfg, positions, ctx,
                              cache_capacity=cap, kernels=kernels)
     last = S - 1 if last_pos is None else int(last_pos)
     logits = _unembed(params, cfg, x[:, last:last + 1])
@@ -337,21 +475,39 @@ def prefill(params, batch, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 
-def cache_struct(cfg: ArchConfig, batch: int, capacity: int) -> dict:
-    """The decode cache's layout: {key: {field: (shape, dtype)}}, K/V in
-    bfloat16 whatever the parameters' dtype.
+def cache_struct(cfg: ArchConfig, batch: int, capacity: int,
+                 ctx_len: int = 0) -> dict:
+    """The decode cache's layout: {key: {field: (shape, dtype)}}; K/V and
+    conv states in bfloat16 whatever the parameters' dtype, RG-LRU and
+    SSD states in float32.
 
     ``capacity``: KV slots of full-attention layers (window layers keep
-    min(window, capacity))."""
+    min(window, capacity)); ``ctx_len``: the context length of cross
+    sublayers."""
     prog = build_program(cfg)
     hd = cfg.resolved_head_dim
+    bf16, K1 = torch.bfloat16, cfg.conv_kernel - 1
 
     def entry(spec: LayerSpec, stacked: int):
-        lead = (stacked,) if stacked else ()
-        W = min(spec.window, capacity) if spec.window else capacity
-        return {"k": (lead + (batch, W, cfg.n_kv, hd), torch.bfloat16),
-                "v": (lead + (batch, W, cfg.n_kv, hd), torch.bfloat16),
-                "pos": (lead + (batch, W), torch.int32)}
+        lead = ((stacked,) if stacked else ()) + (batch,)
+        if spec.kind == "attn":
+            W = min(spec.window, capacity) if spec.window else capacity
+            return {"k": (lead + (W, cfg.n_kv, hd), bf16),
+                    "v": (lead + (W, cfg.n_kv, hd), bf16),
+                    "pos": (lead + (W,), torch.int32)}
+        if spec.kind == "cross":
+            return {"k": (lead + (ctx_len, cfg.n_kv, hd), bf16),
+                    "v": (lead + (ctx_len, cfg.n_kv, hd), bf16)}
+        if spec.kind == "rec":
+            return {"conv": (lead + (K1, cfg.d_model), bf16),
+                    "h": (lead + (cfg.d_model,), torch.float32)}
+        if spec.kind == "ssm":
+            d_in = cfg.ssm_expand * cfg.d_model
+            return {"conv": (lead + (K1, d_in + 2 * cfg.ssm_state), bf16),
+                    "state": (lead + (d_in // cfg.ssm_head_dim,
+                                      cfg.ssm_head_dim, cfg.ssm_state),
+                              torch.float32)}
+        raise ValueError(f"unknown sublayer kind {spec.kind!r}")
 
     shapes = {}
     if prog.n_groups > 0:
@@ -362,7 +518,8 @@ def cache_struct(cfg: ArchConfig, batch: int, capacity: int) -> dict:
     return shapes
 
 
-def init_cache(cfg: ArchConfig, batch: int, capacity: int, device) -> dict:
+def init_cache(cfg: ArchConfig, batch: int, capacity: int, device,
+               ctx_len: int = 0) -> dict:
     """Zero decode cache on ``device`` (pos slots -1 = empty), laid out
     as ``cache_struct``."""
     def mk(shape, dt):
@@ -370,14 +527,15 @@ def init_cache(cfg: ArchConfig, batch: int, capacity: int, device) -> dict:
             return torch.full(shape, -1, dtype=dt, device=device)
         return torch.zeros(shape, dtype=dt, device=device)
     return {key: {f: mk(*sd) for f, sd in entry.items()}
-            for key, entry in cache_struct(cfg, batch, capacity).items()}
+            for key, entry in cache_struct(cfg, batch, capacity,
+                                           ctx_len).items()}
 
 
 def decode_step(params, caches, tokens, positions, cfg: ArchConfig):
     """One token for every sequence: tokens [B,1], positions [B] ->
-    (logits [B, Vp], caches).  The new K/V are written into ``caches``
-    IN PLACE (the reference donates its cache to the same effect); the
-    returned dict is ``caches`` itself."""
+    (logits [B, Vp], caches).  The new K/V and recurrent states are
+    written into ``caches`` IN PLACE (the reference donates its cache to
+    the same effect); the returned dict is ``caches`` itself."""
     prog = build_program(cfg)
     x = _embed(params, tokens)
     for layer in range(prog.n_groups if "g0" in params else 0):

@@ -18,7 +18,10 @@ a fixed buffer; with ``jit=True`` on a card it is captured once as a
 CUDA graph (the reference jits it) and every beat replays it.  Prefill
 and the cache insert stay eager; their host arrays go up through pinned
 memory, asynchronously (``core/device.upload``).  Greedy argmax runs
-over the padded vocabulary, as the reference's does.
+over the padded vocabulary, as the reference's does.  An encoder-decoder
+model's prefill hears ``prefill_len * dec_ratio`` zero frames, a
+cross-attention model's sees ``n_vision_tokens`` zero vision tokens, as
+the reference's server feeds them.
 """
 from __future__ import annotations
 
@@ -92,7 +95,17 @@ class CycleServer:
         self.kernels = api.kernels
         self.params = params if params is not None else \
             api.init_params(seed)
-        self.cache = api.init_cache(capacity, max_seq)
+        # the cross sublayers' context: an enc-dec prefill hears
+        # dec_ratio frames a decoder token
+        self.ctx_len = api.ctx_len(prefill_len * cfg.dec_ratio)
+        self.cache = api.init_cache(capacity, max_seq, ctx_len=self.ctx_len)
+        # the zero frames / vision tokens of every admission, made once
+        self._ctx_batch = {}
+        if self.ctx_len:
+            self._ctx_batch["frames" if cfg.enc_dec else "vision"] = \
+                torch.zeros((1, self.ctx_len, cfg.d_model),
+                            dtype=self.params["embed"].dtype,
+                            device=self.device)
         # the step functions, as attributes like the reference's jitted
         # ones: prefill (batch 1, at the cache capacity, logits at
         # ``last``) and the shared decode step
@@ -158,10 +171,12 @@ class CycleServer:
                 graph = cg.capture(self._decode_body_on(out), pool)
                 stats = {"capture_s": time.perf_counter() - t0, "graphs": 1,
                          "pool_bytes": cg.pool_bytes(pool)}
-            for entry in self.cache.values():
-                entry["k"].zero_()
-                entry["v"].zero_()
-                entry["pos"].fill_(-1)
+            for entry in self.cache.values():     # every field: int32
+                for t in entry.values():            # slots -1, the rest 0
+                    if t.dtype == torch.int32:
+                        t.fill_(-1)
+                    else:
+                        t.zero_()
         if cuda:
             # the serving stream waits, on the card, for the warm-up, the
             # reset and the buffer allocated on the side stream
@@ -210,7 +225,8 @@ class CycleServer:
             # attention: it never sees the pads).  An EMPTY prompt
             # conditions on the single pad token at position 0.
             n_real = max(1, min(len(req.prompt), P))
-            batch = {"tokens": upload(toks[None], self.device)}
+            batch = {"tokens": upload(toks[None], self.device),
+                     **self._ctx_batch}
             logits, cache1 = self._prefill(self.params, batch, n_real - 1)
             _cache_insert(self.cache, cache1, slot)
             tok = int(torch.argmax(logits[0]))

@@ -634,21 +634,27 @@ def test_chained_beat_launches_one_delta_join(cuda_device):
     (1, 512, 512, 32, 4, 128, True, 0),         # yi-6b's prefill
     (1, 2048, 2048, 32, 16, 128, True, 1024),   # gemma3-27b's local layer
     (1, 2048, 2048, 32, 16, 128, True, 0),      # and its global layer
-    (1, 512, 512, 16, 16, 128, True, 0)])       # qwen2-moe-a2.7b's (MHA)
+    (1, 512, 512, 16, 16, 128, True, 0),        # qwen2-moe-a2.7b's (MHA)
+    (1, 512, 512, 10, 1, 256, True, 2048),      # recurrentgemma-2b's
+    (1, 1536, 1536, 12, 12, 64, False, 0),      # whisper-small's encoder
+    (1, 512, 6404, 64, 8, 128, False, 0),       # llama-vision's cross
+    (1, 192, 1536, 12, 12, 64, False, 0),       # whisper-small's cross
+    (1, 100, 300, 4, 2, 256, False, 0)])        # D 256, ragged, Sq != Sk
 def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV,
                                        D, causal, window):
     """Ragged S, Sq < Sk, D 16 and 128, causal Sq > Sk (its first rows
-    see no key and average v, finite), and the LM paths' prefill shapes
-    on standard-normal inputs (a soft softmax).  bfloat16 at D 64 / 128
-    runs the tensor-core kernel, the rest the CUDA-core kernel: the
-    per-route launch count shows which ran."""
+    see no key and average v, finite), non-causal Sq = Sk and Sq != Sk,
+    D 256, and the LM paths' prefill shapes on standard-normal inputs (a
+    soft softmax).  bfloat16 at D 64 / 128 / 256 runs the tensor-core
+    kernel, the rest the CUDA-core kernel: the per-route launch count
+    shows which ran."""
     rng = np.random.default_rng(Sq * Sk + D)
     dt = getattr(torch, dtype)
     q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=dt,
                                device=cuda_device)
                for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
     kind = tfa.route(dt, D)
-    assert kind == ("wgmma" if dtype == "bfloat16" and D in (64, 128)
+    assert kind == ("wgmma" if dtype == "bfloat16" and D in (64, 128, 256)
                     else "simt")
     before = K.LAUNCHES["flash_attention"]
     by_route = dict(K.FLASH_ROUTE_LAUNCHES)
@@ -667,9 +673,16 @@ def test_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV,
 def _admission_kernel_matches_plain(dev, cfg, route):
     """One admission of ``cfg`` (bfloat16, a right-padded prompt) on
     kernels="hopper" against kernels="torch" on the same weights: the
-    prefill logits and the inserted slot cache, within 2e-2 of each
-    tensor's largest magnitude; every prefill layer ran ``route``."""
+    prefill logits and the inserted slot cache (every field: K / V, conv
+    and recurrent states), within 2e-2 of each tensor's largest magnitude,
+    positions equal; every attending prefill layer (attention, cross, an
+    encoder's) ran ``route``."""
+    from repro_torch.models import transformer
     from repro_torch.serving import CycleServer
+    progs = (transformer.build_program(cfg),) + (
+        (transformer.build_encoder_program(cfg),) if cfg.enc_dec else ())
+    attending = sum(sp.kind in ("attn", "cross") for p in progs
+                    for sp in p.group * p.n_groups + p.leftover)
     kw = dict(capacity=2, max_seq=128, prefill_len=96, device=dev)
     srv = CycleServer(cfg, kernels="hopper", seed=0, **kw)
     twin = CycleServer(cfg, kernels="torch", params=srv.params, **kw)
@@ -687,7 +700,7 @@ def _admission_kernel_matches_plain(dev, cfg, route):
         routed = K.FLASH_ROUTE_LAUNCHES[route]
         s.run_cycle()
         torch.cuda.synchronize()
-        n = cfg.n_layers if s is srv else 0
+        n = attending if s is srv else 0
         assert K.LAUNCHES["flash_attention"] - before == n
         assert K.FLASH_ROUTE_LAUNCHES[route] - routed == n
     (lg, c1), (tlg, tc1) = outs
@@ -697,12 +710,16 @@ def _admission_kernel_matches_plain(dev, cfg, route):
         assert (a.float() - b.float()).abs().max() <= 2e-2 * scale
     close(lg, tlg)
     for key in c1:
-        close(c1[key]["k"], tc1[key]["k"])
-        close(c1[key]["v"], tc1[key]["v"])
-        assert torch.equal(c1[key]["pos"], tc1[key]["pos"])
-        # the slot cache holds the prompt's K (the decode step then wrote
-        # position 70, after its own token)
-        close(srv.cache[key]["k"][:, 0, :70], twin.cache[key]["k"][:, 0, :70])
+        for f, t in c1[key].items():
+            if t.dtype == torch.int32:
+                assert torch.equal(t, tc1[key][f])
+            else:
+                close(t, tc1[key][f])
+        if "pos" in c1[key]:
+            # the slot cache holds the prompt's K (the decode step then
+            # wrote position 70, after its own token)
+            close(srv.cache[key]["k"][:, 0, :70],
+                  twin.cache[key]["k"][:, 0, :70])
 
 
 @pytest.mark.cuda
@@ -720,6 +737,22 @@ def test_cycle_server_admission_d128_kernel_matches_plain(cuda_device):
     """The same admission at head dim 128 (GQA 4:2): the tensor-core
     kernel."""
     cfg = dataclasses.replace(smoke_config("yi-6b"), n_kv=2, head_dim=128)
+    _admission_kernel_matches_plain(cuda_device, cfg, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", [
+    ("recurrentgemma-2b", 256), ("mamba2-370m", 16),
+    ("llama-3.2-vision-90b", 128), ("whisper-small", 64)])
+def test_cycle_server_admission_new_programs_match_plain(cuda_device, arch,
+                                                         head_dim):
+    """The same admission through the recurrent (at head dim 256, one KV
+    head), SSD, cross-attention (zero vision tokens) and encoder-decoder
+    (768 zero frames) programs: the tensor-core kernel on every attending
+    layer, the recurrent and SSD states within the tolerance."""
+    cfg = dataclasses.replace(smoke_config(arch), head_dim=head_dim)
+    if arch == "recurrentgemma-2b":
+        cfg = dataclasses.replace(cfg, n_kv=1)
     _admission_kernel_matches_plain(cuda_device, cfg, "wgmma")
 
 

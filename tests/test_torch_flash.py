@@ -102,13 +102,17 @@ def test_plain_version_equals_the_pallas_kernel():
 
 
 def test_route_rule():
-    """bfloat16 at D 64 / 128 takes the tensor-core kernel; float32 at
-    every D and bfloat16 at D 16 / 32 the CUDA-core kernel."""
+    """bfloat16 at D 64 / 128 / 256 takes the tensor-core kernel (at D
+    256 on 64-query tiles); float32 at every D and bfloat16 at D 16 / 32
+    the CUDA-core kernel."""
+    assert fa.HEAD_DIMS == (16, 32, 64, 128, 256)
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for D in fa.HEAD_DIMS:
-            want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) \
-                else "simt"
+            want = "wgmma" if dtype == torch.bfloat16 \
+                and D in (64, 128, 256) else "simt"
             assert fa.route(dtype, D) == want, (dtype, D)
+            assert fa.tiles(want, D) == ((64, 64) if want == "simt" or
+                                         D == 256 else (128, 64))
     assert fa.TILES == {"simt": (64, 64), "wgmma": (128, 64)}
 
 
@@ -134,7 +138,9 @@ def test_tile_geometry_and_kv_head_map(kind):
     (512, 512, True, 0), (2048, 2048, True, 1024), (24, 24, True, 0),
     (200, 200, True, 0), (70, 150, True, 0), (150, 70, True, 0),
     (130, 40, True, 8), (77, 130, False, 20), (128, 256, False, 0),
-    (300, 300, True, 64), (100, 100, True, 1), (1, 300, True, 0)])
+    (300, 300, True, 64), (100, 100, True, 1), (1, 300, True, 0),
+    (512, 512, True, 2048), (1536, 1536, False, 0), (192, 1536, False, 0),
+    (512, 6404, False, 0)])
 def test_key_tile_range_covers_exactly_the_visible_keys(Sq, Sk, causal,
                                                         window, kind):
     """Every key a row of the query tile may see lies in a visited tile;
@@ -149,6 +155,9 @@ def test_key_tile_range_covers_exactly_the_visible_keys(Sq, Sk, causal,
         ok &= qpos - kpos < window
     bq, bk = fa.TILES[kind]
     n_k = -(-Sk // bk)
+    if not causal and not window:      # an encoder's or a cross call's
+        assert {fa.key_tile_range(qt, Sq, Sk, causal, window, bq, bk)
+                for qt in range(fa.q_tiles(Sq, bq))} == {(0, n_k)}
     for qt in range(fa.q_tiles(Sq, bq)):
         rows = ok[qt * bq:(qt + 1) * bq]
         lo, hi = fa.key_tile_range(qt, Sq, Sk, causal, window, bq, bk)
@@ -169,7 +178,7 @@ LOG2E = 1.4426950408889634          # kLog2e in csrc/flash_attention.cu
 def _tile_loop(q, k, v, causal, window, kind="simt", skip=None):
     """A kernel's algorithm in torch: per (batch x head, query tile), the
     online softmax over the key tiles of ``key_tile_range`` with the
-    route's ``TILES``, masked scores at -1e30 and keys past Sk at -inf,
+    route's ``tiles``, masked scores at -1e30 and keys past Sk at -inf,
     running max from -1e30.  ``kind="wgmma"``, the tensor-core kernel:
     query tiles in its launch order (last first), scores in the log2
     domain (scale folded into log2 e, exp2), P rounded to bfloat16
@@ -178,7 +187,7 @@ def _tile_loop(q, k, v, causal, window, kind="simt", skip=None):
     fault, that key tile left out of that query tile's loop."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    bq, bk = fa.TILES[kind]
+    bq, bk = fa.tiles(kind, D)
     tensor_cores = kind == "wgmma"
     if tensor_cores:
         scale = torch.tensor(LOG2E) / torch.tensor(float(D)).sqrt()
@@ -311,12 +320,14 @@ def test_wrapper_checks_and_cpu_path():
 
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("shape", EDGE + SHAPES[:1]
-                         + [(2, 256, 256, 8, 4, 64, True, 64)])
+                         + [(2, 256, 256, 8, 4, 64, True, 64),
+                            (1, 48, 200, 4, 2, 64, False, 0)])
 def test_wgmma_tile_loop_equals_the_plain_version(shape, D):
     """The tensor-core route's replay at bfloat16 tolerance (2e-2 / 1e-1)
-    on the ragged, Sq < Sk, Sq > Sk and window shapes, at its head dims."""
+    on the ragged, Sq < Sk, Sq > Sk, window and non-causal Sq != Sk (a
+    cross call's) shapes, at its head dims (64-query tiles at D 256)."""
     shape = shape[:5] + (D,) + shape[6:]
     causal, window = shape[6], shape[7]
     q, k, v = (torch.from_numpy(a).bfloat16()
@@ -333,3 +344,29 @@ def test_wgmma_tile_loop_equals_the_plain_version(shape, D):
                                               dim=2).mean(dim=1)
         _close(got[:, :dead].float().numpy(),
                uniform[:, None].expand(-1, dead, -1, -1).numpy(), f32=False)
+
+
+def test_check_args_route_and_cpu_path_at_head_dim_256():
+    """Head dim 256 (recurrentgemma-2b's) passes the checks in bfloat16
+    and float32 and takes the tensor-core route on 64-query tiles in
+    bfloat16; 192 and 512 are refused; on CPU tensors the wrapper is the
+    plain version, causal and windowed or not causal with Sq != Sk."""
+    for D in (192, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            fa.check_args(torch.zeros(1, 4, 2, D), torch.zeros(1, 4, 1, D),
+                          torch.zeros(1, 4, 1, D))
+    assert fa.route(torch.bfloat16, 256) == "wgmma"
+    assert fa.route(torch.float32, 256) == "simt"
+    assert fa.tiles("wgmma", 256) == (64, 64)
+    assert fa.q_tiles(512, fa.tiles("wgmma", 256)[0]) == 8
+    for shape in ((1, 40, 40, 4, 1, 256, True, 16),
+                  (1, 24, 70, 4, 2, 256, False, 0)):
+        causal, window = shape[6], shape[7]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.from_numpy(a).to(dtype)
+                       for a in _qkv(shape, np.float32, seed=11))
+            fa.check_args(q, k, v)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+            assert torch.equal(got, want)

@@ -95,17 +95,21 @@ def test_configs_equal_the_reference():
 
 
 def test_build_program_matches_and_raises_for_unported_programs():
-    for arch in ("yi-6b", "gemma3-27b", "stablelm-1.6b", "qwen2-72b",
-                 "mixtral-8x22b", "qwen2-moe-a2.7b"):
-        a = transformer.build_program(configs.get_config(arch))
-        b = ref_tf.build_program(ref_configs.get_config(arch))
+    """Every configuration's program (and whisper's encoder program)
+    equals the reference's, at the published sizes and at smoke size; no
+    configuration is left unported."""
+    def same(a, b):
         assert (a.n_groups, a.n_layers) == (b.n_groups, b.n_layers)
         assert [dataclasses.asdict(s) for s in a.group + a.leftover] == \
             [dataclasses.asdict(s) for s in b.group + b.leftover]
-    for arch in ("mamba2-370m", "recurrentgemma-2b",
-                 "llama-3.2-vision-90b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.build_program(configs.get_config(arch))
+    for arch in configs.ARCH_IDS:
+        for get in ("get_config", "smoke_config"):
+            cfg = getattr(configs, get)(arch)
+            ref = getattr(ref_configs, get)(arch)
+            same(transformer.build_program(cfg), ref_tf.build_program(ref))
+            if cfg.enc_dec:
+                same(transformer.build_encoder_program(cfg),
+                     ref_tf.build_encoder_program(ref))
 
 
 # ------------------------------------------------------------ model pieces

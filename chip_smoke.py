@@ -190,7 +190,42 @@ capability 9.0+ and the CUDA toolkit.  It:
      mask at a window layer; timed here only), and its CUDA-core kernel
      once at yi-6b's call and once at recurrentgemma-2b's; the
      fused_delta footprint's worst-case bound beside the fused_delta row;
-  6. prints one JSON line of per-kernel results, then the one-line device
+  6. runs the train phase last (``train:`` lines: after its profiled
+     step, later torch.profiler sessions in the process traced no device
+     event), each path with every launch count set to 0 just before it
+     and read just after, none of which may have launched (the
+     reference trains through its plain attention; the flash kernel has
+     no backward):
+       lm-train-stablelm-1.6b — the launcher's default arch at full
+         width and depth (24 layers, d 2048, 32 / 32 heads, FFN 5632,
+         vocab 100 352; bf16 parameters from the seeded init, float32
+         AdamW moments, remat full) at the reference's train_4k sequence
+         (4096) and batch 2: 8 steps of the launcher's flow
+         (``launch/train.run``, what ``main`` runs) at lr 3e-3 on the
+         synthetic pipeline; every loss and gnorm finite, the last loss
+         below the first, the optimizer at step 8; the median step
+         (steps 2-8), tokens/s, peak memory, one more step under
+         torch.profiler (busy and idle share) and its model FLOPs
+         (roofline.model_flops, 6 N tokens) as a share of the bf16 peak;
+       smoke parity — one float32 train_step of smoke stablelm on the
+         card against the same step on the CPU: loss within 1e-5
+         relative, every updated parameter and moment within 1e-4 of its
+         norm;
+       lm-train-mamba2-370m (restart) — full width and depth (48 SSD
+         layers, d 1024) at batch 2 x 4096 through the launcher's
+         FaultTolerantLoop, checkpoints every 4 steps in a temp dir
+         (removed after), 10 steps with a fault injected at step 6: the
+         replayed steps 4-5 give the first pass's losses bit for bit,
+         the final state equals an uninterrupted run's leaf by leaf, bit
+         for bit (the trainer's deterministic algorithms), and a
+         checkpoint the card wrote, loaded on the CPU, is bit-equal with
+         its crcs checked;
+     then flash_attention must raise on CUDA inputs that require grad,
+     and the four examples/torch_*.py run as processes of their own at
+     their default sizes on the card, each exiting 0 (wall times
+     printed); each kernel's entry in the JSON line lists the training
+     paths' launch counts (``training_launches``, all 0);
+  7. prints one JSON line of per-kernel results, then the one-line device
      record as the last line.
 
 Any failed check raises and the script exits non-zero; with no CUDA
@@ -200,6 +235,7 @@ from ``SEED`` with numpy.
 import contextlib
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2019,10 +2055,10 @@ class LayerRecorder:
         from repro_torch.models import moe
         from repro_torch.models.common import apply_norm
         worst, flips, routed = 0.0, 0, 0
-        for args, (x, entry), mlp in self.calls:
+        for args, (x, _, entry), mlp in self.calls:
             p, spec, cfg = args[0], args[1], args[3]
             if not spec.moe:
-                x2, _ = self.orig(*args[:-1], "torch")
+                x2, _, _ = self.orig(*args[:-1], "torch")
                 if spec.kind in ("rec", "ssm") and not torch.equal(x, x2):
                     fail(f"{what}: a {spec.kind} layer re-run from the "
                          f"server's own input differs from the server's "
@@ -2311,6 +2347,307 @@ def lm_model_flops(cfg, capacity, prefill_len, log):
                      "share_of_bf16_peak": flops / (
                          e["device_busy_ms"] / 1e3
                          * TENSOR_CORE_BF16_FLOPS)}
+    return out
+
+
+# ------------------------------------------------------- 4b. the train phase
+# the launcher's default arch at full width and depth, at the reference's
+# train_4k sequence; batch 2, twice one chip's share of train_4k's 256
+# sequences over its 256 chips
+TRAIN_STABLELM = ("--arch", "stablelm-1.6b", "--seq", "4096", "--batch", "2",
+                  "--steps", "8", "--lr", "3e-3")
+# the reference's own resume test and example arch, at full width and
+# depth: 4096 tokens are 16 SSD chunks of 256
+TRAIN_RESTART = ("--arch", "mamba2-370m", "--seq", "4096", "--batch", "2",
+                 "--steps", "10", "--lr", "3e-3")
+TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 4, 6
+TRAIN_SMOKE_LOSS_RTOL = 1e-5     # card step vs CPU step, float32
+TRAIN_SMOKE_LEAF_TOL = 1e-4      # of each updated leaf's norm
+EXAMPLES = ("torch_quickstart.py", "torch_tpcw_serving.py",
+            "torch_serve_lm.py", "torch_train_lm.py")
+
+
+TRAIN_LAUNCHES = {}               # training path -> its launch counts
+
+
+def zero_launch_path(name, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after: a training path must launch no hand-written kernel."""
+    from repro_torch import kernels as K
+    K.reset_launches()
+    out = fn()
+    got, routes = dict(K.LAUNCHES), dict(K.FLASH_ROUTE_LAUNCHES)
+    TRAIN_LAUNCHES[name] = got
+    print(f"launches, {name} path:", json.dumps(got),
+          "flash_attention by route:", json.dumps(routes))
+    if any(got.values()) or any(routes.values()):
+        fail(f"{name}: a hand-written kernel launched on the training path "
+             f"({got}, {routes})")
+    return out
+
+
+def train_stablelm(dev, card):
+    """8 steps of the launcher's flow (``launch/train.run``, what
+    ``main`` runs) on stablelm-1.6b at full width and depth: every loss
+    finite and the last below the first, gnorm finite, the optimizer at
+    step 8; the median step (steps 2-8), tokens/s, peak memory, one more
+    step under the profiler for the card's busy share, and model FLOPs
+    (6 N tokens) as a share of the bf16 peak."""
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core import pytree
+    from repro_torch.launch import train
+    from repro_torch.roofline import model_flops
+    tr = train.Trainer(train.parse_args(list(TRAIN_STABLELM)))
+    if tr.device != dev:
+        fail(f"the trainer runs on {tr.device}, not {dev}")
+    step_fn, times = tr.step_fn, []
+
+    def timed(state, step):       # float(loss) in the step waits for it
+        t0 = time.perf_counter()
+        out = step_fn(state, step)
+        times.append(time.perf_counter() - t0)
+        return out
+    tr.step_fn = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, log = train.run(tr)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"] for m in log]
+    gnorms = [m["gnorm"] for m in log]
+    if len(log) != 8 or not all(map(math.isfinite, losses + gnorms)):
+        fail(f"stablelm train: losses {losses}, gnorms {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"stablelm train: the loss did not fall: {losses}")
+    if int(state[1]["step"]) != 8:
+        fail(f"stablelm train: the optimizer's step is "
+             f"{int(state[1]['step'])}, not 8")
+    step_ms = statistics.median(times[1:8]) * 1e3
+    B, S = tr.args.batch, tr.args.seq
+    with train.deterministic():
+        torch.cuda.synchronize()
+        with beat_profiler() as prof:
+            t0 = time.perf_counter()
+            state, _ = tr.step_fn(state, 8)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    busy, events, top = busy_ms(prof)
+    flops = model_flops(tr.cfg, ShapeSpec("train", S, B, "train"))
+    out = {"path": "lm-train-stablelm-1.6b", "arch": tr.cfg.name,
+           "params": sum(p.numel() for p in pytree.leaves(state[0])),
+           "batch": B, "seq": S, "losses": losses, "gnorms": gnorms,
+           "step_ms": [t * 1e3 for t in times],
+           "median_step_ms_2_8": step_ms,
+           "tokens_per_s": B * S / (step_ms / 1e3),
+           "peak_gib": peak, "profiled_step_wall_ms": prof_ms,
+           "card_busy_ms": busy if events else None,
+           "device_ops": events,
+           "busy_share": busy / prof_ms if events else None,
+           "idle_share": 1 - busy / prof_ms if events else None,
+           "top_device_ops": top, "model_flops": flops,
+           "share_of_bf16_peak": flops / (step_ms / 1e3
+                                          * TENSOR_CORE_BF16_FLOPS)}
+    c = tr.cfg
+    print(f"train: {c.name} ({c.n_layers} layers, d {c.d_model}, "
+          f"{c.n_heads}/{c.n_kv} heads, FFN {c.d_ff}, vocab {c.vocab}, "
+          f"{out['params'] / 1e9:.3f} B parameters, bf16, float32 moments)"
+          f" at batch {B} x seq {S}: losses {losses}; median step (steps "
+          f"2-8) {step_ms:.3f} ms, {out['tokens_per_s']:.1f} tokens/s, "
+          f"peak memory {peak:.3f} GiB; profiled step {prof_ms:.3f} ms "
+          f"wall, card busy "
+          + (f"{busy:.3f} ms in {events} device ops (busy share "
+             f"{out['busy_share']:.3f}, idle share {out['idle_share']:.3f})"
+             if events else "not measured (no device event traced)")
+          + f"; model FLOPs a step {flops:.6e} (6 N tokens) = "
+          f"{out['share_of_bf16_peak']:.6f} of the bf16 peak "
+          f"({TENSOR_CORE_BF16_FLOPS:.3e} FLOP/s) at the median step "
+          f"[{card}]")
+    print("train: stablelm-1.6b top device ops of the profiled step:",
+          json.dumps(top))
+    return out
+
+
+def train_smoke_parity(dev):
+    """One float32 train_step of smoke-size stablelm on the card against
+    the same step on the CPU (the port, plain path, same tree and
+    batch): loss within TRAIN_SMOKE_LOSS_RTOL relative, every updated
+    parameter and moment within TRAIN_SMOKE_LEAF_TOL of its norm."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import pytree
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    cfg = smoke_config("stablelm-1.6b")
+    base = transformer.init_lm(torch.Generator().manual_seed(SEED), cfg,
+                               "cpu", torch.float32)
+    tr = train.Trainer(train.parse_args(
+        ["--arch", "stablelm-1.6b", "--smoke", "--seq", "64", "--batch",
+         "4", "--device", "cpu"]))
+    batch = tr.batch(0)
+    out = {}
+    for where in ("cpu", dev):
+        api = get_model(cfg, device=where)
+        params = pytree.tree_map(lambda t: t.to(where, copy=True), base)
+        opt = api.init_opt(params)
+        loss, params, opt, gnorm = api.train_step(
+            params, opt, {k: v.to(where) for k, v in batch.items()})
+        out[str(where)] = (float(loss), float(gnorm), pytree.tree_map(
+            lambda t: t.cpu(), (params, opt["m"], opt["v"])))
+    (l0, n0, t0), (l1, n1, t1) = out["cpu"], out[str(dev)]
+    if abs(l1 - l0) > TRAIN_SMOKE_LOSS_RTOL * abs(l0):
+        fail(f"smoke train_step: card loss {l1} vs CPU {l0}")
+    worst = 0.0
+    for a, b in zip(pytree.leaves(t1), pytree.leaves(t0)):
+        err = float(torch.linalg.vector_norm((a - b).double()))
+        ref = float(torch.linalg.vector_norm(b.double()))
+        if err > TRAIN_SMOKE_LEAF_TOL * ref:
+            fail(f"smoke train_step: a leaf differs by {err} (norm {ref})")
+        worst = max(worst, err / ref if ref else 0.0)
+    print(f"train: smoke stablelm-1.6b float32 train_step, card vs CPU: "
+          f"loss {l1!r} vs {l0!r}, gnorm {n1!r} vs {n0!r}, worst leaf "
+          f"{worst:.3e} of its norm (tolerances {TRAIN_SMOKE_LOSS_RTOL} "
+          f"relative, {TRAIN_SMOKE_LEAF_TOL} of the norm)")
+    return {"loss_card": l1, "loss_cpu": l0, "worst_leaf_rel": worst}
+
+
+def train_restart(dev, card):
+    """mamba2-370m at full width and depth through the launcher's
+    FaultTolerantLoop (checkpoints every 4 steps in a temp dir, removed
+    after) with a fault injected at step 6: the replayed steps 4-5 give
+    the first pass's losses bit for bit, and the final state equals an
+    uninterrupted 10-step run's leaf by leaf, bit for bit.  The final
+    state is then saved from the card and loaded on the CPU (its crcs
+    checked by the load), bit-equal to the card's tensors."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pytree
+    from repro_torch.launch import train
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        tr = train.Trainer(train.parse_args(list(TRAIN_RESTART) + [
+            "--ckpt", tmp, "--save-every", str(TRAIN_SAVE_EVERY)]))
+        state, log = train.run(tr, fail_at={
+            TRAIN_FAIL_AT: RuntimeError("injected fault at step 6")})
+        faulted_s = time.perf_counter() - t0
+        steps = [m["step"] for m in log]
+        want = list(range(TRAIN_FAIL_AT)) + list(range(TRAIN_SAVE_EVERY, 10))
+        if steps != want:
+            fail(f"mamba2 restart: steps {steps}, want {want}")
+        first = [m["loss"] for m in log[TRAIN_SAVE_EVERY:TRAIN_FAIL_AT]]
+        replay = [m["loss"] for m in log[TRAIN_FAIL_AT:2 * TRAIN_FAIL_AT
+                                         - TRAIN_SAVE_EVERY]]
+        if first != replay:
+            fail(f"mamba2 restart: replayed losses {replay} differ from the "
+                 f"first pass's {first}")
+        t0 = time.perf_counter()
+        plain, plain_log = train.run(train.Trainer(train.parse_args(
+            list(TRAIN_RESTART))))
+        plain_s = time.perf_counter() - t0
+        kept = log[:TRAIN_SAVE_EVERY] + log[TRAIN_FAIL_AT:]
+        if [m["loss"] for m in plain_log] != [m["loss"] for m in kept]:
+            fail("mamba2 restart: the faulted run's losses differ from the "
+                 "uninterrupted run's")
+        leaves = pytree.leaves(state)
+        for i, (a, b) in enumerate(zip(leaves, pytree.leaves(plain))):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"mamba2 restart: final leaf {i} differs from the "
+                     f"uninterrupted run's")
+        del plain
+        if int(state[1]["step"]) != 10:
+            fail(f"mamba2 restart: optimizer step {int(state[1]['step'])}")
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(tmp)
+        mgr.save(state, 10, extra={"next_step": 10})
+        on_cpu = pytree.tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype), state)
+        got, _ = mgr.restore(on_cpu, 10)
+        for a, b in zip(pytree.leaves(got), leaves):
+            if a.device.type != "cpu" or not torch.equal(a, b.cpu()):
+                fail("mamba2 restart: the card's checkpoint, loaded on the "
+                     "CPU, differs from the card's state")
+        ckpt_s = time.perf_counter() - t0
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    c = tr.cfg
+    print(f"train: {c.name} ({c.n_layers} layers, d {c.d_model}) restart at "
+          f"batch {tr.args.batch} x seq {tr.args.seq}: fault at step "
+          f"{TRAIN_FAIL_AT}, resumed from the step-{TRAIN_SAVE_EVERY} "
+          f"checkpoint, replayed losses {replay} == first pass {first} bit "
+          f"for bit; final state ({len(leaves)} leaves, "
+          f"{n_bytes / 2 ** 30:.3f} GiB) bit-equal to an uninterrupted "
+          f"run; the card's checkpoint loaded on the CPU bit-equal, crcs "
+          f"checked; faulted run "
+          f"{faulted_s:.1f} s, uninterrupted {plain_s:.1f} s, save + CPU "
+          f"load {ckpt_s:.1f} s [{card}]")
+    return {"losses": [m["loss"] for m in log], "faulted_s": faulted_s,
+            "plain_s": plain_s, "ckpt_s": ckpt_s}
+
+
+def flash_refuses_grad(dev):
+    """The kernel has no backward: inputs that require grad raise on the
+    card under grad mode."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (torch.randn((1, 128, 4, 64), device=dev,
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    try:
+        fa.flash_attention(q, k, v, causal=True)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"train: flash_attention on CUDA inputs that require grad "
+              f"raises: {e}")
+        return
+    fail("flash_attention returned on CUDA inputs that require grad")
+
+
+def examples_phase():
+    """The four examples/torch_*.py, each its own process at its default
+    sizes on the card: each must exit 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    walls = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "examples" / name)],
+                           cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=600)
+        walls[name] = time.perf_counter() - t0
+        tail = (r.stdout + r.stderr).strip().splitlines()[-3:]
+        print(f"example: {name} exit {r.returncode} in {walls[name]:.1f} s: "
+              + " | ".join(tail))
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-4000:])
+            fail(f"examples/{name} exited {r.returncode}")
+    return walls
+
+
+def train_phase(dev, card):
+    """The train phase: the two training paths (no hand-written kernel
+    launches), the smoke step's card-vs-CPU parity, flash's refusal of
+    grad inputs, and the examples."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"stablelm": zero_launch_path(
+        "lm-train-stablelm-1.6b", lambda: train_stablelm(dev, card))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smoke"] = train_smoke_parity(dev)
+    out["restart"] = zero_launch_path("lm-train-mamba2-370m",
+                                      lambda: train_restart(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_refuses_grad(dev)
+    out["examples"] = examples_phase()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"train phase: {out['seconds']:.1f} s [{card}]")
     return out
 
 
@@ -2761,6 +3098,9 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA GPU")
     sys.path.insert(0, str(ROOT / "src"))
+    # before CUDA initialises: the trainer's deterministic algorithms need
+    # a fixed cuBLAS workspace (launch/train.py sets it on import)
+    import repro_torch.launch.train  # noqa: F401
     from repro_torch import kernels as K
     from repro_torch.configs.shareddb_tpcw import CONFIG
     from repro_torch.core import backends as B
@@ -2916,6 +3256,16 @@ def main():
                   f"wall {r['wall_ms']:.6f}, {r['device_ops']} device ops a "
                   f"call) against the previous design's "
                   f"{PREVIOUS_DESIGN_MS[r['name']]} (PERF.md §6)")
+    # the train phase last: after its profiled 12 000-op step, later
+    # torch.profiler sessions in this process traced no device event
+    del calls, rec, attn, fold_rec, chained_rec, sharded_rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_phase(dev, smi[0])
+    print("train summary:", json.dumps(trained))
+    for r in rows:      # no kernel runs on the training paths
+        r["training_launches"] = {path: got.get(r["name"], 0)
+                                  for path, got in TRAIN_LAUNCHES.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,7 +120,17 @@ def check_args(q, k, v) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q [B,Sq,H,D]; k, v [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype."""
+    """q [B,Sq,H,D]; k, v [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype.
+
+    Forward only: the kernel has no backward (nor has the reference's),
+    so inputs that require grad under grad mode raise RuntimeError, on
+    the CPU too, rather than return an output cut off from the graph;
+    differentiate the plain version (``kernels="torch"``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: its inputs require grad "
+            "under grad mode; differentiate the plain attention "
+            "(block_attention(kernels='torch'), as loss_fn does)")
     check_args(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

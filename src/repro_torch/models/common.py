@@ -150,8 +150,9 @@ def block_attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
     neither (an encoder's, a cross sublayer's) sees every key, so its
     query positions do not matter.  ``window`` > 0 keeps keys fewer than
     ``window`` positions back.  ``kernels="hopper"`` runs the
-    flash-attention kernel (its plain version on CPU tensors),
-    ``"torch"`` the plain version."""
+    flash-attention kernel (its plain version on CPU tensors), which has
+    no backward and raises on inputs that require grad under grad mode;
+    ``"torch"`` the plain version, which autograd differentiates."""
     Sq, Sk = q.shape[1], k.shape[1]
     if (causal or window > 0) and int(q_offset) != Sk - Sq:
         raise ValueError(f"block_attention: q_offset {q_offset} != Sk - Sq "

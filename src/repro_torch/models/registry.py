@@ -9,10 +9,14 @@ MoE, recurrent, SSD, cross-attention and encoder-decoder).
   decode_step(params, cache, tokens, pos)   -> (logits, cache)
   init_cache(batch, capacity, ctx_len)      -> cache
   ctx_len(seq_len) / dec_len(seq_len)       -> context / decoder length
+  loss(params, batch)                       -> float32 scalar
+  init_opt(params)                          -> AdamW state
+  train_step(params, opt, batch)            -> (loss, params, opt, gnorm)
 
 ``params_from_numpy`` carries the JAX package's parameter tree across.
-Training (``train_step``, the optimizer) and the dry-run's analytic specs
-are not ported yet (ROADMAP.md §1 item 12).
+The dry-run's analytic specs (``param_specs``, ``opt_specs``,
+``input_specs``, ``input_pspecs``, ``step_fn``: PartitionSpecs for the
+reference's ``launch/dryrun.py``) are not ported, as that tool is not.
 """
 from __future__ import annotations
 
@@ -23,9 +27,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.core import pytree
 from repro_torch.core.backends import resolve_backend
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
 
 def resolve_kernels(kernels: str, device) -> str:
@@ -46,6 +52,7 @@ class ModelApi:
     cfg: ArchConfig
     device: torch.device
     kernels: str = "hopper"       # prefill attention: "hopper" | "torch"
+    opt_cfg: AdamWConfig = AdamWConfig()
 
     def init_params(self, seed: int = 0) -> dict:
         """Random bfloat16 parameters on the model's device from ``seed``
@@ -67,6 +74,32 @@ class ModelApi:
         return transformer.init_cache(self.cfg, batch, capacity,
                                       self.device, ctx_len)
 
+    def loss(self, params, batch):
+        """The training loss (``transformer.loss_fn``: plain attention
+        whatever ``kernels`` says)."""
+        return transformer.loss_fn(params, batch, self.cfg)
+
+    def init_opt(self, params):
+        return adamw_init(params)
+
+    def train_step(self, params, opt_state, batch):
+        """One AdamW step on ``batch`` -> (loss, params, opt_state,
+        gnorm).  The gradients come from ``torch.autograd.grad`` over the
+        parameter leaves, in their dtype (bf16 over bf16 parameters, as
+        ``jax.value_and_grad`` gives); the update writes the new
+        parameters and moments into ``params`` and ``opt_state`` in place
+        (the reference donates both to the same effect) and returns
+        them."""
+        leaves = pytree.leaves(params)
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_() for p in leaves]
+            loss = self.loss(pytree.unflatten(params, live), batch)
+            grads = torch.autograd.grad(loss, live)
+        params, opt_state, gnorm = adamw_update(
+            params, pytree.unflatten(params, grads), opt_state,
+            self.opt_cfg)
+        return loss.detach(), params, opt_state, gnorm
+
     def ctx_len(self, seq_len: int) -> int:
         """The cross sublayers' context length for a step of
         ``seq_len``: the encoder's frames (enc-dec), the vision tokens
@@ -85,12 +118,13 @@ class ModelApi:
         return seq_len
 
 
-def get_model(cfg: ArchConfig, *, device=None,
-              kernels: str = "auto") -> ModelApi:
+def get_model(cfg: ArchConfig, *, device=None, kernels: str = "auto",
+              opt_cfg: AdamWConfig = AdamWConfig()) -> ModelApi:
     """The model API on ``device`` (None: the CUDA card)."""
     device = resolve_device(device)
     return ModelApi(cfg=cfg, device=device,
-                    kernels=resolve_kernels(kernels, device))
+                    kernels=resolve_kernels(kernels, device),
+                    opt_cfg=opt_cfg)
 
 
 def _to_tensor(a, device) -> torch.Tensor:

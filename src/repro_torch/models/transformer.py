@@ -25,17 +25,24 @@ visible), a ``rec`` entry ``conv [n_groups, B, K-1, d]`` and ``h
 [n_groups, B, d]``, an ``ssm`` entry ``conv [n_groups, B, K-1, conv_dim]``
 and ``state [n_groups, B, heads, head_dim, state]``; the same without the
 layer axis for leftovers.  The group is a Python loop over layers
-(PyTorch runs eagerly; there is no scan and no remat).
+(PyTorch runs eagerly; there is no scan); under ``cfg.remat == "full"``
+the loss recomputes each group iteration in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+its scan body does.
 
 A ``moe`` sublayer's MLP is the sort-dispatch MoE block
-(``models/moe.py``); its load-balance loss is discarded in prefill and
-decode, as the reference discards it.  A cross sublayer attends, without
-RoPE, causality or window, to a context: the encoder's output of
-``batch["frames"]`` (whisper) or ``batch["vision"]`` projected
-(llama-vision).  The recurrent (``models/rglru.py``) and SSD
+(``models/moe.py``); its load-balance loss, summed over the layers, joins
+the training loss at weight 0.01 (``loss_fn``) and is discarded in
+prefill and decode, as the reference discards it.  A cross sublayer
+attends, without RoPE, causality or window, to a context: the encoder's
+output of ``batch["frames"]`` (whisper) or ``batch["vision"]``
+projected (llama-vision).  The recurrent (``models/rglru.py``) and SSD
 (``models/ssm.py``) sublayers carry their state through prefill into the
-cache, right-padding included, as the reference's do.  Training
-(``loss_fn``) comes with the training slice.
+cache, right-padding included, as the reference's do.
+
+The training loss (``loss_fn``) runs the plain attention: the reference
+trains through its plain ``block_attention``, and its flash kernel (like
+the port's) has no backward.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import moe as moe_lib
@@ -342,12 +350,12 @@ def _sublayer_attn(p, spec: LayerSpec, x, cfg, positions, ctx,
 
 def _sublayer_train(p, spec: LayerSpec, x, cfg, positions, ctx,
                     cache_capacity: int, kernels: str):
-    """One prefill sublayer.  Returns (x, its cache entry); a MoE
-    block's aux loss is discarded."""
+    """One prefill (or training) sublayer.  Returns (x, aux, its cache
+    entry); aux is a MoE block's load-balance loss (0.0 otherwise)."""
     x, entry = _sublayer_attn(p, spec, x, cfg, positions, ctx,
                               cache_capacity, kernels)
-    x, _ = _apply_mlp_part(p, spec, x, cfg)
-    return x, entry
+    x, aux = _apply_mlp_part(p, spec, x, cfg)
+    return x, aux, entry
 
 
 def _sublayer_decode(p, spec: LayerSpec, x, cfg, positions, cache):
@@ -383,30 +391,50 @@ def _sublayer_decode(p, spec: LayerSpec, x, cfg, positions, cache):
 
 
 def _run_program(params, prog: Program, x, cfg, positions, ctx=None, *,
-                 cache_capacity: int, kernels: str, prefix: str = ""):
-    """Every prefill layer of the program under ``prefix`` in order.
-    Returns (x, caches dict; empty when ``cache_capacity`` is 0)."""
-    caches = {}
+                 cache_capacity: int, kernels: str, prefix: str = "",
+                 remat: bool = False):
+    """Every layer of the program under ``prefix`` in order.  Returns (x,
+    aux summed over the layers, caches dict; empty when
+    ``cache_capacity`` is 0).
+
+    ``remat`` (with ``cfg.remat == "full"``) runs each group iteration
+    under ``torch.utils.checkpoint``: the backward pass recomputes it
+    from its input instead of keeping its activations, as the
+    reference's ``jax.checkpoint(group_body)``; the leftover layers run
+    without it, as there."""
+    caches, aux = {}, 0.0
+
+    def group_body(x, aux, layer):
+        entries = {}
+        for idx, spec in enumerate(prog.group):
+            key = f"{prefix}g{idx}"
+            x, a, entries[key] = _sublayer_train(
+                layer_params(params[key], layer), spec, x, cfg, positions,
+                ctx, cache_capacity, kernels)
+            aux = aux + a
+        return x, aux, entries
+
     if f"{prefix}g0" in params:     # n_groups may be 0 (depth probes)
-        entries = {f"{prefix}g{idx}": [] for idx in range(len(prog.group))}
+        per_layer = []
         for layer in range(prog.n_groups):
-            for idx, spec in enumerate(prog.group):
-                key = f"{prefix}g{idx}"
-                x, entry = _sublayer_train(
-                    layer_params(params[key], layer), spec, x, cfg,
-                    positions, ctx, cache_capacity, kernels)
-                entries[key].append(entry)
+            if remat and cfg.remat == "full":
+                x, aux, entries = torch.utils.checkpoint.checkpoint(
+                    group_body, x, aux, layer, use_reentrant=False)
+            else:
+                x, aux, entries = group_body(x, aux, layer)
+            per_layer.append(entries)
         if cache_capacity:
-            for key, per_layer in entries.items():
-                caches[key] = {f: torch.stack([e[f] for e in per_layer])
-                               for f in per_layer[0]}
+            for key in per_layer[0]:
+                caches[key] = {f: torch.stack([e[key][f] for e in per_layer])
+                               for f in per_layer[0][key]}
     for idx, spec in enumerate(prog.leftover):
         key = f"{prefix}x{idx}"
-        x, entry = _sublayer_train(params[key], spec, x, cfg, positions,
-                                   ctx, cache_capacity, kernels)
+        x, a, entry = _sublayer_train(params[key], spec, x, cfg, positions,
+                                      ctx, cache_capacity, kernels)
+        aux = aux + a
         if cache_capacity:
             caches[key] = entry
-    return x, caches
+    return x, aux, caches
 
 
 def _embed(params, tokens):
@@ -419,24 +447,54 @@ def _unembed(params, cfg, x):
     return torch.einsum("bsd,dv->bsv", x, w)
 
 
-def _encode(params, cfg, frames, kernels: str):
+def _encode(params, cfg, frames, kernels: str, remat: bool = False):
     """The encoder program on the frame embeddings [B, Se, d]."""
     x = frames.to(params["w_frontend"].dtype) @ params["w_frontend"]
     pos = torch.arange(frames.shape[1], device=frames.device)[None]
-    x, _ = _run_program(params, build_encoder_program(cfg), x, cfg, pos,
-                        cache_capacity=0, kernels=kernels, prefix="enc_")
+    x, _, _ = _run_program(params, build_encoder_program(cfg), x, cfg, pos,
+                           cache_capacity=0, kernels=kernels, prefix="enc_",
+                           remat=remat)
     return apply_norm(x, params["enc_final_norm"], cfg.norm)
 
 
-def _get_ctx(params, cfg, batch, kernels: str):
+def _get_ctx(params, cfg, batch, kernels: str, remat: bool = False):
     """The cross sublayers' context: the encoded ``frames`` (enc-dec),
     the projected ``vision`` tokens (cross), else None."""
     if cfg.enc_dec:
-        return _encode(params, cfg, batch["frames"], kernels)
+        return _encode(params, cfg, batch["frames"], kernels, remat)
     if cfg.cross_every:
         w = params["w_vision_proj"]
         return batch["vision"].to(w.dtype) @ w
     return None
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """Causal LM loss (+ 0.01 * the MoE aux loss), a float32 scalar.
+    ``batch``: ``tokens`` / ``labels`` [B,S] (+ ``frames`` or ``vision``).
+
+    Term for term the reference's: the context, the embedded tokens
+    through the program (each group iteration recomputed in the backward
+    pass under ``cfg.remat == "full"``), the unembedding cast to float32,
+    the padded vocabulary masked at -1e9, the mean of logsumexp minus the
+    gold logit.  The attention is the plain version (``kernels="torch"``):
+    the reference trains through its plain ``block_attention``
+    (``repro/models/common.py``); the flash kernel has no backward."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    prog = build_program(cfg)
+    ctx = _get_ctx(params, cfg, batch, "torch", remat=True)
+    x = _embed(params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    x, aux, _ = _run_program(params, prog, x, cfg, positions, ctx,
+                             cache_capacity=0, kernels="torch", remat=True)
+    logits = _unembed(params, cfg, x).float()
+    Vp, V = cfg.vocab_padded(), cfg.vocab
+    if Vp != V:     # mask the padded vocabulary
+        logits = logits + torch.where(
+            torch.arange(Vp, device=logits.device) < V, 0.0, -1e9)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce + 0.01 * aux
 
 
 def prefill(params, batch, cfg: ArchConfig,
@@ -463,8 +521,8 @@ def prefill(params, batch, cfg: ArchConfig,
     ctx = _get_ctx(params, cfg, batch, kernels)
     x = _embed(params, tokens)
     positions = torch.arange(S, device=tokens.device)[None]
-    x, caches = _run_program(params, prog, x, cfg, positions, ctx,
-                             cache_capacity=cap, kernels=kernels)
+    x, _, caches = _run_program(params, prog, x, cfg, positions, ctx,
+                                cache_capacity=cap, kernels=kernels)
     last = S - 1 if last_pos is None else int(last_pos)
     logits = _unembed(params, cfg, x[:, last:last + 1])
     return logits[:, 0], caches

@@ -2021,11 +2021,13 @@ class LayerRecorder:
         def rec(*args):
             self.mlp = None
             out = self.orig(*args)
-            self.calls.append((args, out, self.mlp))
+            # (p, spec, x, cfg, positions, ctx, cache_capacity): the
+            # arguments before ``kernels`` (and the unsharded axes)
+            self.calls.append((args[:7], out, self.mlp))
             return out
 
-        def rec_mlp(p, spec, x, cfg):
-            out = self.orig_mlp(p, spec, x, cfg)
+        def rec_mlp(p, spec, x, cfg, *axes):
+            out = self.orig_mlp(p, spec, x, cfg, *axes)
             if spec.moe:
                 self.mlp = (x, out[0])
             return out
@@ -2058,7 +2060,7 @@ class LayerRecorder:
         for args, (x, _, entry), mlp in self.calls:
             p, spec, cfg = args[0], args[1], args[3]
             if not spec.moe:
-                x2, _, _ = self.orig(*args[:-1], "torch")
+                x2, _, _ = self.orig(*args, "torch")
                 if spec.kind in ("rec", "ssm") and not torch.equal(x, x2):
                     fail(f"{what}: a {spec.kind} layer re-run from the "
                          f"server's own input differs from the server's "
@@ -2066,7 +2068,7 @@ class LayerRecorder:
                 worst = max(worst, rel_err(x, x2))
                 continue
             r, y = mlp
-            r2, entry2 = self.tf._sublayer_attn(*args[:-1], "torch")
+            r2, entry2 = self.tf._sublayer_attn(*args, "torch")
             worst = max(worst, rel_err(r, r2), rel_err(entry["k"],
                                                        entry2["k"]),
                         rel_err(entry["v"], entry2["v"]))
@@ -2759,6 +2761,9 @@ def kernel_rows(calls, launches, attn):
         lambda: [ref.clockscan_ref(*a) for a in scans],
         lambda g, w: same(g, w, "clockscan (main path)"),
         (scan_bytes, scan_ops), calls=len(scans))
+    rows[-1]["cold_l2_kernel_ms"] = sum(
+        cold_l2_ms(lambda a=a: clockscan.clockscan(*a), "clockscan", flush)
+        for a in scans)
 
     # shared_groupby: the last steady beat's call
     codes, vals, mask, G = calls["groupby"][-1]
@@ -2772,6 +2777,15 @@ def kernel_rows(calls, launches, attn):
     row("shared_groupby", lambda: shared_groupby.shared_groupby(codes, vals, mask, G),
         lambda: ref.shared_groupby_ref(codes, vals, mask, G), gb_check,
         (nbytes(codes, vals, mask) + 2 * G * Q * 4, 2 * set_bits))
+    rows[-1]["cold_l2_kernel_ms"] = cold_l2_ms(
+        lambda: shared_groupby.shared_groupby(codes, vals, mask, G),
+        "shared_groupby", flush)
+    # the bound's bytes, recounted by input: the codes, values and mask
+    # words read once, the [G, Q] counts and sums written once
+    rows[-1]["bound_bytes"] = {
+        "codes": nbytes(codes), "vals": nbytes(vals), "mask": nbytes(mask),
+        "out": 2 * G * Q * 4, "set_bits": set_bits,
+        "shape": [list(codes.shape), list(mask.shape), G]}
 
     # partitioned_join: the reseed beat's four probes, whose buckets must
     # be laid out as the kernel's binary search needs
@@ -2829,6 +2843,13 @@ def kernel_rows(calls, launches, attn):
         lambda g, w: same(g, w, "fused_delta (main path)"), (fb, fo),
         setup=restore_carries)
     rows[-1]["descriptor_bound_ms"] = bound_ms(descriptor_bytes, fo)[0]
+
+    def cold_carries():
+        restore_carries()
+        flush.zero_()
+    rows[-1]["cold_l2_kernel_ms"] = device_ms(
+        lambda: fused_delta.fused_delta(scan_in, join_in),
+        KERNEL_SYMBOLS["fused_delta"], setup=cold_carries)[1]
     if rows[-1]["device_ops"] > 1 + len(join_in):
         fail(f"fused_delta enqueues {rows[-1]['device_ops']} device ops a "
              f"call, over 1 + {len(join_in)} joins")
@@ -2990,6 +3011,372 @@ def kernel_rows(calls, launches, attn):
         fail("flash_attention: the recorded shapes do not cover every "
              "launch of the main path")
     return rows
+
+
+# ---------------------------------------------------------------- the mesh
+MESH_SHAPE = (2, 2)              # (data, model): four simulated ranks
+MESH_SERVER = {"capacity": 4, "max_seq": 1024, "prefill_len": 512,
+               "kernels": "hopper"}
+MESH_PROMPTS = (64, 200, 350, 512)      # prompt tokens of the 4 requests
+MESH_NEW_TOKENS = 8
+MESH_REL_TOL = 2e-2         # of each layer's scale (LM_REL_TOL's gate)
+# the dry-run cells of the phase: one full config of each family, at
+# train_4k and decode_32k on the 256-rank mesh and decode_32k on the
+# 512-rank one (the whole matrix: ``python -m repro_torch.launch.dryrun``)
+MESH_DRYRUN_ARCHS = ("yi-6b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
+                     "mamba2-370m", "whisper-small", "llama-3.2-vision-90b")
+MESH_DRYRUN_CELLS = (("single", "train_4k,decode_32k"),
+                     ("multi", "decode_32k"))
+MESH_DRYRUN_TIMEOUT_S = 600
+DEVICE_BYTES = 80 * 2 ** 30
+
+
+def start_dryrun(out_dir):
+    """One process per family, each running the family's cells of the
+    dry-run CLI over its fake process groups (CPU only; they overlap the
+    server below).  Returns [(arch, process, out file)]."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch in MESH_DRYRUN_ARCHS:
+        out = out_dir / f"{arch}.json"
+        cmd = " && ".join(
+            f"{sys.executable} -m repro_torch.launch.dryrun --arch {arch} "
+            f"--shape {shapes} --mesh {mesh} --no-extrapolate --force "
+            f"--out {out}" if i == 0 else
+            f"{sys.executable} -m repro_torch.launch.dryrun --arch {arch} "
+            f"--shape {shapes} --mesh {mesh} --no-extrapolate --out {out}"
+            for i, (mesh, shapes) in enumerate(MESH_DRYRUN_CELLS))
+        procs.append((arch, subprocess.Popen(
+            ["bash", "-c", cmd], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            out))
+    return procs
+
+
+def finish_dryrun(procs):
+    """Wait for the dry-run processes; print one line a cell; fail on an
+    error cell or a failed process.  Returns the cells' records."""
+    cells = {}
+    for arch, proc, out in procs:
+        try:
+            text, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"mesh dry-run of {arch}: over {MESH_DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0 or not out.exists():
+            print(text[-3000:])
+            fail(f"mesh dry-run of {arch}: exit {proc.returncode}")
+        cells.update(json.loads(out.read_text()))
+    for key, rec in sorted(cells.items()):
+        if rec["status"] == "error":
+            fail(f"mesh dry-run {key}: {rec['error']}")
+        if rec["status"] == "skipped":
+            print(f"mesh dry-run {key}: skipped ({rec['reason'][:60]})")
+            continue
+        m, r = rec["memory"], rec["roofline"]
+        arg, temp = m["argument_bytes_per_device"], m["temp_bytes_per_device"]
+        print(f"mesh dry-run {key}: ok; argument {arg / 2 ** 30:.3f} GiB + "
+              f"temp {temp / 2 ** 30:.3f} GiB a device "
+              f"({'fits' if arg + temp <= DEVICE_BYTES else 'exceeds'} "
+              f"80 GiB); FLOPs {rec['hlo_flops']:.4e} (model "
+              f"{rec['model_flops']:.4e}); collective bytes "
+              f"{rec['collective_bytes']:.4e}; dominant {r['dominant']} "
+              f"(step bound {r['step_time_s']:.6f} s on "
+              f"{rec['n_chips']} H100s, analytic) ({rec['wall_s']} s)")
+    return cells
+
+
+class StepLog:
+    """A server's logits at every prefill and decode step (rows of the
+    slots active in that step), on the host, in order."""
+
+    def __init__(self, srv):
+        from repro_torch.serving.scheduler import host_numpy
+        self.logits = []
+        prefill, decode = srv._prefill, srv._decode
+
+        def rec_prefill(*a):
+            out = prefill(*a)
+            self.logits.append(host_numpy(out[0].float()))
+            return out
+
+        def rec_decode(p, c, t, pos):
+            out = decode(p, c, t, pos)
+            live = [x is not None for x in srv._slots]
+            self.logits.append(host_numpy(out[0].float())[live])
+            return out
+        srv._prefill, srv._decode = rec_prefill, rec_decode
+
+
+def mesh_drain(srv, prompts, profiled_beat):
+    """Submit ``prompts`` and beat to drain; beat ``profiled_beat`` (a
+    decode-only beat) under torch.profiler.  Returns (outputs by request,
+    wall seconds, the profiled beat's {wall_ms, busy_ms, host_ops})."""
+    import torch
+    for pr in prompts:
+        srv.submit(pr, max_new_tokens=MESH_NEW_TOKENS)
+    done, beat, profiled = [], 0, None
+    t0 = time.perf_counter()
+    while srv.pending() or srv.active():
+        prof = beat_profiler() if beat == profiled_beat else None
+        with prof or contextlib.nullcontext():
+            tb = time.perf_counter()
+            srv.dispatch()
+            done += srv.collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tb
+        if prof is not None:
+            if srv.last_admitted:
+                fail("mesh: the profiled beat admitted a request")
+            busy, n, top = busy_ms(prof)
+            profiled = {"wall_ms": wall * 1e3, "busy_ms": busy,
+                        "device_ops": n, "host_ops": host_ops(prof),
+                        "top": top}
+        beat += 1
+    outs = [r.output for r in sorted(done, key=lambda r: r.id)]
+    return outs, time.perf_counter() - t0, profiled
+
+
+def rank_bytes(tree, rank):
+    """Rank ``rank``'s bytes of a tree of DTensors: a LocalTensor local
+    shard's rank's, a plain local tensor's (the same on every rank)."""
+    from repro_torch.core import pytree
+    total = 0
+    for t in pytree.leaves(tree):
+        lt = t._local_tensor
+        lt = getattr(lt, "_local_tensors", {rank: lt})[rank]
+        total += lt.numel() * lt.element_size()
+    return total
+
+
+class LayerLog:
+    """Rank 0's input and output residual of every prefill sublayer of a
+    mesh server's first admission (``transformer._sublayer_train``),
+    as plain tensors."""
+
+    def __init__(self, n_layers):
+        from repro_torch.models import transformer
+        self.tf, self.n, self.io = transformer, n_layers, []
+        self.orig = transformer._sublayer_train
+
+    def __enter__(self):
+        def rec(p, spec, x, *a):
+            out = self.orig(p, spec, x, *a)
+            if len(self.io) < self.n:
+                self.io.append((spec, rank0(x), rank0(out[0])))
+            return out
+        self.tf._sublayer_train = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.tf._sublayer_train = self.orig
+
+
+def rank0(t):
+    """Rank 0's full value of a DTensor over LocalTensors, a plain copy."""
+    t = t.full_tensor()
+    return getattr(t, "_local_tensors", {0: t})[0].clone()
+
+
+def mesh_layer_gate(cfg, params, io, logits, last, card):
+    """Each recorded sublayer of the mesh prefill against the unsharded
+    sublayer run on the mesh's own input (MESH_REL_TOL of its scale),
+    and the mesh's logits against the unsharded unembedding of its last
+    residual.  Returns the worst relative error."""
+    import torch
+    from repro_torch.models import transformer as tf
+    S = io[0][1].shape[1]
+    pos = torch.arange(S, device=io[0][1].device)[None]
+    worst = 0.0
+    for layer, (spec, x_in, x_out) in enumerate(io):
+        want = tf._sublayer_train(tf.layer_params(params["g0"], layer), spec,
+                                  x_in, cfg, pos, None, 0, "hopper")[0]
+        err = rel_err(x_out, want)
+        worst = max(worst, err)
+        if err > MESH_REL_TOL:
+            fail(f"mesh: prefill layer {layer} differs from the unsharded "
+                 f"layer on its own input by {err:.3e} of scale")
+    want = tf._unembed(params, cfg, io[-1][2][:, last:last + 1])[:, 0]
+    err = rel_err(logits, want)
+    if err > MESH_REL_TOL:
+        fail(f"mesh: prefill logits differ from the unsharded unembedding "
+             f"of the mesh's last residual by {err:.3e} of scale")
+    print(f"mesh: lm-yi-6b-mesh2x2 first admission: {len(io)} prefill "
+          f"layers each within {worst:.3e} of scale of the unsharded layer "
+          f"on its own input, logits within {err:.3e} (gate "
+          f"{MESH_REL_TOL}) [{card}]")
+    return max(worst, err)
+
+
+def mesh_phase(dev, card):
+    """The port's language model over a device mesh: (a) the dry-run's
+    cells on fake 256- and 512-rank groups (worker processes, started
+    first); (b) yi-6b at full width and depth served by
+    ``CycleServer(cfg, make_axes(mesh))`` on a (data 2, model 2) mesh of
+    four LocalTensorMode ranks on this card, eagerly, beside the
+    unsharded server on the same weights and requests: every prefill
+    layer of the first admission held to the unsharded layer on its own
+    input, the end-to-end logits' divergence measured (random weights
+    give one-hot attention, so a one-ulp bf16 difference in a layer
+    grows layer by layer, as between the LM paths' twins), tokens equal
+    where a step's top-2 margin exceeds that divergence; flash launched
+    per rank on its own heads, its recorded local inputs held against
+    the plain version; (c) each rank's bytes of parameters, cache and
+    decode inputs against the dry-run's ``argument_bytes_per_device``
+    for that mesh, config and shape."""
+    import numpy as np
+    import torch
+    print(f"mesh: torch {torch.__version__} [{card}]")
+    from torch.distributed._local_tensor import LocalTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels as K
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_axes
+    from repro_torch.serving import CycleServer
+
+    t_phase = time.perf_counter()
+    procs = start_dryrun(ROOT / "build" / "mesh-dryrun")
+    cfg = get_config("yi-6b")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in MESH_PROMPTS]
+    base = CycleServer(cfg, device=dev, jit=False, seed=SEED, **MESH_SERVER)
+    base_log = StepLog(base)
+    base_out, base_wall, base_prof = mesh_drain(base, prompts, 4)
+
+    dryrun.fake_group(math.prod(MESH_SHAPE))
+    recorded = []
+    orig_fa = fa.flash_attention
+
+    def recording_fa(q, k, v, **kw):
+        if not recorded:    # rank 0's inputs of the first call
+            recorded.append(([t._local_tensors[0].clone()
+                              for t in (q, k, v)], kw))
+        return orig_fa(q, k, v, **kw)
+    fa.flash_attention = recording_fa
+    K.reset_launches()
+    try:
+        with LocalTensorMode(math.prod(MESH_SHAPE)):
+            mesh = init_device_mesh("cuda", MESH_SHAPE,
+                                    mesh_dim_names=("data", "model"))
+            t0 = time.perf_counter()
+            srv = CycleServer(cfg, make_axes(mesh), device=dev, jit=False,
+                              params=base.params, **MESH_SERVER)
+            setup_s = time.perf_counter() - t0
+            mesh_log = StepLog(srv)
+            with LayerLog(cfg.n_layers) as layers:
+                mesh_out, mesh_wall, mesh_prof = mesh_drain(srv, prompts, 4)
+            launches = dict(K.LAUNCHES)
+            n = math.prod(MESH_SHAPE)
+            held = [{"params": rank_bytes(srv.params, r),
+                     "cache": rank_bytes(srv.cache, r),
+                     "inputs": rank_bytes((srv._tokens, srv._positions), r)}
+                    for r in range(n)]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        fa.flash_attention = orig_fa
+    print(f"mesh: launches, lm-yi-6b-mesh2x2 path: {json.dumps(launches)}")
+    admissions = len(MESH_PROMPTS)
+    want_fa = admissions * cfg.n_layers * n
+    if launches["flash_attention"] != want_fa:
+        fail(f"mesh: flash_attention launched {launches['flash_attention']}"
+             f" times, want {admissions} admissions x {cfg.n_layers} layers "
+             f"x {n} ranks = {want_fa}")
+
+    # (b) the gate: each prefill layer of the first admission; then the
+    # end-to-end divergence, measured, and the tokens equal wherever a
+    # step's top-2 margin exceeds it
+    layer_err = mesh_layer_gate(
+        cfg, base.params, layers.io,
+        torch.from_numpy(mesh_log.logits[0]).to(dev),
+        min(len(prompts[0]), MESH_SERVER["prefill_len"]) - 1, card)
+    if len(mesh_log.logits) != len(base_log.logits):
+        fail(f"mesh: {len(mesh_log.logits)} steps vs the unsharded "
+             f"server's {len(base_log.logits)}")
+    divergence, sure_steps = [], 0
+    for i, (g, w) in enumerate(zip(mesh_log.logits, base_log.logits)):
+        diff = float(np.abs(g - w).max())
+        divergence.append(diff / float(np.abs(w).max()))
+        srt = -np.sort(-w, axis=-1)
+        sure = srt[:, 0] - srt[:, 1] > diff
+        sure_steps += int(sure.sum())
+        if (g.argmax(-1)[sure] != w.argmax(-1)[sure]).any():
+            fail(f"mesh: step {i} tokens differ where the margin exceeds "
+                 f"the logit difference {diff}")
+    same_tokens = mesh_out == base_out
+    print(f"mesh: lm-yi-6b-mesh2x2: {len(mesh_log.logits)} steps; "
+          f"end-to-end logits beside the unsharded server's (measured, "
+          f"not gated): first prefill {divergence[0]:.3e}, worst "
+          f"{max(divergence):.3e} of scale; {sure_steps} rows with a "
+          f"top-2 margin over the difference, their tokens equal; tokens "
+          f"{'equal' if same_tokens else 'differ'} "
+          f"({sum(map(len, mesh_out))} generated); setup {setup_s:.1f} s; "
+          f"peak {peak:.2f} GiB allocated [{card}]")
+    for what, wall, prof in (("unsharded", base_wall, base_prof),
+                             ("mesh2x2", mesh_wall, mesh_prof)):
+        print(f"mesh: {what} server: drain {wall:.3f} s; decode-only beat "
+              f"4: wall {prof['wall_ms']:.3f} ms, busy {prof['busy_ms']:.3f}"
+              f" ms ({prof['device_ops']} device ops), host ops "
+              f"{json.dumps(prof['host_ops'])}, top {json.dumps(prof['top'])}"
+              f" [{card}]")
+
+    # the kernel on the recorded local inputs (16 query heads over 2 KV
+    # heads a rank), against its plain version; not counted
+    (q, k, v), kw = recorded[0]
+    if (q.shape[2], k.shape[2]) != (cfg.n_heads // MESH_SHAPE[1],
+                                    cfg.n_kv // MESH_SHAPE[1]):
+        fail(f"mesh: flash's local heads {q.shape[2]} over {k.shape[2]}")
+    got = orig_fa(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    err = max_abs_err(got, want)
+    rel = float(row_rel_err(got, want).max())
+    if not torch.allclose(got.float(), want.float(), rtol=2e-2, atol=1e-1) \
+            or rel > FLASH_ROW_REL_TOL:
+        fail(f"mesh: flash on rank 0's local inputs: max abs err {err}, "
+             f"row-relative {rel}")
+    ms = device_ms(lambda: orig_fa(q, k, v, **kw),
+                   "flash_attention_wgmma_kernel")[0]
+    print(f"mesh: flash_attention on rank 0's local inputs {tuple(q.shape)}"
+          f" over {tuple(k.shape)} {kw}: max abs err {err:.3e}, row-relative"
+          f" {rel:.3e}, device {ms:.6f} ms [{card}]")
+    K.reset_launches()
+
+    # (c) each rank's bytes against the dry-run's for this mesh and shape
+    cpu_mesh = init_device_mesh("cpu", MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+    shape = ShapeSpec("mesh2x2", MESH_SERVER["max_seq"],
+                      MESH_SERVER["capacity"], "decode")
+    _, _, memory, _ = dryrun.measure(cfg, shape, make_axes(cpu_mesh))
+    want_b = memory["argument_bytes_per_device"]
+    for r, h in enumerate(held):
+        if sum(h.values()) != want_b:
+            fail(f"mesh: rank {r} holds {h} = {sum(h.values())} bytes, the "
+                 f"dry-run counts {want_b}")
+    print(f"mesh: every rank holds {want_b} bytes (params "
+          f"{held[0]['params']}, cache {held[0]['cache']}, inputs "
+          f"{held[0]['inputs']}) = the dry-run's argument_bytes_per_device")
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    del srv, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cells = finish_dryrun(procs)
+    print(f"mesh: dry-run cells waited {time.perf_counter() - t0:.1f} s; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_launches": launches["flash_attention"],
+            "layer_rel_err": layer_err, "divergence": divergence,
+            "tokens_equal": same_tokens,
+            "rank_bytes": want_b, "cells": len(cells),
+            "unsharded": base_prof, "mesh": mesh_prof,
+            "drain_s": {"unsharded": base_wall, "mesh": mesh_wall},
+            "flash_local": {"err": err, "row_rel": rel, "ms": ms}}
 
 
 def beat_summary(entries):
@@ -3256,11 +3643,16 @@ def main():
                   f"wall {r['wall_ms']:.6f}, {r['device_ops']} device ops a "
                   f"call) against the previous design's "
                   f"{PREVIOUS_DESIGN_MS[r['name']]} (PERF.md §6)")
-    # the train phase last: after its profiled 12 000-op step, later
-    # torch.profiler sessions in this process traced no device event
     del calls, rec, attn, fold_rec, chained_rec, sharded_rec
     gc.collect()
     torch.cuda.empty_cache()
+    meshed = mesh_phase(dev, smi[0])
+    print("mesh summary:", json.dumps(meshed))
+    for r in rows:      # the mesh phase's launches, counted on their own
+        r["mesh_launches"] = meshed["flash_launches"] \
+            if r["name"] == "flash_attention" else 0
+    # the train phase last: after its profiled 12 000-op step, later
+    # torch.profiler sessions in this process traced no device event
     trained = train_phase(dev, smi[0])
     print("train summary:", json.dumps(trained))
     for r in rows:      # no kernel runs on the training paths

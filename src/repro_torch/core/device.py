@@ -34,3 +34,9 @@ def upload(a, device, dtype=None) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device, copy=True)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor placed on a device mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

@@ -57,3 +57,13 @@ def tree_map(fn: Callable, tree, *rest):
     others = [leaves(r) for r in rest]
     return unflatten(tree, [fn(x, *(o[i] for o in others))
                             for i, x in enumerate(leaves(tree))])
+
+
+def dict_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts ``tree`` and the same keys
+    of ``rest``; only dicts are nodes, so a leaf may be a tuple (a
+    PartitionSpec, a ``(shape, dtype)`` pair)."""
+    if isinstance(tree, dict):
+        return {k: dict_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)

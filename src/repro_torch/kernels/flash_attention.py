@@ -24,8 +24,14 @@ key tiles that no row of the query tile can see, as the model's
 launch raises; the other route is never tried instead.
 
 The checks (``check_args``) hold on every device, so the CPU tests see
-the kernel's contract; on CPU tensors the wrapper then computes the plain
-version (``ref.flash_attention_ref``).
+the kernel's contract.  The wrapper then calls the custom operator
+``torch.ops.repro_torch.flash_attention`` through the dispatcher: its CPU
+implementation is the plain version (``ref.flash_attention_ref``), its
+CUDA one launches the kernel, and its fake one gives the output's shape.
+Going through the dispatcher is what lets a mesh run it: under
+``local_map`` (``models/common.block_attention``) each rank's local
+tensors reach the operator, and under ``LocalTensorMode`` each simulated
+rank's call launches the kernel on that rank's heads (and counts).
 """
 from __future__ import annotations
 
@@ -132,8 +138,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
             "under grad mode; differentiate the plain attention "
             "(block_attention(kernels='torch'), as loss_fn does)")
     check_args(q, k, v)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_op(q, k, v, bool(causal), int(window))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int) -> torch.Tensor:
+    """The operator (``check_args`` is the wrapper's); on the CPU the
+    plain version, contiguous like the kernel's output."""
+    return ref.flash_attention_ref(q, k, v, causal=causal,
+                                   window=window).contiguous()
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, causal, window):
+    """The operator on the card: launches the route's kernel."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     kind = route(q.dtype, D)

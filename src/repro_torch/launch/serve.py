@@ -7,7 +7,9 @@ the CUDA card by default.
 
 Every LM configuration serves: dense, MoE, recurrent (recurrentgemma),
 SSD (mamba2), cross-attention (llama-vision: zero vision tokens) and
-encoder-decoder (whisper: zero frames).
+encoder-decoder (whisper: zero frames).  ``--mesh single|multi`` serves
+over the production mesh (``launch/mesh.make_axes``, eagerly), which
+needs a process group of 256 (512) ranks and so raises on one card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --smoke --device cpu --requests 8
 """
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch.mesh import make_axes, make_production_mesh
 from repro_torch.serving import CycleServer
 
 
@@ -32,15 +35,20 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--prefill-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "single", "multi"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    server = CycleServer(cfg, capacity=args.capacity, max_seq=args.max_seq,
-                         prefill_len=args.prefill_len, seed=args.seed,
-                         device=args.device)
+    mesh = None if args.mesh == "none" else make_production_mesh(
+        multi_pod=args.mesh == "multi")
+    server = CycleServer(cfg, make_axes(mesh), capacity=args.capacity,
+                         max_seq=args.max_seq, prefill_len=args.prefill_len,
+                         seed=args.seed, device=args.device,
+                         jit=mesh is None)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()

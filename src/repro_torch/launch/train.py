@@ -7,10 +7,11 @@ CPU-scale usage (smoke config, real steps):
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
       --smoke --device cpu --steps 30 --batch 8 --seq 64 --ckpt /tmp/ckpt
 
-The reference's flags, plus ``--device``.  ``--mesh single|multi`` builds
-the production mesh, which needs 256 (512) cards and so raises on fewer,
-as the reference does on fewer devices: the port's LM trains on one
-device.  bf16 parameters from the port's seeded init, float32 AdamW
+The reference's flags, plus ``--device``.  ``--mesh single|multi`` trains
+over the production mesh (``launch/mesh.make_axes``: parameters,
+optimizer state and batches as DTensors placed by the model's specs),
+which needs a process group of 256 (512) ranks and so raises on one
+card, as the reference does on fewer devices.  bf16 parameters from the port's seeded init, float32 AdamW
 moments, the plain attention (``transformer.loss_fn``), the synthetic
 pipeline's batches with float32 cast to bf16; with ``--ckpt`` the
 ``FaultTolerantLoop`` checkpoints every ``--save-every`` steps and a
@@ -38,7 +39,7 @@ from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core import pytree  # noqa: E402
 from repro_torch.core.device import resolve_device  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
-from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_axes, make_production_mesh  # noqa: E402,E501
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.runtime import FaultTolerantLoop  # noqa: E402
@@ -93,14 +94,12 @@ class Trainer:
         self.args = args
         cfg = smoke_config(args.arch) if args.smoke \
             else get_config(args.arch)
-        if args.mesh != "none":     # raises without 256 (512) cards
-            make_production_mesh(multi_pod=args.mesh == "multi")
-            raise NotImplementedError(
-                "the port's LM trains on one device: no sharded parameters "
-                "or optimizer state over a mesh")
+        mesh = None if args.mesh == "none" else make_production_mesh(
+            multi_pod=args.mesh == "multi")   # raises without the ranks
         self.cfg = cfg
         self.device = resolve_device(args.device)
-        self.api = get_model(cfg, device=self.device, kernels="torch",
+        self.api = get_model(cfg, make_axes(mesh), device=self.device,
+                             kernels="torch",
                              opt_cfg=AdamWConfig(lr=args.lr))
         self.pipe = TokenPipeline(DataConfig(
             vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
@@ -118,10 +117,13 @@ class Trainer:
     def batch(self, step: int) -> dict:
         """The pipeline's batch of ``step`` on the device: float32 cast
         to bf16, integers kept."""
-        return {k: torch.from_numpy(v).to(
-                    self.device, torch.bfloat16 if v.dtype.name == "float32"
-                    else None)
-                for k, v in self.pipe.batch_at(step).items()}
+        batch = {k: torch.from_numpy(v).to(
+                     self.device, torch.bfloat16 if v.dtype.name == "float32"
+                     else None)
+                 for k, v in self.pipe.batch_at(step).items()}
+        axes = self.api.axes
+        b = axes.batch(self.args.batch)
+        return {k: axes.distribute(v, b) for k, v in batch.items()}
 
     def step_fn(self, state, step: int):
         params, opt = state

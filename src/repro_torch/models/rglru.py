@@ -15,28 +15,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamStore, _gelu_tanh
+from repro_torch.models.common import (MeshAxes, ParamStore, _gelu_tanh,
+                                       row_parallel)
 from repro_torch.models.ssm import _causal_conv
 
 _C = 8.0
 _N_BLOCKS = 16      # block-diagonal gate projections, as Griffin's
 
 
-def init_rglru(store: ParamStore, cfg):
+def init_rglru(store: ParamStore, cfg, axes: MeshAxes = MeshAxes()):
     d = cfg.d_model
     dr = d          # lru width = d_model in recurrentgemma-2b
     nb = _N_BLOCKS if dr % _N_BLOCKS == 0 else 1
     c = dr // nb
-    store.add("w_x", (d, dr))
-    store.add("w_gate", (d, dr))
-    store.add("conv_w", (cfg.conv_kernel, dr), scale=0.5)
-    store.add("conv_b", (dr,), zeros=True)
-    store.add("w_a_gate", (nb, c, c), scale=0.02)
-    store.add("b_a_gate", (dr,), zeros=True)
-    store.add("w_i_gate", (nb, c, c), scale=0.02)
-    store.add("b_i_gate", (dr,), zeros=True)
-    store.add("lam", (dr,), scale=1.0, dtype=torch.float32)
-    store.add("w_out", (dr, d))
+    store.add("w_x", (d, dr), (axes.fsdp, axes.tp))
+    store.add("w_gate", (d, dr), (axes.fsdp, axes.tp))
+    store.add("conv_w", (cfg.conv_kernel, dr), (None, axes.tp), scale=0.5)
+    store.add("conv_b", (dr,), (axes.tp,), zeros=True)
+    store.add("w_a_gate", (nb, c, c), (axes.tp, None, None), scale=0.02)
+    store.add("b_a_gate", (dr,), (axes.tp,), zeros=True)
+    store.add("w_i_gate", (nb, c, c), (axes.tp, None, None), scale=0.02)
+    store.add("b_i_gate", (dr,), (axes.tp,), zeros=True)
+    store.add("lam", (dr,), (axes.tp,), scale=1.0, dtype=torch.float32)
+    store.add("w_out", (dr, d), (axes.tp, axes.fsdp))
 
 
 def _block_linear(x, w):
@@ -65,12 +66,16 @@ def _lru_scan(a, u):
 
 
 def apply_rglru(p, x, cfg, conv_state=None, h_state=None,
-                decode: bool = False):
+                decode: bool = False, axes: MeshAxes = MeshAxes()):
     """x [B,S,D] -> (out [B,S,D], (conv_state, h_state)); the states are
-    new tensors (the caller writes them into its cache)."""
+    new tensors (the caller writes them into its cache).  Under a mesh
+    the width rides tp and the batch dp (the reference's constraint);
+    the sequence is whole on every rank, so the log-step scan's shifted
+    slices and concatenations stay shard-local."""
     xb = x @ p["w_x"]
     gate = _gelu_tanh(x @ p["w_gate"])      # jax.nn.gelu: tanh form
     xb, new_conv = _causal_conv(xb, p["conv_w"], p["conv_b"], conv_state)
+    xb = axes.constrain(xb, axes.batch(xb.shape[0]), None, axes.tp)
 
     xf = xb.float()
     r = torch.sigmoid(_block_linear(xf, p["w_a_gate"].float())
@@ -91,5 +96,5 @@ def apply_rglru(p, x, cfg, conv_state=None, h_state=None,
             gated_in = torch.cat([first, gated_in[:, 1:]], dim=1)
         y = _lru_scan(a, gated_in)
         new_h = y[:, -1]
-    out = (y.to(x.dtype) * gate) @ p["w_out"]
+    out = row_parallel(y.to(x.dtype) * gate, p["w_out"], axes)
     return out, (new_conv, new_h)

@@ -17,26 +17,26 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamStore
+from repro_torch.models.common import MeshAxes, ParamStore, row_parallel
 
 
-def init_ssm(store: ParamStore, cfg):
+def init_ssm(store: ParamStore, cfg, axes: MeshAxes = MeshAxes()):
     d = cfg.d_model
     d_in = cfg.ssm_expand * d
     nh = d_in // cfg.ssm_head_dim
     n = cfg.ssm_state
     conv_dim = d_in + 2 * n
-    store.add("w_in_zx", (d, 2 * d_in))
-    store.add("w_in_bc", (d, 2 * n))
-    store.add("w_in_dt", (d, nh))
-    store.add("conv_w", (cfg.conv_kernel, conv_dim), scale=0.5)
-    store.add("conv_b", (conv_dim,), zeros=True)
+    store.add("w_in_zx", (d, 2 * d_in), (axes.fsdp, axes.tp))
+    store.add("w_in_bc", (d, 2 * n), (axes.fsdp, None))
+    store.add("w_in_dt", (d, nh), (axes.fsdp, None))
+    store.add("conv_w", (cfg.conv_kernel, conv_dim), (None, None), scale=0.5)
+    store.add("conv_b", (conv_dim,), (None,), zeros=True)
     # float32 whatever the store's dtype, as in the reference
-    store.add("A_log", (nh,), scale=0.0, dtype=torch.float32)
-    store.add("dt_bias", (nh,), zeros=True, dtype=torch.float32)
-    store.add("D", (nh,), zeros=True, dtype=torch.float32)
-    store.add("norm_scale", (d_in,), zeros=True)
-    store.add("w_out", (d_in, d))
+    store.add("A_log", (nh,), (None,), scale=0.0, dtype=torch.float32)
+    store.add("dt_bias", (nh,), (None,), zeros=True, dtype=torch.float32)
+    store.add("D", (nh,), (None,), zeros=True, dtype=torch.float32)
+    store.add("norm_scale", (d_in,), (axes.tp,), zeros=True)
+    store.add("w_out", (d_in, d), (axes.tp, axes.fsdp))
 
 
 def _causal_conv(u, w, b, state=None):
@@ -108,6 +108,31 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     return (y_diag + y_off).reshape(b, s, h, p), carry
 
 
+def _ssd(x, dt, A, B, C, chunk: int, init_state, axes: MeshAxes):
+    """``ssd_chunked``; under a mesh per rank (``local_map``) on its batch
+    rows (dp) and heads (tp, where it divides them), B and C whole on
+    every tp rank: the scan is independent per (batch row, head)."""
+    if axes.mesh is None:
+        return ssd_chunked(x, dt, A, B, C, chunk, init_state)
+    from torch.distributed.tensor.experimental import local_map
+    b, h = axes.batch(x.shape[0]), \
+        axes.tp if x.shape[2] % axes.tp_size == 0 else None
+    x_pl = axes.placements(4, b, None, h, None)
+    st_pl = axes.placements(4, b, h, None, None)
+    pl = [x_pl, axes.placements(3, b, None, h), axes.placements(1, h),
+          axes.placements(3, b), axes.placements(3, b)]
+    args = [x, dt, A, B, C]
+    if init_state is not None:
+        pl.append(st_pl)
+        args.append(init_state)
+
+    def local(x_, dt_, A_, B_, C_, st=None):
+        return ssd_chunked(x_, dt_, A_, B_, C_, chunk, st)
+    return local_map(local, out_placements=(x_pl, st_pl),
+                     in_placements=tuple(pl), device_mesh=axes.mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def _pad_steps(a, pad: int):
     """``a`` [B,S,...] with ``pad`` zero steps appended on axis 1."""
     return torch.cat([a, a.new_zeros((a.shape[0], pad) + a.shape[2:])],
@@ -115,10 +140,13 @@ def _pad_steps(a, pad: int):
 
 
 def apply_ssm(p, x, cfg, conv_state=None, ssd_state=None,
-              decode: bool = False):
+              decode: bool = False, axes: MeshAxes = MeshAxes()):
     """Mamba-2 block.  x [B,S,D] -> (out [B,S,D], (conv_state,
     ssd_state)); the states are new tensors (the caller writes them into
-    its cache)."""
+    its cache).  Under a mesh the conv and the scan run on DTensors with
+    the sequence whole on every rank (the reference's constraint puts
+    the batch on dp and the inner width on tp), so the chunk cumsums and
+    the carry loop stay shard-local."""
     B_, S, D = x.shape
     d_in = cfg.ssm_expand * D
     hd = cfg.ssm_head_dim
@@ -133,6 +161,7 @@ def apply_ssm(p, x, cfg, conv_state=None, ssd_state=None,
     u, new_conv = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
     u = F.silu(u)
     xin, Bmat, Cmat = torch.split(u, [d_in, n, n], dim=-1)
+    xin = axes.constrain(xin, axes.batch(B_), None, axes.tp)
 
     A = -torch.exp(p["A_log"].float())
     xh = xin.reshape(B_, S, nh, hd).float()
@@ -154,7 +183,7 @@ def apply_ssm(p, x, cfg, conv_state=None, ssd_state=None,
         xp, Bp, Cp, dtp = xh, Bf, Cf, dt
         if pad:
             xp, Bp, Cp, dtp = (_pad_steps(a, pad) for a in (xh, Bf, Cf, dt))
-        y, new_state = ssd_chunked(xp, dtp, A, Bp, Cp, Q, ssd_state)
+        y, new_state = _ssd(xp, dtp, A, Bp, Cp, Q, ssd_state, axes)
         y = y[:, :S]
     y = y + xh * p["D"][:, None]
     y = y.reshape(B_, S, d_in).to(x.dtype)
@@ -163,4 +192,4 @@ def apply_ssm(p, x, cfg, conv_state=None, ssd_state=None,
     gf = (y * F.silu(z)).float()
     gf = gf * torch.rsqrt(torch.mean(gf * gf, dim=-1, keepdim=True) + 1e-6)
     g = (gf * (1.0 + p["norm_scale"].float())).to(x.dtype)
-    return g @ p["w_out"], (new_conv, new_state)
+    return row_parallel(g, p["w_out"], axes), (new_conv, new_state)

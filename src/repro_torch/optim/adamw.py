@@ -8,8 +8,14 @@ moments for bf16 parameters and rounds in another order.  The update is
 plain torch under ``torch.no_grad()``; it writes the new parameters,
 moments and step into the given tensors (one copy of the training state
 on the card, not two; the reference donates them to the same effect)
-and returns trees of those tensors.  The reference's
-``opt_state_specs`` (PartitionSpecs for its dry-run) has no counterpart.
+and returns trees of those tensors.
+
+Over a mesh the leaves are DTensors: the moments sit on their
+parameters' placements (``opt_state_specs``), each gradient is brought
+to its parameter's placements before the update (a partial sum reduces
+there), the update stays in place on each rank's shard, and
+``_global_norm`` sums the squares over every shard of the mesh, so the
+clip factor, and the clipped update, equal the unsharded ones.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import pytree
+from repro_torch.core.device import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +42,26 @@ class AdamWConfig:
 def adamw_init(params):
     """Zero float32 moments shaped like ``params`` and an int32 step."""
     def zeros(p):
+        if is_dtensor(p):      # on the parameter's placements
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     first = pytree.leaves(params)
     device = first[0].device if first else None
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    if first and is_dtensor(first[0]):
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        mesh = first[0].device_mesh
+        step = distribute_tensor(step, mesh, [Replicate()] * mesh.ndim)
     return {"m": pytree.tree_map(zeros, params),
             "v": pytree.tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+            "step": step}
+
+
+
+def opt_state_specs(param_specs):
+    """Moments shard exactly like their parameters; the step is
+    replicated."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
 
 
 def _global_norm(tree):
@@ -93,6 +114,8 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     for p, g, m, v in zip(pytree.leaves(params), pytree.leaves(grads),
                           pytree.leaves(state["m"]),
                           pytree.leaves(state["v"])):
+        if is_dtensor(p):
+            g = g.redistribute(p.device_mesh, p.placements)
         g = g.float() * clip
         new_m = cfg.b1 * m + (1 - cfg.b1) * g
         new_v = cfg.b2 * v + (1 - cfg.b2) * g * g

@@ -13,7 +13,9 @@ predicate compares run.
 Collective bytes: the port makes no HLO, so ``collective_schedule``
 takes the collectives a beat ran as ``(kind, output bytes)`` records, as
 planlint's ``OpRecorder`` sees them (``analysis_static/trace_passes.py``),
-and applies the reference's ring arithmetic to them.
+and applies the reference's ring arithmetic to them.  Over a DTensor
+mesh ``record_collectives`` records what the redistributions issue and
+``parse_collectives`` turns that into the same record.
 """
 from __future__ import annotations
 
@@ -105,6 +107,69 @@ def collective_schedule(records: Iterable, group_size: int) -> Dict:
             "link_traffic_by_kind": {k: float(v) for k, v in traffic.items()},
             "total_bytes": sum(per_kind.values()),
             "total_link_traffic": float(sum(traffic.values()))}
+
+
+# the functional collectives that DTensor's redistributions issue, as the
+# reference's HLO names their kinds
+_COMM_KIND = {"all_gather_into_tensor": "all-gather",
+              "all_gather_into_tensor_coalesced": "all-gather",
+              "reduce_scatter_tensor": "reduce-scatter",
+              "reduce_scatter_tensor_coalesced": "reduce-scatter",
+              "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+              "all_to_all_single": "all-to-all"}
+
+
+def record_collectives():
+    """A ``CommDebugMode`` (``torch.distributed.tensor.debug``) that also
+    keeps, in ``.records``, one ``(kind, output bytes, group size)``
+    triple per collective it counts: the bytes of one rank's result (the
+    gathered tensor, the reduced tensor, the scattered shard), the group
+    from the op's own arguments.  Use it as a context around a step, then
+    ``parse_collectives`` it."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class _Recorder(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.records = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is NotImplemented or isinstance(
+                    func, torch._ops.HigherOrderOperator):
+                return out
+            kind = _COMM_KIND.get(func._overloadpacket.__name__)
+            if kind is not None:
+                self.records.append((kind, _out_bytes(out),
+                                     _group_size(args, kwargs)))
+            return out
+
+    return _Recorder()
+
+
+def _out_bytes(out) -> int:
+    if isinstance(out, (list, tuple)):
+        return sum(_out_bytes(o) for o in out)
+    return out.numel() * out.element_size()
+
+
+def _group_size(args, kwargs) -> int:
+    """A functional collective's group size: its group name (the last
+    string argument; a reduce op is a string too) resolved."""
+    import torch.distributed.distributed_c10d as c10d
+    for a in reversed(list(args) + list((kwargs or {}).values())):
+        if isinstance(a, str):
+            return c10d._resolve_process_group(a).size()
+    raise ValueError("collective without a group name")
+
+
+def parse_collectives(recorder, default_group: int = 256) -> Dict:
+    """The reference's ``parse_collectives`` record (per-kind bytes,
+    counts, per-link ring traffic, totals) from ``record_collectives``'s
+    recorder, which counts what DTensor really issued; its counts equal
+    the ``CommDebugMode``'s own (``get_comm_counts``)."""
+    return collective_schedule(recorder.records, default_group)
 
 
 def roofline_terms(flops: float, bytes_accessed: float,

@@ -22,6 +22,15 @@ over the padded vocabulary, as the reference's does.  An encoder-decoder
 model's prefill hears ``prefill_len * dec_ratio`` zero frames, a
 cross-attention model's sees ``n_vision_tokens`` zero vision tokens, as
 the reference's server feeds them.
+
+``CycleServer(cfg, axes)`` serves over a mesh (``MeshAxes`` on a torch
+``DeviceMesh``, the reference's ``CycleServer(cfg, axes)``): parameters
+and the slot cache are DTensors placed by their specs, each beat's
+tokens and positions go up placed by the input specs, and the flash
+kernel runs per rank on its own heads.  A mesh server runs eagerly:
+``jit=True`` with a mesh raises NotImplementedError (no CUDA graph of a
+mesh step).  Under ``LocalTensorMode`` (every rank of the mesh simulated
+in one process) its host values are the ranks' common value.
 """
 from __future__ import annotations
 
@@ -38,7 +47,9 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.configs import ArchConfig
 from repro_torch.core import graphs as cg
-from repro_torch.core.device import upload
+from repro_torch.core import pytree
+from repro_torch.core.device import is_dtensor, upload
+from repro_torch.models.common import MeshAxes
 from repro_torch.models.registry import get_model
 
 
@@ -57,15 +68,66 @@ class Request:
     truncated: bool = False
 
 
-def _cache_insert(cache, cache1, slot: int):
+def _cache_insert(cache, cache1, slot: int, axes: MeshAxes = MeshAxes()):
     """Copy a batch-1 prefill cache into slot ``slot`` of the slot cache,
     in place.  Group entries ("g*") carry batch at axis 1, leftover
-    entries ("x*") at axis 0.  Returns ``cache``."""
+    entries ("x*") at axis 0.  Under a mesh each rank writes its own
+    shard (``local_map``): the rank holding batch row ``slot`` takes the
+    prefill's row, gathered to the slot cache's layout; the others keep
+    theirs.  Returns ``cache``."""
     for key, entry in cache.items():
         axis = 1 if key.startswith("g") else 0
         for f, dst in entry.items():
-            dst.narrow(axis, slot, 1).copy_(cache1[key][f])
+            if axes.mesh is None:
+                dst.narrow(axis, slot, 1).copy_(cache1[key][f])
+            else:
+                _insert_row(dst, cache1[key][f], slot, axis, axes)
     return cache
+
+
+def _insert_row(dst, src, slot: int, axis: int, axes: MeshAxes):
+    """dst's batch row ``slot`` (on ``axis``) <- src's one row, each rank
+    comparing its share of the row ids with ``slot``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    d_pl = list(dst.placements)
+    s_pl = [Replicate() if p == Shard(axis) else p for p in d_pl]
+    i_pl = [Shard(0) if p == Shard(axis) else Replicate() for p in d_pl]
+    ids = torch.arange(dst.shape[axis], device=dst.device)
+    ids = axes.constrain(ids).redistribute(axes.mesh, i_pl)
+
+    def local(d, s, i):
+        hit = (i == slot).reshape((1,) * axis + (-1,)
+                                  + (1,) * (d.dim() - axis - 1))
+        d.copy_(torch.where(hit, s.to(d.dtype), d))
+        return d
+
+    local_map(local, out_placements=(d_pl,), in_placements=(d_pl, s_pl, i_pl),
+              device_mesh=axes.mesh, redistribute_inputs=True)(dst, src, ids)
+
+
+def host_numpy(t) -> np.ndarray:
+    """A device value on the host: a DTensor's full value, and under
+    ``LocalTensorMode`` the ranks' common value (raises if they differ)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
+    t = t.detach()
+    per_rank = getattr(t, "_local_tensors", None)
+    if per_rank is None:
+        return t.cpu().numpy()
+    vals = [v.cpu().numpy() for v in per_rank.values()]
+    if any(not np.array_equal(vals[0], v) for v in vals[1:]):
+        raise RuntimeError("host_numpy: the ranks disagree")
+    return vals[0]
+
+
+def _argmax_host(logits) -> np.ndarray:
+    """argmax over the last (vocabulary) axis, on the host; a DTensor's
+    logits are gathered whole first (each rank then takes the same
+    argmax)."""
+    if is_dtensor(logits):
+        logits = logits.full_tensor()
+    return host_numpy(torch.argmax(logits, dim=-1))
 
 
 class CycleServer:
@@ -80,21 +142,31 @@ class CycleServer:
     that fails raises.  ``jit=False``, and the CPU, run the same step
     eagerly; ``graphed`` says which."""
 
-    def __init__(self, cfg: ArchConfig, *, capacity: int = 8,
-                 max_seq: int = 256, prefill_budget: int = 2,
-                 prefill_len: int = 64, params=None, seed: int = 0,
-                 device=None, kernels: str = "auto", jit: bool = True):
+    def __init__(self, cfg: ArchConfig, axes: MeshAxes = MeshAxes(), *,
+                 capacity: int = 8, max_seq: int = 256,
+                 prefill_budget: int = 2, prefill_len: int = 64,
+                 params=None, seed: int = 0, device=None,
+                 kernels: str = "auto", jit: bool = True):
+        if axes.mesh is not None and jit:
+            raise NotImplementedError(
+                "CycleServer over a mesh runs eagerly: pass jit=False (no "
+                "CUDA graph of a mesh step)")
         self.cfg = cfg
+        self.axes = axes
         self.capacity = capacity
         self.max_seq = max_seq
         self.prefill_budget = prefill_budget
         self.prefill_len = prefill_len
-        api = get_model(cfg, device=device, kernels=kernels)
+        api = get_model(cfg, axes, device=device, kernels=kernels)
         self.api = api
         self.device = api.device
         self.kernels = api.kernels
-        self.params = params if params is not None else \
-            api.init_params(seed)
+        if params is None:
+            params = api.init_params(seed)
+        elif axes.mesh is not None and not is_dtensor(
+                pytree.leaves(params)[0]):
+            params = api.place(params)  # full tensors onto the mesh
+        self.params = params
         # the cross sublayers' context: an enc-dec prefill hears
         # dec_ratio frames a decoder token
         self.ctx_len = api.ctx_len(prefill_len * cfg.dec_ratio)
@@ -103,9 +175,9 @@ class CycleServer:
         self._ctx_batch = {}
         if self.ctx_len:
             self._ctx_batch["frames" if cfg.enc_dec else "vision"] = \
-                torch.zeros((1, self.ctx_len, cfg.d_model),
-                            dtype=self.params["embed"].dtype,
-                            device=self.device)
+                axes.distribute(torch.zeros(
+                    (1, self.ctx_len, cfg.d_model),
+                    dtype=self.params["embed"].dtype, device=self.device))
         # the step functions, as attributes like the reference's jitted
         # ones: prefill (batch 1, at the cache capacity, logits at
         # ``last``) and the shared decode step
@@ -117,17 +189,27 @@ class CycleServer:
         self._slots: List[Optional[Request]] = [None] * capacity
         # the decode step's inputs: host arrays that are views of pinned
         # buffers, copied into fixed device buffers at each dispatch
-        pin = self.device.type == "cuda"
-        self._tok_host = torch.zeros(capacity, dtype=torch.int64,
-                                     pin_memory=pin)
-        self._pos_host = torch.zeros(capacity, dtype=torch.int64,
-                                     pin_memory=pin)
-        self._last_tok = self._tok_host.numpy()
-        self._pos = self._pos_host.numpy()
-        self._tokens = torch.zeros((capacity, 1), dtype=torch.int64,
-                                   device=self.device)
-        self._positions = torch.zeros(capacity, dtype=torch.int64,
-                                      device=self.device)
+        if axes.mesh is None:
+            pin = self.device.type == "cuda"
+            self._tok_host = torch.zeros(capacity, dtype=torch.int64,
+                                         pin_memory=pin)
+            self._pos_host = torch.zeros(capacity, dtype=torch.int64,
+                                         pin_memory=pin)
+            self._last_tok = self._tok_host.numpy()
+            self._pos = self._pos_host.numpy()
+        else:   # numpy-backed (from_numpy makes no per-rank tensor)
+            self._last_tok = np.zeros(capacity, np.int64)
+            self._pos = np.zeros(capacity, np.int64)
+            self._tok_host = torch.from_numpy(self._last_tok)
+            self._pos_host = torch.from_numpy(self._pos)
+        # a mesh step takes the reference's int32 inputs, placed by the
+        # input specs (what the dry-run counts)
+        b = axes.batch(capacity)
+        idx = torch.int64 if axes.mesh is None else torch.int32
+        self._tokens = axes.distribute(torch.zeros(
+            (capacity, 1), dtype=idx, device=self.device), b, None)
+        self._positions = axes.distribute(torch.zeros(
+            capacity, dtype=idx, device=self.device), b)
         self.graphed = bool(jit) and self.device.type == "cuda"
         self._logits, self._graph, self.capture_stats = \
             self._build_decode()
@@ -153,8 +235,9 @@ class CycleServer:
         (else None) and the capture's stats.  One eager step on the idle
         slots (parked at position 0) gives the logits' shape and, on a
         card, warms the capture's side stream up (library handles and
-        workspaces); the cache is then reset to its empty state."""
-        cuda = self.device.type == "cuda"
+        workspaces); the cache is then reset to its empty state.  A mesh
+        server (eager, never captured) warms up on the serving stream."""
+        cuda = self.device.type == "cuda" and self.axes.mesh is None
         graph, stats = None, {}
         side = torch.cuda.Stream(self.device) if cuda else None
         if cuda:        # the parameters and the cache come from the
@@ -183,6 +266,9 @@ class CycleServer:
             torch.cuda.current_stream(self.device).wait_stream(side)
             out.record_stream(torch.cuda.current_stream(self.device))
         return out, graph, stats
+
+    def _tokens_spec(self):
+        return (self.axes.batch(self.capacity), None)
 
     def _decode_body_on(self, out):
         def body():
@@ -225,11 +311,12 @@ class CycleServer:
             # attention: it never sees the pads).  An EMPTY prompt
             # conditions on the single pad token at position 0.
             n_real = max(1, min(len(req.prompt), P))
-            batch = {"tokens": upload(toks[None], self.device),
+            batch = {"tokens": self.axes.distribute(
+                         upload(toks[None], self.device)),
                      **self._ctx_batch}
             logits, cache1 = self._prefill(self.params, batch, n_real - 1)
-            _cache_insert(self.cache, cache1, slot)
-            tok = int(torch.argmax(logits[0]))
+            _cache_insert(self.cache, cache1, slot, self.axes)
+            tok = int(_argmax_host(logits[0]))
             req.slot = slot
             req.output.append(tok)
             req.first_token_time = time.time()
@@ -251,8 +338,15 @@ class CycleServer:
         self._t_decode = time.perf_counter()
         self.last_admit_s = self._t_decode - t0
         cuda = self.device.type == "cuda"
-        self._tokens.copy_(self._tok_host[:, None], non_blocking=cuda)
-        self._positions.copy_(self._pos_host, non_blocking=cuda)
+        if self.axes.mesh is None:
+            self._tokens.copy_(self._tok_host[:, None], non_blocking=cuda)
+            self._positions.copy_(self._pos_host, non_blocking=cuda)
+        else:
+            self._tokens.copy_(self.axes.distribute(
+                self._tok_host[:, None].to(self.device),
+                *self._tokens_spec()))
+            self._positions.copy_(self.axes.distribute(
+                self._pos_host.to(self.device), *self._tokens_spec()[:1]))
         if self._graph is not None:
             self._graph.replay()
         else:
@@ -266,7 +360,7 @@ class CycleServer:
             return []
         logits = self._pending_logits
         self._pending_logits = None
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = _argmax_host(logits)
         self.last_decode_s = time.perf_counter() - self._t_decode
         finished = []
         now = time.time()

@@ -3020,6 +3020,11 @@ MESH_SERVER = {"capacity": 4, "max_seq": 1024, "prefill_len": 512,
 MESH_PROMPTS = (64, 200, 350, 512)      # prompt tokens of the 4 requests
 MESH_NEW_TOKENS = 8
 MESH_REL_TOL = 2e-2         # of each layer's scale (LM_REL_TOL's gate)
+MESH_RECORD_BEAT = 5        # a decode-only beat after the profiled one
+# each float32 prefill layer on the mesh's own input: float32 rounding
+# grown through one layer (~60x, the plain-attention twin's layer 1) is
+# ~1e-5 of scale; a fault shows at a bf16 ulp (~4e-3) or more
+MESH_F32_LAYER_TOL = 1e-3
 # the dry-run cells of the phase: one full config of each family, at
 # train_4k and decode_32k on the 256-rank mesh and decode_32k on the
 # 512-rank one (the whole matrix: ``python -m repro_torch.launch.dryrun``)
@@ -3111,10 +3116,12 @@ class StepLog:
         srv._prefill, srv._decode = rec_prefill, rec_decode
 
 
-def mesh_drain(srv, prompts, profiled_beat):
+def mesh_drain(srv, prompts, profiled_beat, recorder=None):
     """Submit ``prompts`` and beat to drain; beat ``profiled_beat`` (a
-    decode-only beat) under torch.profiler.  Returns (outputs by request,
-    wall seconds, the profiled beat's {wall_ms, busy_ms, host_ops})."""
+    decode-only beat) under torch.profiler, and beat MESH_RECORD_BEAT
+    (decode-only too) inside ``recorder``'s context when one is given.
+    Returns (outputs by request, wall seconds, the profiled beat's
+    {wall_ms, busy_ms, host_ops})."""
     import torch
     for pr in prompts:
         srv.submit(pr, max_new_tokens=MESH_NEW_TOKENS)
@@ -3122,20 +3129,24 @@ def mesh_drain(srv, prompts, profiled_beat):
     t0 = time.perf_counter()
     while srv.pending() or srv.active():
         prof = beat_profiler() if beat == profiled_beat else None
-        with prof or contextlib.nullcontext():
+        rec = recorder if beat == MESH_RECORD_BEAT else None
+        with prof or contextlib.nullcontext(), \
+                rec or contextlib.nullcontext():
             tb = time.perf_counter()
             srv.dispatch()
             done += srv.collect()
             torch.cuda.synchronize()
             wall = time.perf_counter() - tb
+        if (prof or rec) is not None and srv.last_admitted:
+            fail(f"mesh: beat {beat} admitted a request")
         if prof is not None:
-            if srv.last_admitted:
-                fail("mesh: the profiled beat admitted a request")
             busy, n, top = busy_ms(prof)
             profiled = {"wall_ms": wall * 1e3, "busy_ms": busy,
                         "device_ops": n, "host_ops": host_ops(prof),
                         "top": top}
         beat += 1
+    if recorder is not None and beat <= MESH_RECORD_BEAT:
+        fail(f"mesh: drained in {beat} beats, before beat {MESH_RECORD_BEAT}")
     outs = [r.output for r in sorted(done, key=lambda r: r.id)]
     return outs, time.perf_counter() - t0, profiled
 
@@ -3175,9 +3186,57 @@ class LayerLog:
         self.tf._sublayer_train = self.orig
 
 
+class DecodeLog:
+    """Rank 0's view of every decode sublayer of one beat
+    (``transformer._sublayer_decode``): its input residual, positions,
+    layer cache before and after the in-place writes, and output
+    residual, as plain tensors; and the beat's live rows."""
+
+    def __init__(self, srv):
+        from repro_torch.models import transformer
+        self.tf, self.srv, self.io = transformer, srv, []
+        self.orig = transformer._sublayer_decode
+
+    def __enter__(self):
+        self.live = [r is not None for r in self.srv._slots]
+        self.n_real = [min(len(r.prompt), self.srv.prefill_len) if r
+                       else 0 for r in self.srv._slots]
+
+        def rec(p, spec, x, cfg, positions, cache, axes):
+            before = {k: rank0(v) for k, v in cache.items()}
+            x_in, pos = rank0(x), rank0(positions)
+            out = self.orig(p, spec, x, cfg, positions, cache, axes)
+            self.io.append((spec, x_in, pos, before, rank0(out[0]),
+                            {k: rank0(v) for k, v in cache.items()}))
+            return out
+        self.tf._sublayer_decode = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.tf._sublayer_decode = self.orig
+
+
+class CacheSnapshot:
+    """A plain server's layer-0 cache as it stands before one beat."""
+
+    def __init__(self, srv):
+        self.srv, self.cache = srv, None
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.cache = {k: v.clone() for k, v in
+                      tf.layer_params(self.srv.cache["g0"], 0).items()}
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
 def rank0(t):
-    """Rank 0's full value of a DTensor over LocalTensors, a plain copy."""
-    t = t.full_tensor()
+    """Rank 0's full value of a DTensor over LocalTensors, a plain copy
+    (of a plain tensor: a copy)."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     return getattr(t, "_local_tensors", {0: t})[0].clone()
 
 
@@ -3211,24 +3270,164 @@ def mesh_layer_gate(cfg, params, io, logits, last, card):
     return max(worst, err)
 
 
+def mesh_decode_gate(cfg, params, dec, base_cache, card):
+    """Each decode sublayer of the mesh's recorded beat against the
+    unsharded sublayer run on the mesh's own input and a copy of its
+    cache: the output residual of the live rows and the K/V written in
+    place within MESH_REL_TOL of scale, the positions written equal.
+    Then the cache that admission inserted: layer 0's positions equal
+    to the unsharded server's at the same beat, its K/V at the prompt
+    positions within MESH_REL_TOL (layer 0 hears the same tokens on
+    both servers).  Returns the worst relative error."""
+    import torch
+    from repro_torch.models import transformer as tf
+    live = torch.tensor(dec.live, device=dec.io[0][1].device)
+    worst = 0.0
+    for layer, (spec, x_in, pos, before, x_out, after) in \
+            enumerate(dec.io):
+        cache = {k: v.clone() for k, v in before.items()}
+        want = tf._sublayer_decode(tf.layer_params(params["g0"], layer),
+                                   spec, x_in, cfg, pos, cache)[0]
+        errs = [rel_err(x_out[live], want[live])] + [
+            rel_err(after[f], cache[f]) for f in ("k", "v")]
+        worst = max(worst, *errs)
+        if max(errs) > MESH_REL_TOL or not torch.equal(after["pos"],
+                                                        cache["pos"]):
+            fail(f"mesh: decode layer {layer} differs from the unsharded "
+                 f"layer on its own input and cache: output, K, V "
+                 f"{errs} of scale, positions equal "
+                 f"{torch.equal(after['pos'], cache['pos'])}")
+    ins = dec.io[0][3]
+    if not torch.equal(ins["pos"], base_cache["pos"]):
+        fail("mesh: layer 0's cached positions differ from the unsharded "
+             "server's")
+    prompt = (ins["pos"] >= 0) & (ins["pos"] < torch.tensor(
+        dec.n_real, device=ins["pos"].device)[:, None])
+    ins_err = max(rel_err(ins[f][prompt], base_cache[f][prompt])
+                  for f in ("k", "v"))
+    if ins_err > MESH_REL_TOL:
+        fail(f"mesh: layer 0's inserted prompt K/V differ from the "
+             f"unsharded server's by {ins_err:.3e} of scale")
+    print(f"mesh: lm-yi-6b-mesh2x2 decode-only beat {MESH_RECORD_BEAT}: "
+          f"{len(dec.io)} decode layers (output of {sum(dec.live)} live "
+          f"rows, K/V written in place) each within {worst:.3e} of scale "
+          f"of the unsharded layer on its own input and cache, positions "
+          f"equal; layer 0's inserted prompt K/V within {ins_err:.3e} of "
+          f"the unsharded server's, positions equal (gate {MESH_REL_TOL})"
+          f" [{card}]")
+    return max(worst, ins_err)
+
+
+def step_divergence(got, want):
+    """Per step, max |got - want| / max |want| of two StepLogs' logits."""
+    import numpy as np
+    return [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got.logits, want.logits)]
+
+
+def mesh_f32_witness(cfg, params, prompt, dev, card):
+    """The first admission's prefill in float32 (the servers' bf16
+    ``params`` cast up) on the (2, 2) mesh, unsharded, and unsharded on
+    the plain attention (the twin), through the model's prefill as the
+    server admits it.  Gate: each mesh layer within MESH_F32_LAYER_TOL of
+    scale of the unsharded layer on the mesh's own input, at the
+    prompt's positions (the pads after them never reach the logits).
+    Measured: each chain's divergence from the unsharded run, layer by
+    layer, and the end-to-end logits' (random weights' one-hot attention
+    grows a float32 rounding difference as it grows a bf16 one).
+    Returns (worst layer error, {run: [divergence by layer]},
+    {run: logits divergence})."""
+    import numpy as np
+    import torch
+    from torch.distributed._local_tensor import LocalTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import pytree
+    from repro_torch.launch.mesh import make_axes
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import MeshAxes
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.scheduler import host_numpy
+
+    def up(tree):
+        return pytree.tree_map(lambda t: t.float(), tree)
+    P = MESH_SERVER["prefill_len"]
+    n = min(len(prompt), P)
+    toks = torch.from_numpy(np.asarray(
+        [prompt[-P:] + [0] * (P - len(prompt))], np.int64)).to(dev)
+    runs = {}
+    for name, kernels, mode in (
+            ("unsharded", "hopper", None), ("twin", "torch", None),
+            ("mesh", "hopper", LocalTensorMode(math.prod(MESH_SHAPE)))):
+        with mode or contextlib.nullcontext():
+            axes = MeshAxes() if mode is None else make_axes(
+                init_device_mesh("cuda", MESH_SHAPE,
+                                 mesh_dim_names=("data", "model")))
+            api = get_model(cfg, axes, device=dev, kernels=kernels)
+            # on the mesh each bf16 leaf is placed, then cast: no full
+            # float32 leaf is split, no whole bf16 copy waits for the cast
+            p32 = up(params) if mode is None else pytree.dict_map(
+                lambda t, s: axes.distribute(t, *s).float(), params,
+                api.param_specs())
+            with LayerLog(cfg.n_layers) as layers:
+                out, _ = api.prefill(p32, {"tokens": axes.distribute(toks)},
+                                     cache_capacity=MESH_SERVER["max_seq"],
+                                     last_pos=n - 1)
+            runs[name] = (host_numpy(out.float()), layers.io)
+            del p32, out, layers
+        gc.collect()
+        torch.cuda.empty_cache()
+    pos = torch.arange(P, device=dev)[None]
+    worst = 0.0
+    for layer, (spec, x_in, x_out) in enumerate(runs["mesh"][1]):
+        want = tf._sublayer_train(up(tf.layer_params(params["g0"], layer)),
+                                  spec, x_in, cfg, pos, None, 0, "hopper")[0]
+        err = rel_err(x_out[:, :n], want[:, :n])
+        worst = max(worst, err)
+        if err > MESH_F32_LAYER_TOL:
+            fail(f"mesh: float32 prefill layer {layer} differs from the "
+                 f"unsharded layer on its own input by {err:.3e} of scale")
+    base_l, base_io = runs.pop("unsharded")
+    chain = {k: [rel_err(io[2][:, :n], b[2][:, :n])
+                 for io, b in zip(r[1], base_io)] for k, r in runs.items()}
+    ends = {k: float(np.abs(r[0] - base_l).max() / np.abs(base_l).max())
+            for k, r in runs.items()}
+    at = sorted({i for i in (0, 1, 2, 4, 8, 16) if i < cfg.n_layers}
+                | {cfg.n_layers - 1})
+
+    def picked(k):
+        return ", ".join(f"{chain[k][i]:.3e}" for i in at)
+    print(f"mesh: lm-yi-6b-mesh2x2 float32 first prefill: {cfg.n_layers} "
+          f"mesh layers each within {worst:.3e} of scale of the unsharded "
+          f"layer on its own input (gate {MESH_F32_LAYER_TOL}); residual "
+          f"beside the unsharded run's at layers {at}: mesh [{picked('mesh')}"
+          f"], plain-attention twin [{picked('twin')}]; logits (measured, "
+          f"not gated): mesh {ends['mesh']:.3e}, twin {ends['twin']:.3e} of "
+          f"scale [{card}]")
+    return worst, chain, ends
+
+
 def mesh_phase(dev, card):
-    """The port's language model over a device mesh: (a) the dry-run's
-    cells on fake 256- and 512-rank groups (worker processes, started
-    first); (b) yi-6b at full width and depth served by
-    ``CycleServer(cfg, make_axes(mesh))`` on a (data 2, model 2) mesh of
-    four LocalTensorMode ranks on this card, eagerly, beside the
-    unsharded server on the same weights and requests: every prefill
-    layer of the first admission held to the unsharded layer on its own
-    input, the end-to-end logits' divergence measured (random weights
-    give one-hot attention, so a one-ulp bf16 difference in a layer
-    grows layer by layer, as between the LM paths' twins), tokens equal
-    where a step's top-2 margin exceeds that divergence; flash launched
-    per rank on its own heads, its recorded local inputs held against
-    the plain version; (c) each rank's bytes of parameters, cache and
+    """The port's language model over a device mesh: (b) yi-6b at full
+    width and depth served by ``CycleServer(cfg, make_axes(mesh))`` on a
+    (data 2, model 2) mesh of four LocalTensorMode ranks on this card,
+    eagerly, beside the unsharded server on the same weights and
+    requests, both timed alone: every prefill layer of the first
+    admission and every decode layer of one decode-only beat held to the
+    unsharded layer on the mesh's own input (and cache), layer 0's
+    inserted cache to the unsharded server's; the end-to-end logits'
+    divergence measured beside two witnesses of its cause (the
+    unsharded server's torch-kernel twin at bf16; the first prefill in
+    float32 on the mesh, unsharded and on the plain attention, each
+    mesh layer gated on its own input, the chains measured); flash
+    launched per rank on its own heads, its recorded local inputs held
+    against the plain version; (a) the dry-run's cells on fake 256- and
+    512-rank groups (worker processes, started once the servers' timed
+    drains are done); (c) each rank's bytes of parameters, cache and
     decode inputs against the dry-run's ``argument_bytes_per_device``
     for that mesh, config and shape."""
     import numpy as np
     import torch
+    import torch.distributed as dist
     print(f"mesh: torch {torch.__version__} [{card}]")
     from torch.distributed._local_tensor import LocalTensorMode
     from torch.distributed.device_mesh import init_device_mesh
@@ -3241,13 +3440,13 @@ def mesh_phase(dev, card):
     from repro_torch.serving import CycleServer
 
     t_phase = time.perf_counter()
-    procs = start_dryrun(ROOT / "build" / "mesh-dryrun")
     cfg = get_config("yi-6b")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in MESH_PROMPTS]
     base = CycleServer(cfg, device=dev, jit=False, seed=SEED, **MESH_SERVER)
     base_log = StepLog(base)
-    base_out, base_wall, base_prof = mesh_drain(base, prompts, 4)
+    base_snap = CacheSnapshot(base)
+    base_out, base_wall, base_prof = mesh_drain(base, prompts, 4, base_snap)
 
     dryrun.fake_group(math.prod(MESH_SHAPE))
     recorded = []
@@ -3269,8 +3468,10 @@ def mesh_phase(dev, card):
                               params=base.params, **MESH_SERVER)
             setup_s = time.perf_counter() - t0
             mesh_log = StepLog(srv)
+            dec = DecodeLog(srv)
             with LayerLog(cfg.n_layers) as layers:
-                mesh_out, mesh_wall, mesh_prof = mesh_drain(srv, prompts, 4)
+                mesh_out, mesh_wall, mesh_prof = mesh_drain(
+                    srv, prompts, 4, dec)
             launches = dict(K.LAUNCHES)
             n = math.prod(MESH_SHAPE)
             held = [{"params": rank_bytes(srv.params, r),
@@ -3278,8 +3479,11 @@ def mesh_phase(dev, card):
                      "inputs": rank_bytes((srv._tokens, srv._positions), r)}
                     for r in range(n)]
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del srv
     finally:
         fa.flash_attention = orig_fa
+    # the dry-run's CPU workers start once both servers' walls are taken
+    procs = start_dryrun(ROOT / "build" / "mesh-dryrun")
     print(f"mesh: launches, lm-yi-6b-mesh2x2 path: {json.dumps(launches)}")
     admissions = len(MESH_PROMPTS)
     want_fa = admissions * cfg.n_layers * n
@@ -3288,20 +3492,25 @@ def mesh_phase(dev, card):
              f" times, want {admissions} admissions x {cfg.n_layers} layers "
              f"x {n} ranks = {want_fa}")
 
-    # (b) the gate: each prefill layer of the first admission; then the
-    # end-to-end divergence, measured, and the tokens equal wherever a
-    # step's top-2 margin exceeds it
+    # (b) the gates: each prefill layer of the first admission, each
+    # decode layer of one decode-only beat, the inserted cache
     layer_err = mesh_layer_gate(
         cfg, base.params, layers.io,
         torch.from_numpy(mesh_log.logits[0]).to(dev),
         min(len(prompts[0]), MESH_SERVER["prefill_len"]) - 1, card)
+    decode_err = mesh_decode_gate(cfg, base.params, dec, base_snap.cache,
+                                  card)
+    del layers, dec
+    # then the end-to-end divergence, measured, beside the same
+    # requests' divergence between two unsharded servers whose kernels
+    # differ (flash vs its plain version) at bf16
     if len(mesh_log.logits) != len(base_log.logits):
         fail(f"mesh: {len(mesh_log.logits)} steps vs the unsharded "
              f"server's {len(base_log.logits)}")
-    divergence, sure_steps = [], 0
+    divergence = step_divergence(mesh_log, base_log)
+    sure_steps = 0
     for i, (g, w) in enumerate(zip(mesh_log.logits, base_log.logits)):
         diff = float(np.abs(g - w).max())
-        divergence.append(diff / float(np.abs(w).max()))
         srt = -np.sort(-w, axis=-1)
         sure = srt[:, 0] - srt[:, 1] > diff
         sure_steps += int(sure.sum())
@@ -3309,21 +3518,29 @@ def mesh_phase(dev, card):
             fail(f"mesh: step {i} tokens differ where the margin exceeds "
                  f"the logit difference {diff}")
     same_tokens = mesh_out == base_out
+    twin = CycleServer(cfg, device=dev, jit=False, params=base.params,
+                       **dict(MESH_SERVER, kernels="torch"))
+    twin_log = StepLog(twin)
+    mesh_drain(twin, prompts, None)
+    twin_div = step_divergence(twin_log, base_log)
+    del twin, twin_log
     print(f"mesh: lm-yi-6b-mesh2x2: {len(mesh_log.logits)} steps; "
           f"end-to-end logits beside the unsharded server's (measured, "
           f"not gated): first prefill {divergence[0]:.3e}, worst "
-          f"{max(divergence):.3e} of scale; {sure_steps} rows with a "
-          f"top-2 margin over the difference, their tokens equal; tokens "
-          f"{'equal' if same_tokens else 'differ'} "
+          f"{max(divergence):.3e} of scale; the unsharded torch-kernel "
+          f"twin beside the same server at bf16: first prefill "
+          f"{twin_div[0]:.3e}, worst {max(twin_div):.3e}; {sure_steps} "
+          f"rows with a top-2 margin over the difference, their tokens "
+          f"equal; tokens {'equal' if same_tokens else 'differ'} "
           f"({sum(map(len, mesh_out))} generated); setup {setup_s:.1f} s; "
           f"peak {peak:.2f} GiB allocated [{card}]")
     for what, wall, prof in (("unsharded", base_wall, base_prof),
                              ("mesh2x2", mesh_wall, mesh_prof)):
-        print(f"mesh: {what} server: drain {wall:.3f} s; decode-only beat "
-              f"4: wall {prof['wall_ms']:.3f} ms, busy {prof['busy_ms']:.3f}"
-              f" ms ({prof['device_ops']} device ops), host ops "
-              f"{json.dumps(prof['host_ops'])}, top {json.dumps(prof['top'])}"
-              f" [{card}]")
+        print(f"mesh: {what} server (timed alone): drain {wall:.3f} s; "
+              f"decode-only beat 4: wall {prof['wall_ms']:.3f} ms, busy "
+              f"{prof['busy_ms']:.3f} ms ({prof['device_ops']} device ops),"
+              f" host ops {json.dumps(prof['host_ops'])}, top "
+              f"{json.dumps(prof['top'])} [{card}]")
 
     # the kernel on the recorded local inputs (16 query heads over 2 KV
     # heads a rank), against its plain version; not counted
@@ -3344,6 +3561,17 @@ def mesh_phase(dev, card):
     print(f"mesh: flash_attention on rank 0's local inputs {tuple(q.shape)}"
           f" over {tuple(k.shape)} {kw}: max abs err {err:.3e}, row-relative"
           f" {rel:.3e}, device {ms:.6f} ms [{card}]")
+    del recorded, q, k, v, got, want
+
+    # the witness without bf16 rounding: the first prefill in float32
+    params = base.params
+    del base, base_snap, base_log, mesh_log
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_err, f32_chain, f32_ends = mesh_f32_witness(cfg, params, prompts[0],
+                                                    dev, card)
+    del params
+    gc.collect()
     K.reset_launches()
 
     # (c) each rank's bytes against the dry-run's for this mesh and shape
@@ -3360,9 +3588,7 @@ def mesh_phase(dev, card):
     print(f"mesh: every rank holds {want_b} bytes (params "
           f"{held[0]['params']}, cache {held[0]['cache']}, inputs "
           f"{held[0]['inputs']}) = the dry-run's argument_bytes_per_device")
-    import torch.distributed as dist
     dist.destroy_process_group()
-    del srv, base
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3371,8 +3597,10 @@ def mesh_phase(dev, card):
     print(f"mesh: dry-run cells waited {time.perf_counter() - t0:.1f} s; "
           f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"flash_launches": launches["flash_attention"],
-            "layer_rel_err": layer_err, "divergence": divergence,
-            "tokens_equal": same_tokens,
+            "layer_rel_err": layer_err, "decode_rel_err": decode_err,
+            "f32_layer_rel_err": f32_err, "f32_divergence": f32_chain,
+            "f32_logits_divergence": f32_ends, "divergence": divergence,
+            "twin_divergence": twin_div, "tokens_equal": same_tokens,
             "rank_bytes": want_b, "cells": len(cells),
             "unsharded": base_prof, "mesh": mesh_prof,
             "drain_s": {"unsharded": base_wall, "mesh": mesh_wall},

@@ -177,15 +177,15 @@ def _implicit_replication():
 def row_parallel(a, w, axes: MeshAxes, eq: str = None):
     """``a @ w`` (or ``einsum(eq, a, w)``) whose contraction runs over the
     tp-sharded dim (an attention output over its heads, an MLP's over
-    d_ff).  Off-mesh the plain product.  Under a mesh in float32: the
-    ranks' partial sums reduce across tp in float32 and the result rounds
-    once to ``a``'s dtype, as the unsharded product rounds once, where
-    bfloat16 partials summed in bfloat16 would round on every rank."""
+    d_ff).  Off-mesh the plain product.  Under a mesh each rank's partial
+    sum (rounded once, as the unsharded product rounds) reduces across tp
+    in float32 and the result rounds to ``a``'s dtype, where bfloat16
+    partials summed in bfloat16 would round again on every rank."""
+    y = a @ w if eq is None else torch.einsum(eq, a, w)
     if axes.mesh is None:
-        return a @ w if eq is None else torch.einsum(eq, a, w)
-    af, wf = a.float(), w.float()
-    y = af @ wf if eq is None else torch.einsum(eq, af, wf)
-    y = axes.constrain(y, axes.batch(y.shape[0]), *([None] * (y.dim() - 1)))
+        return y
+    y = axes.constrain(y.float(), axes.batch(y.shape[0]),
+                       *([None] * (y.dim() - 1)))
     return y.to(a.dtype)
 
 

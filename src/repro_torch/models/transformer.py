@@ -412,15 +412,14 @@ def _apply_mlp_part(p, spec: LayerSpec, x, cfg, axes: MeshAxes = MeshAxes()):
     return x + _block_output(y, cfg, axes), aux
 
 
-def _pack_kv_cache(k, v, spec: LayerSpec, capacity: int,
-                   axes: MeshAxes = MeshAxes()):
+def _pack_kv_cache(k, v, spec: LayerSpec, capacity: int):
     """Arrange prefill K/V into the ring-buffer layout (slot = pos % W).
-    Under a mesh the kept positions are rotated into place (the slots of
-    positions S-W..S-1 are a rotation of 0..W-1), with no scatter."""
+    When the prefill fills the ring, the kept positions are rotated into
+    place (the slots of positions S-W..S-1 are a rotation of 0..W-1)."""
     B, S = k.shape[:2]
     W = min(capacity, spec.window) if spec.window else capacity
     dev = k.device
-    if S >= W and axes.mesh is not None:
+    if S >= W:
         # slot j holds position S - W + ((j - S) mod W): the kept tail
         # rotated, as two slices (DTensor has no rule for roll everywhere)
         cut = W - (S - W) % W
@@ -431,15 +430,6 @@ def _pack_kv_cache(k, v, spec: LayerSpec, capacity: int,
         k_c, v_c = rot(k), rot(v)
         pos_c = rot(torch.arange(S, dtype=torch.int32,
                                  device=dev).expand(B, S))
-    elif S >= W:
-        slots = torch.arange(S - W, S, device=dev) % W
-        k_c = torch.zeros((B, W) + k.shape[2:], dtype=k.dtype, device=dev)
-        v_c = torch.zeros((B, W) + v.shape[2:], dtype=v.dtype, device=dev)
-        pos_c = torch.full((B, W), -1, dtype=torch.int32, device=dev)
-        k_c[:, slots] = k[:, S - W:]
-        v_c[:, slots] = v[:, S - W:]
-        pos_c[:, slots] = torch.arange(S - W, S, dtype=torch.int32,
-                                       device=dev)
     else:
         pad = W - S
         k_c = torch.cat([k, k.new_zeros((B, pad) + k.shape[2:])], dim=1)
@@ -477,7 +467,7 @@ def _sublayer_attn(p, spec: LayerSpec, x, cfg, positions, ctx,
     if not cache_capacity:
         return x, None
     if spec.kind == "attn":
-        entry = _pack_kv_cache(k, v, spec, cache_capacity, axes)
+        entry = _pack_kv_cache(k, v, spec, cache_capacity)
     return x, entry
 
 

@@ -191,25 +191,24 @@ class CycleServer:
         # buffers, copied into fixed device buffers at each dispatch
         if axes.mesh is None:
             pin = self.device.type == "cuda"
-            self._tok_host = torch.zeros(capacity, dtype=torch.int64,
+            self._tok_host = torch.zeros(capacity, dtype=torch.int32,
                                          pin_memory=pin)
-            self._pos_host = torch.zeros(capacity, dtype=torch.int64,
+            self._pos_host = torch.zeros(capacity, dtype=torch.int32,
                                          pin_memory=pin)
             self._last_tok = self._tok_host.numpy()
             self._pos = self._pos_host.numpy()
         else:   # numpy-backed (from_numpy makes no per-rank tensor)
-            self._last_tok = np.zeros(capacity, np.int64)
-            self._pos = np.zeros(capacity, np.int64)
+            self._last_tok = np.zeros(capacity, np.int32)
+            self._pos = np.zeros(capacity, np.int32)
             self._tok_host = torch.from_numpy(self._last_tok)
             self._pos_host = torch.from_numpy(self._pos)
-        # a mesh step takes the reference's int32 inputs, placed by the
-        # input specs (what the dry-run counts)
+        # the reference's int32 inputs, placed by the input specs (what the
+        # dry-run counts)
         b = axes.batch(capacity)
-        idx = torch.int64 if axes.mesh is None else torch.int32
         self._tokens = axes.distribute(torch.zeros(
-            (capacity, 1), dtype=idx, device=self.device), b, None)
+            (capacity, 1), dtype=torch.int32, device=self.device), b, None)
         self._positions = axes.distribute(torch.zeros(
-            capacity, dtype=idx, device=self.device), b)
+            capacity, dtype=torch.int32, device=self.device), b)
         self.graphed = bool(jit) and self.device.type == "cuda"
         self._logits, self._graph, self.capture_stats = \
             self._build_decode()

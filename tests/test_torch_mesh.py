@@ -166,7 +166,11 @@ def _placed(axes, batch):
             for k, v in batch.items()}
 
 
-def _prefill_decode(arch, shape, names):
+@functools.lru_cache(maxsize=None)
+def _reference_prefill_decode(arch):
+    """The reference unsharded on one seeded batch: the prefill's
+    (logits, cache), then two decode steps' (token, position, logits,
+    cache); computed once for every mesh it is held against."""
     cfg, rcfg, tree = _model(arch)
     rp = jax.tree.map(jnp.asarray, tree)
     rng = np.random.default_rng(7)
@@ -175,8 +179,21 @@ def _prefill_decode(arch, shape, names):
     want_l, want_c = jax.jit(functools.partial(
         ref_tf.prefill, cfg=rcfg, cache_capacity=cap, last_pos=9))(
             rp, jax.tree.map(jnp.asarray, batch))
-    toks = [rng.integers(1, cfg.vocab, (B, 1)).astype(np.int32)
-            for _ in range(2)]
+    prefill = (_np(want_l), _np(want_c))
+    ref_decode = jax.jit(functools.partial(ref_tf.decode_step, cfg=rcfg))
+    pos, steps = np.full(B, S, np.int32), []
+    for _ in range(2):
+        tok = rng.integers(1, cfg.vocab, (B, 1)).astype(np.int32)
+        want_l, want_c = ref_decode(rp, want_c, jnp.asarray(tok),
+                                    jnp.asarray(pos))
+        steps.append((tok, pos, _np(want_l), _np(want_c)))
+        pos = pos + 1
+    return batch, cap, prefill, steps
+
+
+def _prefill_decode(arch, shape, names):
+    cfg, _, tree = _model(arch)
+    batch, cap, (want_l, want_c), steps = _reference_prefill_decode(arch)
     with local_mesh(shape, names) as axes:
         api = get_model(cfg, axes, device="cpu", kernels="hopper")
         tp = params_from_numpy(tree, cfg, CPU, axes)
@@ -184,19 +201,14 @@ def _prefill_decode(arch, shape, names):
                                    cache_capacity=cap, last_pos=9)
         _close((got_l, got_c), (want_l, want_c), LOGIT_TOL,
                f"{arch} prefill")
-        pos = np.full(B, S, np.int32)
-        ref_decode = jax.jit(functools.partial(ref_tf.decode_step, cfg=rcfg))
-        b = axes.batch(B)
-        for step, tok in enumerate(toks):
-            want_l, want_c = ref_decode(rp, want_c, jnp.asarray(tok),
-                                        jnp.asarray(pos))
+        b = axes.batch(batch["tokens"].shape[0])
+        for step, (tok, pos, want_l, want_c) in enumerate(steps):
             got_l, same = api.decode_step(
                 tp, got_c, axes.distribute(torch.from_numpy(tok), b),
                 axes.distribute(torch.from_numpy(pos), b))
             assert same is got_c            # written in place, per shard
             _close((got_l, got_c), (want_l, want_c), LOGIT_TOL,
                    f"{arch} decode {step}")
-            pos = pos + 1
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

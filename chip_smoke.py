@@ -190,6 +190,14 @@ capability 9.0+ and the CUDA toolkit.  It:
      mask at a window layer; timed here only), and its CUDA-core kernel
      once at yi-6b's call and once at recurrentgemma-2b's; the
      fused_delta footprint's worst-case bound beside the fused_delta row;
+     then the mesh phase (``mesh:`` and ``elastic:`` lines,
+     ``mesh_phase``): yi-6b on a (2, 2) mesh of four simulated ranks,
+     eager beside the unsharded server and graphed (``jit=True``, the
+     decode step one CUDA graph of every rank) beside the eager mesh
+     server, every decode beat's logits within MESH_GRAPH_REL_TOL; the
+     dry-run's family cells; the elastic shrink of stablelm-1.6b (4 of
+     24 layers) from (1, 2, 2) to (1, 1, 2) through a checkpoint
+     (``elastic_phase``);
   6. runs the train phase last (``train:`` lines: after its profiled
      step, later torch.profiler sessions in the process traced no device
      event), each path with every launch count set to 0 just before it
@@ -3021,6 +3029,9 @@ MESH_PROMPTS = (64, 200, 350, 512)      # prompt tokens of the 4 requests
 MESH_NEW_TOKENS = 8
 MESH_REL_TOL = 2e-2         # of each layer's scale (LM_REL_TOL's gate)
 MESH_RECORD_BEAT = 5        # a decode-only beat after the profiled one
+# the graphed mesh server's decode logits against its eager twin's: the
+# graphed-vs-eager gate of the LM paths (LM_EAGER_REL_TOL)
+MESH_GRAPH_REL_TOL = 1e-3
 # each float32 prefill layer on the mesh's own input: float32 rounding
 # grown through one layer (~60x, the plain-attention twin's layer 1) is
 # ~1e-5 of scale; a fault shows at a bf16 ulp (~4e-3) or more
@@ -3038,8 +3049,9 @@ DEVICE_BYTES = 80 * 2 ** 30
 
 def start_dryrun(out_dir):
     """One process per family, each running the family's cells of the
-    dry-run CLI over its fake process groups (CPU only; they overlap the
-    server below).  Returns [(arch, process, out file)]."""
+    dry-run CLI over its fake process groups (CPU only, at the lowest
+    CPU priority; they overlap the phase's untimed checks and the
+    elastic shrink).  Returns [(arch, process, out file)]."""
     import os
     out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -3054,7 +3066,7 @@ def start_dryrun(out_dir):
             f"--shape {shapes} --mesh {mesh} --no-extrapolate --out {out}"
             for i, (mesh, shapes) in enumerate(MESH_DRYRUN_CELLS))
         procs.append((arch, subprocess.Popen(
-            ["bash", "-c", cmd], cwd=ROOT, env=env,
+            ["nice", "-n", "19", "bash", "-c", cmd], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             out))
     return procs
@@ -3099,7 +3111,7 @@ class StepLog:
     slots active in that step), on the host, in order."""
 
     def __init__(self, srv):
-        from repro_torch.serving.scheduler import host_numpy
+        from repro_torch.core.device import host_numpy
         self.logits = []
         prefill, decode = srv._prefill, srv._decode
 
@@ -3116,16 +3128,19 @@ class StepLog:
         srv._prefill, srv._decode = rec_prefill, rec_decode
 
 
-def mesh_drain(srv, prompts, profiled_beat, recorder=None):
+def mesh_drain(srv, prompts, profiled_beat, recorder=None, beat_logits=None):
     """Submit ``prompts`` and beat to drain; beat ``profiled_beat`` (a
     decode-only beat) under torch.profiler, and beat MESH_RECORD_BEAT
-    (decode-only too) inside ``recorder``'s context when one is given.
-    Returns (outputs by request, wall seconds, the profiled beat's
-    {wall_ms, busy_ms, host_ops})."""
+    (decode-only too) inside ``recorder``'s context when one is given;
+    each beat's decode logits of its live rows appended to
+    ``beat_logits`` (read after the beat's wall is taken).  Returns
+    (outputs by request, wall seconds, the profiled beat's {wall_ms,
+    busy_ms, host_ops})."""
     import torch
+    from repro_torch.core.device import host_numpy
     for pr in prompts:
         srv.submit(pr, max_new_tokens=MESH_NEW_TOKENS)
-    done, beat, profiled = [], 0, None
+    done, beat, profiled, decode_walls = [], 0, None, []
     t0 = time.perf_counter()
     while srv.pending() or srv.active():
         prof = beat_profiler() if beat == profiled_beat else None
@@ -3134,9 +3149,12 @@ def mesh_drain(srv, prompts, profiled_beat, recorder=None):
                 rec or contextlib.nullcontext():
             tb = time.perf_counter()
             srv.dispatch()
+            live = [r is not None for r in srv._slots]
             done += srv.collect()
             torch.cuda.synchronize()
             wall = time.perf_counter() - tb
+        if beat_logits is not None:
+            beat_logits.append(host_numpy(srv._logits.float())[live])
         if (prof or rec) is not None and srv.last_admitted:
             fail(f"mesh: beat {beat} admitted a request")
         if prof is not None:
@@ -3144,9 +3162,14 @@ def mesh_drain(srv, prompts, profiled_beat, recorder=None):
             profiled = {"wall_ms": wall * 1e3, "busy_ms": busy,
                         "device_ops": n, "host_ops": host_ops(prof),
                         "top": top}
+        elif rec is None and not srv.last_admitted:
+            decode_walls.append(wall * 1e3)
         beat += 1
     if recorder is not None and beat <= MESH_RECORD_BEAT:
         fail(f"mesh: drained in {beat} beats, before beat {MESH_RECORD_BEAT}")
+    if profiled is not None:
+        profiled["median_unprofiled_decode_wall_ms"] = statistics.median(
+            decode_walls) if decode_walls else float("nan")
     outs = [r.output for r in sorted(done, key=lambda r: r.id)]
     return outs, time.perf_counter() - t0, profiled
 
@@ -3346,7 +3369,7 @@ def mesh_f32_witness(cfg, params, prompt, dev, card):
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import MeshAxes
     from repro_torch.models.registry import get_model
-    from repro_torch.serving.scheduler import host_numpy
+    from repro_torch.core.device import host_numpy
 
     def up(tree):
         return pytree.tree_map(lambda t: t.float(), tree)
@@ -3406,7 +3429,230 @@ def mesh_f32_witness(cfg, params, prompt, dev, card):
     return worst, chain, ends
 
 
-def mesh_phase(dev, card):
+# (d) the elastic shrink: stablelm-1.6b (the train cell's model) at full
+# width, depth cut 24 -> 4 layers for chip time; 2 steps on (1, 2, 2)
+# (four simulated ranks), checkpoint, shrink to what 2 chips allow,
+# restore, 2 more steps
+ELASTIC_ARCH, ELASTIC_LAYERS = "stablelm-1.6b", 4
+ELASTIC_ARGS = ("--arch", ELASTIC_ARCH, "--seq", "4096", "--batch", "2",
+                "--lr", "3e-3")
+ELASTIC_LADDER = [(1, 2, 2), (1, 1, 2), (1, 1, 1)]
+ELASTIC_FROM, ELASTIC_ALIVE, ELASTIC_TO = (1, 2, 2), 2, (1, 1, 2)
+ELASTIC_STEPS = 2           # steps on each rung
+# the first resumed step against an unsharded step from the same
+# restored state on the same batch: the loss (relative) and each
+# parameter leaf's difference as a share of the unsharded step's change
+# of that leaf.  bf16: rounding of a correct split (tp partial sums
+# rounded on each rank), bounded at a quarter of the step; the witness,
+# the unsharded bf16 step beside the same step in float32, measures how
+# far bf16 rounding alone moves a step.  float32: the same step on the
+# mesh and unsharded, where rounding is ~1e-7 and a wrong placement or a
+# missing reduction moves a leaf by its whole step
+ELASTIC_LOSS_RTOL = 1e-2
+ELASTIC_STEP_TOL = 0.25
+ELASTIC_F32_LOSS_RTOL = 1e-5
+ELASTIC_F32_STEP_TOL = 1e-3
+
+
+def same_bits(a, b) -> bool:
+    """Whether two arrays of one shape hold the same bytes (NaNs
+    included)."""
+    import numpy as np
+    return a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).reshape(-1).view(np.uint8),
+        np.ascontiguousarray(b).reshape(-1).view(np.uint8))
+
+
+def step_shares(after, want, before):
+    """Per parameter leaf: ||after - want|| / ||want - before|| (float64),
+    the difference from ``want`` as a share of ``want``'s step."""
+    out = []
+    for a, w, b in zip(after, want, before):
+        a, w, b = (t.double() for t in (a, w, b))
+        step = float((w - b).norm())
+        out.append(float((a - w).norm()) / step if step else
+                   float((a - w).norm()))
+    return out
+
+
+def elastic_phase(dev, card):
+    """The ladder's shrink-and-resume on the card
+    (``runtime/elastic.shrink_and_resume``): ELASTIC_STEPS steps of
+    stablelm-1.6b (full width, ELASTIC_LAYERS layers, batch 2 x 4096,
+    bf16 parameters, float32 moments) on rung (1, 2, 2) of four
+    simulated ranks, the checkpoint, ``shrink_plan`` for ELASTIC_ALIVE
+    chips, the group re-formed at the target's size, the restore into the
+    target's analytic template, and ELASTIC_STEPS more steps.  Gates:
+    every restored parameter and moment bit-equal to the checkpoint's
+    bytes, the step counter resumed, and the first resumed step's loss
+    and parameters against an unsharded step from the same restored
+    state on the same batch, in bf16 (ELASTIC_LOSS_RTOL /
+    ELASTIC_STEP_TOL) and, from float32 copies, in float32
+    (ELASTIC_F32_*); the witness: the unsharded bf16 step beside its
+    float32 twin.  Returns the record."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import pytree
+    from repro_torch.core.device import host_tensor
+    from repro_torch.launch import dryrun, train
+    from repro_torch.runtime.elastic import (ElasticMeshManager,
+                                             shrink_and_resume)
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ELASTIC_ARCH),
+                              n_layers=ELASTIC_LAYERS)
+    ckdir = ROOT / "build" / "elastic-ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    args = train.parse_args(list(ELASTIC_ARGS) + ["--ckpt", str(ckdir)])
+    mgr = ElasticMeshManager(ladder=list(ELASTIC_LADDER))
+    walls_b, losses_b = [], []
+    with train.deterministic(), shrink_and_resume(
+            mgr, ELASTIC_FROM, ELASTIC_ALIVE, CheckpointManager(str(ckdir)),
+            steps=ELASTIC_STEPS, global_batch=args.batch,
+            regroup=dryrun.simulated_group,
+            build=lambda axes: train.Trainer(args, axes=axes, cfg=cfg)) as r:
+        target = r["plan"]["target"]
+        if target != ELASTIC_TO:
+            fail(f"elastic: shrink_plan({ELASTIC_FROM}, {ELASTIC_ALIVE}) "
+                 f"gave {target}, want {ELASTIC_TO}")
+        trainer, state = r["trainer"], r["state"]
+        if trainer.device != dev or \
+                trainer.api.axes.mesh.device_type != dev.type:
+            fail(f"elastic: the resumed trainer runs on {trainer.device}")
+        step_dir = ckdir / f"step_{ELASTIC_STEPS:08d}"
+        saved = np.load(step_dir / "shard_0.npz")
+        for path, t in pytree.flatten_with_path(state):
+            got = host_tensor(t)
+            if got.dtype == torch.bfloat16:     # stored as its uint16 bits
+                got = got.view(torch.int16)
+            if not same_bits(got.numpy(), saved[pytree.path_key(path)]):
+                fail(f"elastic: restored leaf {pytree.path_key(path)} "
+                     f"differs from the checkpoint")
+        del saved
+        ck_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        if int(host_tensor(state[1]["step"])) != ELASTIC_STEPS:
+            fail(f"elastic: the optimizer's step resumed at "
+                 f"{int(host_tensor(state[1]['step']))}")
+        # the restored state whole, on the card, for the unsharded steps;
+        # the first resumed step in float32 on the mesh (a copy)
+        restored = pytree.tree_map(rank0, state)
+        batch = trainer.batch(ELASTIC_STEPS)
+        loss32_m, p32, _, _ = trainer.api.train_step(
+            pytree.tree_map(lambda t: t.float(), state[0]),
+            pytree.tree_map(torch.clone, state[1]), batch)
+        loss32_m, p32 = float(loss32_m), [rank0(t) for t in
+                                          pytree.leaves(p32)]
+        for step in range(ELASTIC_STEPS, 2 * ELASTIC_STEPS):
+            t0 = time.perf_counter()
+            state, m = trainer.step_fn(state, step)
+            walls_b.append(time.perf_counter() - t0)
+            losses_b.append(m["loss"])
+            if step == ELASTIC_STEPS:
+                resumed = [rank0(t) for t in pytree.leaves(state[0])]
+        if int(host_tensor(state[1]["step"])) != 2 * ELASTIC_STEPS:
+            fail("elastic: the optimizer's step did not advance")
+        del state, trainer, batch
+    log_a, save_s, restore_s = r["log"], r["save_s"], r["restore_s"]
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same step unsharded from the same restored state on the same
+    # batch, in bf16 and in float32
+    plain = train.Trainer(args, cfg=cfg)
+    before = [t.clone() for t in pytree.leaves(restored[0])]
+    batch = plain.batch(ELASTIC_STEPS)
+    with train.deterministic():
+        loss_u, want, _, _ = plain.api.train_step(
+            *pytree.tree_map(torch.clone, restored), batch)
+        loss32_u, want32, _, _ = plain.api.train_step(
+            pytree.tree_map(lambda t: t.float(), restored[0]), restored[1],
+            batch)
+    loss_u, loss32_u = float(loss_u), float(loss32_u)
+    want, want32 = pytree.leaves(want), pytree.leaves(want32)
+    shares = step_shares(resumed, want, before)
+    shares32 = step_shares(p32, want32, before)
+    witness = step_shares(want, want32, before)
+    loss_err = abs(losses_b[0] - loss_u) / abs(loss_u)
+    loss32_err = abs(loss32_m - loss32_u) / abs(loss32_u)
+    loss_wit = abs(loss_u - loss32_u) / abs(loss32_u)
+    losses = [m["loss"] for m in log_a] + losses_b
+    print(f"elastic: {ELASTIC_ARCH} (full width, {ELASTIC_LAYERS} of "
+          f"{get_config(ELASTIC_ARCH).n_layers} layers) at batch "
+          f"{args.batch} x {args.seq}: {ELASTIC_STEPS} steps on "
+          f"{ELASTIC_FROM} (walls "
+          f"{[round(m['wall_s'] * 1e3, 3) for m in log_a]} ms), checkpoint "
+          f"{ck_bytes} bytes saved in {save_s:.3f} s, shrink_plan("
+          f"{ELASTIC_FROM}, {ELASTIC_ALIVE} chips) -> {target}, restored "
+          f"in {restore_s:.3f} s (every leaf bit-equal, step "
+          f"{ELASTIC_STEPS}), {ELASTIC_STEPS} steps on {target} (walls "
+          f"{[round(w * 1e3, 3) for w in walls_b]} ms); losses {losses} "
+          f"[{card}]")
+    print(f"elastic: the first resumed step beside an unsharded step from "
+          f"the same restored state on the same batch: bf16 loss "
+          f"{losses_b[0]} vs {loss_u} ({loss_err:.3e} relative, gate "
+          f"{ELASTIC_LOSS_RTOL}), parameters within {max(shares):.3e} of "
+          f"the unsharded step's change, leaf by leaf (gate "
+          f"{ELASTIC_STEP_TOL}); float32 loss {loss32_err:.3e} (gate "
+          f"{ELASTIC_F32_LOSS_RTOL}), parameters {max(shares32):.3e} (gate "
+          f"{ELASTIC_F32_STEP_TOL}); witness, the unsharded bf16 step "
+          f"beside its float32 twin: loss {loss_wit:.3e}, parameters "
+          f"{max(witness):.3e} [{card}]")
+    if not all(map(math.isfinite, losses)) or loss_err > ELASTIC_LOSS_RTOL:
+        fail(f"elastic: resumed loss {losses_b[0]} vs the unsharded "
+             f"step's {loss_u}")
+    if max(shares) > ELASTIC_STEP_TOL:
+        fail(f"elastic: the resumed step's parameters differ from the "
+             f"unsharded step's by {max(shares):.3e} of its change")
+    if loss32_err > ELASTIC_F32_LOSS_RTOL or \
+            max(shares32) > ELASTIC_F32_STEP_TOL:
+        fail(f"elastic: in float32 the resumed step differs from the "
+             f"unsharded one: loss {loss32_err:.3e}, parameters "
+             f"{max(shares32):.3e} of its change")
+    del plain, restored, resumed, want, want32, p32, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return {"arch": ELASTIC_ARCH, "layers": ELASTIC_LAYERS,
+            "from": ELASTIC_FROM, "to": target, "losses": losses,
+            "walls_ms": {"from": [m["wall_s"] * 1e3 for m in log_a],
+                         "to": [w * 1e3 for w in walls_b]},
+            "save_s": save_s, "restore_s": restore_s,
+            "checkpoint_bytes": ck_bytes, "loss_rel_err": loss_err,
+            "step_share": max(shares), "f32_loss_rel_err": loss32_err,
+            "f32_step_share": max(shares32), "witness_loss_rel": loss_wit,
+            "witness_step_share": max(witness),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def graphed_mesh_gate(graphed, eager, graphed_out, eager_out):
+    """The graphed mesh server's decode logits against its eager twin's,
+    beat by beat (live rows): each within MESH_GRAPH_REL_TOL of the
+    eager beat's scale; their tokens equal.  Returns the worst."""
+    import numpy as np
+    if len(graphed) != len(eager):
+        fail(f"mesh: the graphed server ran {len(graphed)} decode beats, "
+             f"the eager one {len(eager)}")
+    worst = 0.0
+    for i, (g, e) in enumerate(zip(graphed, eager)):
+        if g.shape != e.shape:
+            fail(f"mesh: decode beat {i}: graphed {g.shape}, eager "
+                 f"{e.shape}")
+        err = float(np.abs(g - e).max() / np.abs(e).max())
+        worst = max(worst, err)
+        if not err <= MESH_GRAPH_REL_TOL:
+            fail(f"mesh: decode beat {i}: the graphed server's logits "
+                 f"differ from the eager mesh server's by {err:.3e} of "
+                 f"scale")
+    if graphed_out != eager_out:
+        fail("mesh: the graphed mesh server's tokens differ from the "
+             "eager mesh server's")
+    return worst
+
+
+def mesh_phase(dev, card, unsharded_graphed=None):
     """The port's language model over a device mesh: (b) yi-6b at full
     width and depth served by ``CycleServer(cfg, make_axes(mesh))`` on a
     (data 2, model 2) mesh of four LocalTensorMode ranks on this card,
@@ -3424,7 +3670,14 @@ def mesh_phase(dev, card):
     512-rank groups (worker processes, started once the servers' timed
     drains are done); (c) each rank's bytes of parameters, cache and
     decode inputs against the dry-run's ``argument_bytes_per_device``
-    for that mesh, config and shape."""
+    for that mesh, config and shape; (b') the same server with
+    ``jit=True`` (its decode step one CUDA graph of the four ranks) on
+    the same weights and requests, every decode beat's logits within
+    MESH_GRAPH_REL_TOL of the eager mesh server's and its tokens equal,
+    a decode-only beat profiled beside the eager mesh server's and
+    ``unsharded_graphed`` (the lm-yi-6b path's profiled decode-only beat
+    log entry and its unprofiled decode-only walls); (d) the elastic shrink (``elastic_phase``), after the
+    servers, while the dry-run's workers finish."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3469,9 +3722,10 @@ def mesh_phase(dev, card):
             setup_s = time.perf_counter() - t0
             mesh_log = StepLog(srv)
             dec = DecodeLog(srv)
+            eager_logits = []
             with LayerLog(cfg.n_layers) as layers:
                 mesh_out, mesh_wall, mesh_prof = mesh_drain(
-                    srv, prompts, 4, dec)
+                    srv, prompts, 4, dec, eager_logits)
             launches = dict(K.LAUNCHES)
             n = math.prod(MESH_SHAPE)
             held = [{"params": rank_bytes(srv.params, r),
@@ -3479,7 +3733,25 @@ def mesh_phase(dev, card):
                      "inputs": rank_bytes((srv._tokens, srv._positions), r)}
                     for r in range(n)]
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        del srv
+            del srv
+            gc.collect()
+            torch.cuda.empty_cache()
+            # (b') the same server with its decode step captured, on the
+            # same weights and requests, timed alone too
+            K.reset_launches()
+            t0 = time.perf_counter()
+            gsrv = CycleServer(cfg, make_axes(mesh), device=dev, jit=True,
+                               params=base.params, **MESH_SERVER)
+            graph_setup_s = time.perf_counter() - t0
+            if not gsrv.graphed or gsrv._graph is None:
+                fail("mesh: CycleServer(jit=True) over the mesh is not "
+                     "graphed on the card")
+            graph_logits = []
+            graph_out, graph_wall, graph_prof = mesh_drain(
+                gsrv, prompts, 4, beat_logits=graph_logits)
+            graph_launches = dict(K.LAUNCHES)
+            capture = dict(gsrv.capture_stats)
+            del gsrv
     finally:
         fa.flash_attention = orig_fa
     # the dry-run's CPU workers start once both servers' walls are taken
@@ -3534,13 +3806,43 @@ def mesh_phase(dev, card):
           f"equal; tokens {'equal' if same_tokens else 'differ'} "
           f"({sum(map(len, mesh_out))} generated); setup {setup_s:.1f} s; "
           f"peak {peak:.2f} GiB allocated [{card}]")
+    graph_err = graphed_mesh_gate(graph_logits, eager_logits, graph_out,
+                                  mesh_out)
+    if graph_launches["flash_attention"] != want_fa:
+        fail(f"mesh: the graphed server's prefills launched flash "
+             f"{graph_launches['flash_attention']} times, want {want_fa}")
+    print(f"mesh: lm-yi-6b-mesh2x2 graphed (jit=True): graphed "
+          f"{capture.get('graphs')} graph, capture "
+          f"{capture.get('capture_s', float('nan')):.3f} s, pool "
+          f"{capture.get('pool_bytes')} bytes, setup {graph_setup_s:.1f} s; "
+          f"{len(graph_logits)} decode beats each within {graph_err:.3e} "
+          f"of scale of the eager mesh server's logits (gate "
+          f"{MESH_GRAPH_REL_TOL}), tokens equal "
+          f"({sum(map(len, graph_out))} generated); drain "
+          f"{graph_wall:.3f} s beside the eager mesh server's "
+          f"{mesh_wall:.3f} s [{card}]")
     for what, wall, prof in (("unsharded", base_wall, base_prof),
-                             ("mesh2x2", mesh_wall, mesh_prof)):
+                             ("mesh2x2", mesh_wall, mesh_prof),
+                             ("mesh2x2 graphed", graph_wall, graph_prof)):
+        med = prof["median_unprofiled_decode_wall_ms"]
         print(f"mesh: {what} server (timed alone): drain {wall:.3f} s; "
-              f"decode-only beat 4: wall {prof['wall_ms']:.3f} ms, busy "
-              f"{prof['busy_ms']:.3f} ms ({prof['device_ops']} device ops),"
-              f" host ops {json.dumps(prof['host_ops'])}, top "
+              f"decode-only beat 4: wall {prof['wall_ms']:.3f} ms under the "
+              f"profiler, busy {prof['busy_ms']:.3f} ms "
+              f"({prof['device_ops']} device ops), host ops "
+              f"{json.dumps(prof['host_ops'])}; median unprofiled "
+              f"decode-only wall {med:.3f} ms, idle "
+              f"{1 - prof['busy_ms'] / med:.3f}; top "
               f"{json.dumps(prof['top'])} [{card}]")
+    if unsharded_graphed is not None:
+        e, walls = unsharded_graphed
+        med = statistics.median(walls) if walls else float("nan")
+        print(f"mesh: beside them, the unsharded graphed server's profiled "
+              f"decode-only beat (lm-yi-6b path, capacity 8): wall "
+              f"{e['wall_ms']:.3f} ms under the profiler, busy "
+              f"{e['device_busy_ms']:.3f} ms ({e['device_events']} device "
+              f"ops), host ops {json.dumps(e['host_ops'])}; median "
+              f"unprofiled decode-only wall {med:.3f} ms, idle "
+              f"{1 - e['device_busy_ms'] / med:.3f} [{card}]")
 
     # the kernel on the recorded local inputs (16 query heads over 2 KV
     # heads a rank), against its plain version; not counted
@@ -3592,11 +3894,22 @@ def mesh_phase(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # (d) beside the dry-run's last workers (niced): the group it forms
+    # goes with it
+    elastic = elastic_phase(dev, card)
+    print(f"elastic summary: {json.dumps(elastic)}")
+    dist.destroy_process_group()
+    dryrun.clear_dtensor_caches()
     t0 = time.perf_counter()
     cells = finish_dryrun(procs)
     print(f"mesh: dry-run cells waited {time.perf_counter() - t0:.1f} s; "
           f"phase {time.perf_counter() - t_phase:.1f} s")
-    return {"flash_launches": launches["flash_attention"],
+    return {"flash_launches": launches["flash_attention"]
+            + graph_launches["flash_attention"],
+            "elastic": elastic,
+            "graphed": {"rel_err": graph_err, "drain_s": graph_wall,
+                        "setup_s": graph_setup_s, "capture": capture,
+                        "beat": graph_prof},
             "layer_rel_err": layer_err, "decode_rel_err": decode_err,
             "f32_layer_rel_err": f32_err, "f32_divergence": f32_chain,
             "f32_logits_divergence": f32_ends, "divergence": divergence,
@@ -3874,7 +4187,11 @@ def main():
     del calls, rec, attn, fold_rec, chained_rec, sharded_rec
     gc.collect()
     torch.cuda.empty_cache()
-    meshed = mesh_phase(dev, smi[0])
+    yi_decode = [e for e in log if e["path"] == "lm-yi-6b" and e["graphed"]
+                 and not e["admitted"]]
+    meshed = mesh_phase(dev, smi[0], next(
+        ((e, [u["wall_ms"] for u in yi_decode if not u["profiled"]])
+         for e in yi_decode if e["profiled"]), None))
     print("mesh summary:", json.dumps(meshed))
     for r in rows:      # the mesh phase's launches, counted on their own
         r["mesh_launches"] = meshed["flash_launches"] \

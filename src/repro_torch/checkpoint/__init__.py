@@ -1,3 +1,3 @@
 """Checkpoints of the port (``repro.checkpoint``'s counterpart)."""
 from repro_torch.checkpoint.checkpoint import (  # noqa: F401
-    CheckpointManager, load_pytree, save_pytree)
+    CheckpointManager, Placed, load_pytree, save_pytree)

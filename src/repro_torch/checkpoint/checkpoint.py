@@ -12,7 +12,18 @@ Layout per step:
 A leaf's key is its path in the tree (``"0/g0/attn/wq"`` for a ``(params,
 opt)`` tuple; ``core/pytree``), bfloat16 is stored as its uint16 bits
 under the dtype string ``"bfloat16"``, and the crc is over the leaf's
-bytes.  Fault-tolerance contract (runtime/):
+bytes.
+
+Sharded trees: a DTensor leaf is stored whole, at its full shape (under
+``LocalTensorMode`` the ranks' common value), as the reference's
+``np.asarray`` gathers a global array; so a checkpoint written on one
+mesh restores unsharded, on another mesh, or through the reference.
+``load_pytree`` places each leaf as its template leaf is placed: a
+DTensor template's mesh and placements, a ``Placed`` leaf's (an
+analytic template, ``ModelApi.state_template``: nothing allocated
+before the restore), a plain tensor's device.
+
+Fault-tolerance contract (runtime/):
   * a crash mid-write leaves only a .tmp dir -> ignored on restore;
   * restore picks the newest COMMITTED step;
   * every leaf carries a crc so silent corruption fails loudly;
@@ -20,6 +31,7 @@ bytes.  Fault-tolerance contract (runtime/):
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -30,16 +42,28 @@ import numpy as np
 import torch
 
 from repro_torch.core import pytree
+from repro_torch.core.device import host_tensor, is_dtensor
 
 # numpy cannot hold bfloat16: its bits travel as uint16 (torch's int16
 # view, the same bytes) under the dtype string "bfloat16"
 _BF16 = "bfloat16"
 
 
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """An analytic template leaf: a tensor of ``shape`` and ``dtype`` on
+    ``device``, on ``mesh`` with ``placements`` when a mesh is given."""
+    shape: tuple
+    dtype: torch.dtype
+    device: torch.device
+    mesh: Any = None
+    placements: tuple = ()
+
+
 def _to_numpy(leaf) -> tuple:
     """(the array as stored, its dtype string)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        t = host_tensor(leaf).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), _BF16
         arr = t.numpy()
@@ -50,16 +74,23 @@ def _to_numpy(leaf) -> tuple:
 
 def _from_numpy(arr: np.ndarray, dtype: str, like):
     """The stored array as ``like``'s kind: a tensor on its device and
-    dtype, else an array (bfloat16 comes back as a CPU tensor: numpy has
-    no such dtype)."""
+    dtype (a DTensor or ``Placed`` template: placed on its mesh), else
+    an array (bfloat16 comes back as a CPU tensor: numpy has no such
+    dtype)."""
     if dtype == _BF16:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    elif isinstance(like, torch.Tensor):
+    elif isinstance(like, (torch.Tensor, Placed)):
         t = torch.from_numpy(arr)
     else:
         return arr
-    if isinstance(like, torch.Tensor):
-        return t.to(device=like.device, dtype=like.dtype, copy=True)
+    if is_dtensor(like):
+        like = Placed(tuple(like.shape), like.dtype, like.device,
+                      like.device_mesh, tuple(like.placements))
+    if isinstance(like, (torch.Tensor, Placed)):
+        t = t.to(device=like.device, dtype=like.dtype, copy=True)
+    if isinstance(like, Placed) and like.mesh is not None:
+        from torch.distributed.tensor import distribute_tensor
+        t = distribute_tensor(t, like.mesh, list(like.placements))
     return t
 
 
@@ -86,9 +117,11 @@ def save_pytree(tree, directory: str, step: int, host_id: int = 0,
 
 def load_pytree(template, directory: str, step: Optional[int] = None,
                 host_id: int = 0):
-    """Restore into the structure of ``template`` (a tree of tensors or
-    arrays): each tensor leaf on its template's device and dtype.
-    Returns (tree, manifest); IOError on a crc mismatch."""
+    """Restore into the structure of ``template`` (a tree of tensors,
+    DTensors, ``Placed`` leaves or arrays): each leaf on its template's
+    device and dtype, and mesh and placements.  Returns (tree,
+    manifest); IOError on a crc mismatch, ValueError when a stored leaf's
+    shape is not its template's."""
     step_dir = _resolve_step(directory, step)
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
@@ -100,6 +133,10 @@ def load_pytree(template, directory: str, step: Optional[int] = None,
         meta = manifest["leaves"][key]
         if zlib.crc32(np.ascontiguousarray(arr).tobytes()) != meta["crc"]:
             raise IOError(f"checkpoint corruption in leaf {key}")
+        shape = getattr(like, "shape", None)
+        if shape is not None and tuple(shape) != arr.shape:
+            raise ValueError(f"checkpoint leaf {key} has shape {arr.shape}, "
+                             f"the template {tuple(shape)}")
         out.append(_from_numpy(arr, meta["dtype"], like))
     return pytree.unflatten(template, out), manifest
 

@@ -40,3 +40,42 @@ def is_dtensor(x) -> bool:
     """Whether ``x`` is a DTensor (a tensor placed on a device mesh)."""
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
+
+
+def one_draw():
+    """The context of a draw made once for every rank: under
+    ``LocalTensorMode`` (every rank of a mesh simulated in this process)
+    the mode paused, so that factories make plain tensors and a seeded
+    generator is read once, not once a rank; else nothing."""
+    import contextlib
+    from torch.distributed._local_tensor import local_tensor_mode
+    mode = local_tensor_mode()
+    return contextlib.nullcontext() if mode is None else mode.disable()
+
+
+def local_shards(t) -> list:
+    """The plain tensors that hold ``t`` on this process: a DTensor's
+    local shard, and under ``LocalTensorMode`` every simulated rank's;
+    a plain tensor itself."""
+    if is_dtensor(t):
+        t = t._local_tensor
+    per_rank = getattr(t, "_local_tensors", None)
+    return [t] if per_rank is None else list(per_rank.values())
+
+
+def host_tensor(t) -> torch.Tensor:
+    """A device value as a plain CPU tensor: a DTensor's full value, and
+    under ``LocalTensorMode`` the ranks' common value (raises if their
+    bits differ)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
+    vals = local_shards(t.detach())
+    bits = [v.reshape(-1).view(torch.uint8) for v in vals]
+    if any(not torch.equal(bits[0], b) for b in bits[1:]):
+        raise RuntimeError("host_tensor: the ranks disagree")
+    return vals[0].cpu()
+
+
+def host_numpy(t) -> np.ndarray:
+    """``host_tensor(t)`` as a numpy array."""
+    return host_tensor(t).numpy()

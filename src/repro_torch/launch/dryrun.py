@@ -71,6 +71,20 @@ def fake_group(n_ranks: int) -> None:
                             rank=0)
 
 
+@contextlib.contextmanager
+def simulated_group(n_ranks: int):
+    """A process group of ``n_ranks`` ranks simulated in this process: a
+    fake default group of that size (``fake_group``) and
+    ``LocalTensorMode``, under which every rank's shard is a real tensor
+    and every collective moves real numbers.  The one card's stand-in
+    for a job re-formed at that size (``runtime/elastic.
+    shrink_and_resume``'s ``regroup``)."""
+    from torch.distributed._local_tensor import LocalTensorMode
+    fake_group(n_ranks)
+    with LocalTensorMode(n_ranks):
+        yield
+
+
 def clear_dtensor_caches() -> None:
     """Empty DTensor's caches: its sharding propagation, its per-op
     strategy caches (``functools`` caches in ``torch.distributed``), its

@@ -7,9 +7,10 @@ the CUDA card by default.
 
 Every LM configuration serves: dense, MoE, recurrent (recurrentgemma),
 SSD (mamba2), cross-attention (llama-vision: zero vision tokens) and
-encoder-decoder (whisper: zero frames).  ``--mesh single|multi`` serves
-over the production mesh (``launch/mesh.make_axes``, eagerly), which
-needs a process group of 256 (512) ranks and so raises on one card.
+encoder-decoder (whisper: zero frames).  The decode step is captured as
+a CUDA graph on the card, over a mesh too: ``--mesh single|multi``
+serves over the production mesh (``launch/mesh.make_axes``), which needs
+a process group of 256 (512) ranks and so raises on one card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --smoke --device cpu --requests 8
 """
@@ -47,8 +48,7 @@ def main(argv=None):
         multi_pod=args.mesh == "multi")
     server = CycleServer(cfg, make_axes(mesh), capacity=args.capacity,
                          max_seq=args.max_seq, prefill_len=args.prefill_len,
-                         seed=args.seed, device=args.device,
-                         jit=mesh is None)
+                         seed=args.seed, device=args.device)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()

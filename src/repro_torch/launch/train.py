@@ -11,11 +11,15 @@ The reference's flags, plus ``--device``.  ``--mesh single|multi`` trains
 over the production mesh (``launch/mesh.make_axes``: parameters,
 optimizer state and batches as DTensors placed by the model's specs),
 which needs a process group of 256 (512) ranks and so raises on one
-card, as the reference does on fewer devices.  bf16 parameters from the port's seeded init, float32 AdamW
-moments, the plain attention (``transformer.loss_fn``), the synthetic
-pipeline's batches with float32 cast to bf16; with ``--ckpt`` the
-``FaultTolerantLoop`` checkpoints every ``--save-every`` steps and a
-second run resumes from the newest checkpoint.
+card, as the reference does on fewer devices.  bf16 parameters from the
+port's seeded init, float32 AdamW moments, the plain attention
+(``transformer.loss_fn``), the synthetic pipeline's batches with float32
+cast to bf16; with ``--ckpt`` the ``FaultTolerantLoop`` checkpoints every
+``--save-every`` steps and a second run resumes from the newest
+checkpoint, on a mesh too: each leaf is stored whole and restored onto
+the model's placements (``checkpoint/``), so a run may resume on another
+mesh, or unsharded.  ``Trainer(args, axes)`` trains on a given mesh (an
+elastic rung's, ``runtime/elastic.shrink_and_resume``).
 
 A training run uses deterministic algorithms (``deterministic``), so
 that a run replayed from a checkpoint is bit-identical to the first.
@@ -88,17 +92,23 @@ def deterministic():
 
 class Trainer:
     """The model, optimizer and data of one training run from ``args``
-    (``parse_args``); ``step_fn`` is the ``FaultTolerantLoop``'s step."""
+    (``parse_args``); ``step_fn`` is the ``FaultTolerantLoop``'s step.
+    ``axes``: the mesh to train on in place of ``--mesh``'s (an elastic
+    rung's, ``runtime/elastic.shrink_and_resume``); ``cfg``: the model
+    in place of ``--arch``'s (a depth cut of it)."""
 
-    def __init__(self, args: argparse.Namespace):
+    def __init__(self, args: argparse.Namespace, axes=None, cfg=None):
         self.args = args
-        cfg = smoke_config(args.arch) if args.smoke \
-            else get_config(args.arch)
-        mesh = None if args.mesh == "none" else make_production_mesh(
-            multi_pod=args.mesh == "multi")   # raises without the ranks
+        if cfg is None:
+            cfg = smoke_config(args.arch) if args.smoke \
+                else get_config(args.arch)
+        if axes is None:
+            axes = make_axes(None if args.mesh == "none" else
+                             make_production_mesh(   # raises without ranks
+                                 multi_pod=args.mesh == "multi"))
         self.cfg = cfg
         self.device = resolve_device(args.device)
-        self.api = get_model(cfg, make_axes(mesh), device=self.device,
+        self.api = get_model(cfg, axes, device=self.device,
                              kernels="torch",
                              opt_cfg=AdamWConfig(lr=args.lr))
         self.pipe = TokenPipeline(DataConfig(
@@ -134,14 +144,21 @@ class Trainer:
 
 
 def run(trainer: Trainer, *, fail_at=None):
-    """The launcher's flow on ``trainer``: init, the checkpointed
-    ``FaultTolerantLoop`` (resuming from the newest checkpoint) with
-    ``--ckpt``, else plain steps.  ``fail_at``: {step: exception} injected
-    into the loop (needs ``--ckpt``).  Returns (state, metrics log)."""
+    """The launcher's flow on ``trainer``: with ``--ckpt`` the
+    checkpointed ``FaultTolerantLoop``, resuming from the newest
+    checkpoint restored into the model's analytic template (re-sharded
+    onto ``--mesh``'s placements; nothing initialised first), else init
+    and plain steps.  ``fail_at``: {step: exception} injected into the
+    loop (needs ``--ckpt``).  Returns (state, metrics log)."""
     args = trainer.args
     if fail_at and not args.ckpt:
         raise ValueError("fault injection needs --ckpt")
-    state = trainer.init_state()
+    ckpt = CheckpointManager(args.ckpt) if args.ckpt else None
+    start = (ckpt.latest_step() or 0) if ckpt else 0
+    if start:
+        state, _ = ckpt.restore(trainer.api.state_template(), start)
+    else:
+        state = trainer.init_state()
     n_params = sum(p.numel() for p in pytree.leaves(state[0]))
     where = torch.cuda.get_device_name(trainer.device) \
         if trainer.device.type == "cuda" else str(trainer.device)
@@ -149,13 +166,10 @@ def run(trainer: Trainer, *, fail_at=None):
           f"mesh={args.mesh} device={where}", flush=True)
     t0 = time.time()
     with deterministic():
-        if args.ckpt:
-            ckpt = CheckpointManager(args.ckpt)
+        if ckpt:
             loop = FaultTolerantLoop(trainer.step_fn, ckpt,
                                      save_every=args.save_every)
-            start = ckpt.latest_step() or 0
             if start:
-                state, _ = ckpt.restore(state, start)
                 print(f"resumed from step {start}", flush=True)
             state, log = loop.run(state, start, args.steps - start,
                                   fail_at=fail_at)

@@ -35,7 +35,7 @@ import torch
 from repro_torch.configs import ArchConfig, ShapeSpec
 from repro_torch.core import pytree
 from repro_torch.core.backends import resolve_backend
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import one_draw, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import MeshAxes
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
@@ -67,9 +67,12 @@ class ModelApi:
     def init_params(self, seed: int = 0) -> dict:
         """Random bfloat16 parameters on the model's device from ``seed``
         (float32 ones come from ``params_from_numpy``); under a mesh the
-        same values, each leaf placed by its spec."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return self.place(transformer.init_lm(gen, self.cfg, self.device))
+        same values, each leaf placed by its spec (drawn once, whole, for
+        every rank, simulated ranks too)."""
+        with one_draw():
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            full = transformer.init_lm(gen, self.cfg, self.device)
+        return self.place(full)
 
     def place(self, params) -> dict:
         """``params`` (full tensors) placed on the mesh by
@@ -92,6 +95,30 @@ class ModelApi:
 
     def opt_specs(self) -> dict:
         return opt_state_specs(self.param_specs())
+
+    def state_template(self) -> tuple:
+        """The analytic template of a training state ``(params, opt)``
+        for ``checkpoint.load_pytree``: ``Placed`` leaves of
+        ``param_shapes`` and of ``init_opt``'s float32 moments and int32
+        step, on this model's device and, under a mesh, placed by
+        ``param_specs`` / ``opt_specs``.  Nothing is allocated."""
+        from repro_torch.checkpoint import Placed
+        mesh = self.axes.mesh
+
+        def leaf(shape, dtype, spec):
+            pl = () if mesh is None else tuple(
+                self.axes.placements(len(shape), *spec))
+            return Placed(tuple(shape), dtype, self.device, mesh, pl)
+        shapes, specs = self.param_shapes(), self.opt_specs()
+        params = pytree.dict_map(lambda sd, sp: leaf(*sd, sp), shapes,
+                                 specs["m"])
+
+        def moments(sp):
+            return pytree.dict_map(
+                lambda sd, spec: leaf(sd[0], torch.float32, spec), shapes,
+                sp)
+        return params, {"m": moments(specs["m"]), "v": moments(specs["v"]),
+                        "step": leaf((), torch.int32, specs["step"])}
 
     # ---------------- steps ------------------------------------------
     def prefill(self, params, batch, cache_capacity: Optional[int] = None,

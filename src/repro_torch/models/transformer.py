@@ -596,13 +596,29 @@ def _seq_spec(axes: MeshAxes, S: int):
 def _embed(params, tokens, axes: MeshAxes = MeshAxes()):
     if axes.mesh is None:
         return params["embed"][tokens.long()]
-    # the vocabulary-sharded lookup (masked, summed over tp) takes the
-    # token ids whole; the rows then go to the sequence-sharded layout
-    from torch.distributed.tensor import Replicate
-    x = torch.nn.functional.embedding(axes.constrain(tokens.long()),
-                                      axes.unshard_fsdp(params["embed"]))
-    # the masked partial sum reduces first, where the lookup left it (its
-    # mask is the lookup's, of the token ids as they were), then moves
+    # the vocabulary-sharded lookup takes the token ids whole: each tp
+    # rank gathers the rows it holds and zeros for the others, and the
+    # partial sum (one row and zeros: exact) reduces over tp; no boolean
+    # mask, so no host read, and a captured step replays it.  The rows
+    # then go to the sequence-sharded layout
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    w = axes.unshard_fsdp(params["embed"])
+    whole = [Replicate()] * axes.mesh.ndim
+    out = [Partial() if p.is_shard() else p for p in w.placements]
+    ids = axes.constrain(torch.arange(w.shape[0], device=w.device))
+    ids = ids.redistribute(axes.mesh, w.placements)
+
+    def lookup(w_, tok, ids_):
+        row = tok.long() - ids_[:1]
+        hit = (row >= 0) & (row < w_.shape[0])
+        x = w_[row.clamp(0, w_.shape[0] - 1)]
+        return torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+    x = local_map(lookup, out_placements=(out,),
+                  in_placements=(w.placements, whole, w.placements),
+                  device_mesh=axes.mesh, redistribute_inputs=True)(
+                      w, axes.constrain(tokens), ids)
     x = x.redistribute(axes.mesh, [Replicate() if p.is_partial() else p
                                    for p in x.placements])
     return axes.constrain(x, axes.batch(x.shape[0]),

@@ -26,11 +26,13 @@ the reference's server feeds them.
 ``CycleServer(cfg, axes)`` serves over a mesh (``MeshAxes`` on a torch
 ``DeviceMesh``, the reference's ``CycleServer(cfg, axes)``): parameters
 and the slot cache are DTensors placed by their specs, each beat's
-tokens and positions go up placed by the input specs, and the flash
-kernel runs per rank on its own heads.  A mesh server runs eagerly:
-``jit=True`` with a mesh raises NotImplementedError (no CUDA graph of a
-mesh step).  Under ``LocalTensorMode`` (every rank of the mesh simulated
-in one process) its host values are the ranks' common value.
+tokens and positions are written into the fixed DTensor buffers placed
+by the input specs, and the flash kernel runs per rank on its own
+heads.  With ``jit=True`` on a card its decode step is captured too
+(the reference jits it under the mesh): the graph holds every rank's
+kernels and the collectives between them, and a replay runs none of
+DTensor's Python.  Under ``LocalTensorMode`` (every rank of the mesh
+simulated in one process) its host values are the ranks' common value.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ from repro_torch import kernels as _k
 from repro_torch.configs import ArchConfig
 from repro_torch.core import graphs as cg
 from repro_torch.core import pytree
-from repro_torch.core.device import is_dtensor, upload
+from repro_torch.core.device import (host_numpy, is_dtensor, local_shards,
+                                     upload)
 from repro_torch.models.common import MeshAxes
 from repro_torch.models.registry import get_model
 
@@ -106,21 +109,6 @@ def _insert_row(dst, src, slot: int, axis: int, axes: MeshAxes):
               device_mesh=axes.mesh, redistribute_inputs=True)(dst, src, ids)
 
 
-def host_numpy(t) -> np.ndarray:
-    """A device value on the host: a DTensor's full value, and under
-    ``LocalTensorMode`` the ranks' common value (raises if they differ)."""
-    if is_dtensor(t):
-        t = t.full_tensor()
-    t = t.detach()
-    per_rank = getattr(t, "_local_tensors", None)
-    if per_rank is None:
-        return t.cpu().numpy()
-    vals = [v.cpu().numpy() for v in per_rank.values()]
-    if any(not np.array_equal(vals[0], v) for v in vals[1:]):
-        raise RuntimeError("host_numpy: the ranks disagree")
-    return vals[0]
-
-
 def _argmax_host(logits) -> np.ndarray:
     """argmax over the last (vocabulary) axis, on the host; a DTensor's
     logits are gathered whole first (each rank then takes the same
@@ -147,10 +135,6 @@ class CycleServer:
                  prefill_budget: int = 2, prefill_len: int = 64,
                  params=None, seed: int = 0, device=None,
                  kernels: str = "auto", jit: bool = True):
-        if axes.mesh is not None and jit:
-            raise NotImplementedError(
-                "CycleServer over a mesh runs eagerly: pass jit=False (no "
-                "CUDA graph of a mesh step)")
         self.cfg = cfg
         self.axes = axes
         self.capacity = capacity
@@ -235,8 +219,10 @@ class CycleServer:
         slots (parked at position 0) gives the logits' shape and, on a
         card, warms the capture's side stream up (library handles and
         workspaces); the cache is then reset to its empty state.  A mesh
-        server (eager, never captured) warms up on the serving stream."""
-        cuda = self.device.type == "cuda" and self.axes.mesh is None
+        server's step is captured as an unsharded one is: every rank's
+        kernels (each simulated rank's under ``LocalTensorMode``) and
+        the collectives between them, into one graph."""
+        cuda = self.device.type == "cuda"
         graph, stats = None, {}
         side = torch.cuda.Stream(self.device) if cuda else None
         if cuda:        # the parameters and the cache come from the
@@ -262,8 +248,10 @@ class CycleServer:
         if cuda:
             # the serving stream waits, on the card, for the warm-up, the
             # reset and the buffer allocated on the side stream
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            out.record_stream(torch.cuda.current_stream(self.device))
+            serving = torch.cuda.current_stream(self.device)
+            serving.wait_stream(side)
+            for t in local_shards(out):
+                t.record_stream(serving)
         return out, graph, stats
 
     def _tokens_spec(self):

@@ -1136,3 +1136,91 @@ def test_graphed_moe_decode_equals_eager(cuda_device):
     twin.run_until_drained()
     for a, b in zip(*reqs):
         assert a.output == b.output and len(a.output) == 12
+
+
+# ------------------------------------------------------------------ the mesh
+@pytest.fixture
+def no_group_left():
+    """No fake process group left behind for the next test."""
+    yield
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    if dist.is_initialized():
+        dist.destroy_process_group()
+        dryrun.clear_dtensor_caches()
+
+
+@pytest.mark.cuda
+def test_graphed_mesh_decode_equals_eager(cuda_device, no_group_left):
+    """A bfloat16 smoke LM served over a (2, 2) mesh of four simulated
+    ranks on the card, its decode step captured (every rank's kernels in
+    one graph), against the same mesh server run eagerly: every decode
+    beat's logits within 1e-3 of scale, the same greedy tokens."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_axes
+    from repro_torch.runtime.elastic import ElasticMeshManager
+    from repro_torch.serving import CycleServer
+    from repro_torch.core.device import host_numpy
+    cfg = dataclasses.replace(smoke_config("yi-6b"), n_kv=2, head_dim=128)
+    kw = dict(capacity=4, max_seq=64, prefill_len=16, prefill_budget=2,
+              device=cuda_device)
+    params = CycleServer(cfg, seed=0, jit=False, **kw).params
+    outs, logits = [], []
+    with dryrun.simulated_group(4):
+        axes = make_axes(ElasticMeshManager().make_mesh((1, 2, 2)))
+        for jit in (True, False):
+            srv = CycleServer(cfg, axes, params=params, jit=jit, **kw)
+            assert srv.graphed == jit
+            r = np.random.default_rng(0)
+            for n in (5, 16, 9, 3, 12):
+                srv.submit(r.integers(1, cfg.vocab, n).tolist(), 8)
+            beats = []
+            while srv.pending() or srv.active():
+                srv.dispatch()
+                beats.append(host_numpy(srv._logits.float()))
+                srv.collect()
+            logits.append(beats)
+            outs.append([q.output for q in sorted(srv.completed,
+                                                  key=lambda q: q.id)])
+    assert outs[0] == outs[1] and len(outs[0]) == 5
+    assert len(logits[0]) == len(logits[1]) > 8
+    for g, e in zip(*logits):
+        assert np.abs(g - e).max() <= 1e-3 * np.abs(e).max()
+
+
+@pytest.mark.cuda
+def test_shrink_and_resume_restores_bit_equal_on_the_card(cuda_device,
+                                                          no_group_left,
+                                                          tmp_path):
+    """The elastic shrink at smoke size on the card: a step on (1, 2, 2)
+    of four simulated ranks, the checkpoint, the shrink to (1, 1, 2) and
+    the restore: every leaf bit-equal to the checkpoint's bytes, the step
+    counter resumed, and the resumed step runs."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pytree
+    from repro_torch.core.device import host_tensor
+    from repro_torch.launch import dryrun, train
+    from repro_torch.runtime.elastic import (ElasticMeshManager,
+                                             shrink_and_resume)
+    args = train.parse_args(["--arch", "stablelm-1.6b", "--smoke", "--batch",
+                             "2", "--seq", "32", "--ckpt", str(tmp_path)])
+    mgr = ElasticMeshManager(ladder=[(1, 2, 2), (1, 1, 2), (1, 1, 1)])
+    with shrink_and_resume(mgr, (1, 2, 2), 2, CheckpointManager(str(tmp_path)),
+                           steps=1, global_batch=2,
+                           regroup=dryrun.simulated_group,
+                           build=lambda axes: train.Trainer(args, axes=axes)
+                           ) as r:
+        assert r["plan"]["target"] == (1, 1, 2)
+        state = r["state"]
+        saved = np.load(tmp_path / "step_00000001" / "shard_0.npz")
+        for path, t in pytree.flatten_with_path(state):
+            assert t.device.type == "cuda"
+            got = host_tensor(t)
+            if got.dtype == torch.bfloat16:
+                got = got.view(torch.int16)
+            want = saved[pytree.path_key(path)]
+            assert got.numpy().tobytes() == want.tobytes()
+        assert int(host_tensor(state[1]["step"])) == 1
+        state, m = r["trainer"].step_fn(state, 1)
+        assert np.isfinite(m["loss"])
+        assert int(host_tensor(state[1]["step"])) == 2

@@ -30,13 +30,16 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import AxisType
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as ref_configs
 from repro.models import moe as ref_moe
 from repro.models import transformer as ref_tf
 from repro.models.common import MeshAxes as RefMeshAxes
+from repro.serving import CycleServer as RefCycleServer
 from repro_torch import configs
 from repro_torch.core import pytree
+from repro_torch.core.device import local_shards
 from repro_torch.kernels import ref as kref
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_axes
@@ -44,7 +47,7 @@ from repro_torch.models import moe, transformer
 from repro_torch.models.common import MeshAxes, block_attention
 from repro_torch.models.registry import get_model, params_from_numpy
 from repro_torch.serving import CycleServer
-from repro_torch.serving.scheduler import host_numpy
+from repro_torch.core.device import host_numpy
 
 CPU = torch.device("cpu")
 LOGIT_TOL = 1e-4
@@ -73,11 +76,8 @@ def _one_thread_and_no_group_left():
 def local_mesh(shape, names=("data", "model")):
     """A mesh of ``shape`` simulated in this process (LocalTensorMode over
     a fake group of its size) -> its ``MeshAxes`` (``make_axes``)."""
-    from torch.distributed._local_tensor import LocalTensorMode
     from torch.distributed.device_mesh import init_device_mesh
-    n = math.prod(shape)
-    dryrun.fake_group(n)
-    with LocalTensorMode(n):
+    with dryrun.simulated_group(math.prod(shape)):
         yield make_axes(init_device_mesh("cpu", shape,
                                          mesh_dim_names=names))
 
@@ -333,7 +333,8 @@ def test_moe_sharded_dispatch_equals_the_reference_at_dp_2():
 def test_mesh_server_stream_equals_the_unsharded_server():
     """CycleServer(cfg, axes) over a (2, 2) mesh, eager, on the unsharded
     server's weights: the same tokens, beat for beat; jit=True with a
-    mesh raises."""
+    mesh builds the graph's twin on the CPU (``graphed`` False; its
+    stream: test_mesh_server_with_jit_serves_the_references_stream)."""
     cfg, _, tree = _model("yi-6b")
     params = params_from_numpy(tree, cfg, CPU)
     prompts = [list(range(3, 3 + n)) for n in (5, 16, 9)]
@@ -348,8 +349,102 @@ def test_mesh_server_stream_equals_the_unsharded_server():
     want = serve(MeshAxes())
     with local_mesh((2, 2)) as axes:
         assert serve(axes) == want
-        with pytest.raises(NotImplementedError, match="eagerly"):
-            CycleServer(cfg, axes, capacity=2, max_seq=8, prefill_len=4,
-                        params=params, device="cpu")
+        srv = CycleServer(cfg, axes, capacity=2, max_seq=8, prefill_len=4,
+                          params=params, device="cpu")
+        assert not srv.graphed and srv._graph is None
+        assert tuple(srv._logits.shape) == (2, cfg.vocab_padded())
 
 
+class _HostReads(TorchDispatchMode):
+    """Records the ops of a step that read device values on the host or
+    move them between devices: ``.item()`` / ``bool()``
+    (``_local_scalar_dense``, ``is_nonzero``), ``nonzero``, ``equal``,
+    masked selects and boolean-mask indexing (a ``nonzero`` inside), host
+    data lifted into a tensor, and copies to another device."""
+
+    READS = ("aten._local_scalar_dense", "aten.is_nonzero", "aten.item",
+             "aten.nonzero", "aten.equal", "aten.masked_select",
+             "aten.masked_scatter", "aten.lift_fresh", "aten.tolist")
+    INDEX = ("aten.index.Tensor", "aten.index_put", "aten._index_put_impl_")
+
+    def __init__(self):
+        super().__init__()
+        self.on, self.ops, self.reads = False, 0, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = str(func)
+        if self.on:
+            self.ops += 1
+            read = name.startswith(self.READS)
+            if name.startswith(self.INDEX):
+                read = any(isinstance(i, torch.Tensor) and
+                           i.dtype == torch.bool for i in args[1] or ())
+            if name.startswith("aten._to_copy") and \
+                    kwargs.get("device", args[0].device) != args[0].device:
+                read = True
+            if name.startswith("aten.copy_") and \
+                    args[0].device != args[1].device:
+                read = True
+            if read:
+                self.reads.append(name)
+        return func(*args, **kwargs)
+
+
+def test_mesh_decode_step_is_capture_safe():
+    """The mesh server's decode body, as a graph would replay it: over two
+    beats every boundary tensor (parameters, cache, tokens, positions,
+    logits) keeps each rank's storage, and the body reads nothing on the
+    host (recorded under the ranks' own ops, after a warm-up beat that
+    fills the mesh's coordinate caches)."""
+    from torch.distributed._local_tensor import LocalTensorMode
+    cfg, _, tree = _model("yi-6b")
+    params = params_from_numpy(tree, cfg, CPU)
+    with local_mesh((2, 2)) as axes:
+        srv = CycleServer(cfg, axes, capacity=4, max_seq=32, prefill_len=16,
+                          params=params, device="cpu", jit=True)
+        srv.submit(list(range(3, 12)), max_new_tokens=6)
+        srv.submit([5, 4, 3], max_new_tokens=6)
+
+        def ptrs():
+            return [[t.data_ptr() for t in local_shards(x)]
+                    for x in pytree.leaves((srv.params, srv.cache,
+                                            srv._tokens, srv._positions,
+                                            srv._logits))]
+        before = ptrs()
+        assert len(before[0]) == 4
+        for _ in range(2):
+            srv.run_cycle()
+            assert ptrs() == before
+        body = srv._decode_body_on(srv._logits)
+    reads = _HostReads()
+    with reads, LocalTensorMode(4):
+        body()
+        reads.on = True
+        body()
+    assert reads.ops > 1000 and reads.reads == []
+    assert ptrs() == before
+
+
+def test_mesh_server_with_jit_serves_the_references_stream():
+    """CycleServer(cfg, axes, jit=True) over a (2, 2) mesh on the CPU:
+    built as the graph's twin (``graphed`` False), the same tokens as
+    the reference's unsharded CycleServer on the same weights."""
+    cfg, rcfg, tree = _model("yi-6b")
+    kw = dict(capacity=2, max_seq=12, prefill_len=4, prefill_budget=2)
+    want = RefCycleServer(rcfg, params=jax.tree.map(jnp.asarray, tree), **kw)
+    with local_mesh((2, 2)) as axes:
+        got = CycleServer(cfg, axes, params=params_from_numpy(tree, cfg, CPU),
+                          device="cpu", jit=True, **kw)
+        assert not got.graphed and got.capture_stats == {}
+        reqs = [[s.submit([1, 2, 3, 4], 5), s.submit([4, 3, 2], 2),
+                 s.submit([9, 8], 3)] for s in (got, want)]
+        beats = 0
+        while got.pending() or got.active():
+            got.run_cycle()
+            want.run_cycle()
+            beats += 1
+            np.testing.assert_array_equal(got._pos, want._pos)
+    assert beats > 3 and not want.active() and not want.pending()
+    for a, b in zip(*reqs):
+        assert a.output == b.output and len(a.output) == a.max_new_tokens

@@ -256,21 +256,38 @@ def test_elastic_ladder_validated_and_sorted_like_the_reference():
 
 
 def test_make_mesh_over_alive_devices():
-    """The mesh of a rung over the surviving devices (a dead one never
-    enters it); too few survivors, or no card at all, raise."""
+    """The mesh of a rung is a torch DeviceMesh over ranks of the default
+    process group (the surviving ranks when given: a dead one never
+    enters it), which make_axes takes; too few survivors, or no group at
+    all, raise."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch import dryrun
     mgr = ElasticMeshManager(ladder=[(1, 2, 2), (1, 1, 2), (1, 1, 1)])
-    alive = ["cpu", "meta", "cpu"]
-    mesh = mgr.make_mesh((1, 1, 2), devices=alive)
-    assert mesh.shape == (1, 2) and mesh.axis_names == ("data", "model")
-    assert mesh.devices == (torch.device("cpu"), torch.device("meta"))
-    pods = mgr.make_mesh((2, 1, 1), devices=alive)
-    assert pods.shape == (2, 1, 1)
-    assert pods.axis_names == ("pod", "data", "model")
-    with pytest.raises(RuntimeError, match="needs 4 devices, only 3 alive"):
-        mgr.make_mesh((1, 2, 2), devices=alive)
     n = torch.cuda.device_count()
-    with pytest.raises(RuntimeError, match=f"only {n} alive"):
-        mgr.make_mesh((1, 1, n + 1))
+    with pytest.raises(RuntimeError, match=f"only 0 alive .*cards here: {n}"):
+        mgr.make_mesh((1, 1, 1))
+    dryrun.fake_group(4)
+    try:
+        alive = [0, 2, 3]
+        mesh = mgr.make_mesh((1, 1, 2), ranks=alive)
+        assert isinstance(mesh, DeviceMesh)
+        assert mesh.mesh.tolist() == [[0, 2]]
+        assert mesh.mesh_dim_names == ("data", "model")
+        axes = launch_mesh.make_axes(mesh)
+        assert axes.mesh is mesh and axes.dp == ("data",)
+        pods = mgr.make_mesh((2, 1, 2))
+        assert pods.mesh.shape == (2, 1, 2)
+        assert pods.mesh_dim_names == ("pod", "data", "model")
+        assert launch_mesh.make_axes(pods).dp == ("pod", "data")
+        with pytest.raises(RuntimeError,
+                           match="needs 4 devices, only 3 alive"):
+            mgr.make_mesh((1, 2, 2), ranks=alive)
+        with pytest.raises(RuntimeError, match="only 4 alive"):
+            mgr.make_mesh((1, 1, 5))
+    finally:
+        dist.destroy_process_group()
+        dryrun.clear_dtensor_caches()
     with pytest.raises(RuntimeError, match="need 256 devices"):
         launch_mesh.make_production_mesh()
     with pytest.raises(RuntimeError, match="need 512 devices"):

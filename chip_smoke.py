@@ -166,6 +166,14 @@ capability 9.0+ and the CUDA toolkit.  It:
      provision(plan, 3 s) beside the measured reseed wall and a forced,
      profiled reseed's card busy; fused_delta_footprint of the steady
      beat; the 2-shard reseed's collective schedule (3 all-gathers);
+     then the ``python -O`` leg (``o_leg_phase``): the process
+     ``python -O tests/run_torch_fold_differential.py`` on this card —
+     the stripped-assert guards raise with their planlint rule id, the
+     fold stream unsharded and on a 2-shard row mesh of this card
+     (graphed, hopper kernels) equals a cold engine of the final
+     template set, a stale-carry dispatch raises — its ok lines, wall
+     and kernel launches printed (each kernel's ``o_leg_launches`` in
+     the JSON line), clockscan, shared_groupby and fused_delta launched;
   5. replays recorded kernel inputs (the main paths' own shapes and data)
      through each kernel and its plain version, the plain version first
      (the recorded fused_delta calls also through planlint's kernel
@@ -190,6 +198,8 @@ capability 9.0+ and the CUDA toolkit.  It:
      mask at a window layer; timed here only), and its CUDA-core kernel
      once at yi-6b's call and once at recurrentgemma-2b's; the
      fused_delta footprint's worst-case bound beside the fused_delta row;
+     shared_groupby timed GROUPBY_RETIMES more times on its recorded
+     call, each time as a share of its bound;
      then the mesh phase (``mesh:`` and ``elastic:`` lines,
      ``mesh_phase``): yi-6b on a (2, 2) mesh of four simulated ranks,
      eager beside the unsharded server and graphed (``jit=True``, the
@@ -244,6 +254,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4021,7 +4032,76 @@ def flash_build_report(lib):
         fail(f"{sym} holds no HGMMA instruction")
 
 
+O_LEG = ROOT / "tests" / "run_torch_fold_differential.py"
+O_LEG_TIMEOUT_S = 300
+O_LEG_OK = ("stripped-guard probes ok", "fold differential ok [unsharded]",
+            "fold differential ok [2-shard mesh]", "FOLD_DIFFERENTIAL_OK")
+O_LEG_KERNELS = ("clockscan", "shared_groupby", "fused_delta")
+GROUPBY_RETIMES = 5
+
+
+def o_leg_phase(card):
+    """The port's ``python -O`` fold-differential leg on this card, in a
+    process of its own with assert statements stripped: the stripped-guard
+    probes, then the fold stream unsharded and on a 2-shard row mesh of
+    this card, graphed on the hopper kernels, each ticket held to a cold
+    engine of the final template set.  Fails unless it exits 0, prints
+    the probes' line and both ok lines, and launched clockscan,
+    shared_groupby and fused_delta."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, "-O", str(O_LEG)], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=O_LEG_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"python -O leg: no end within {O_LEG_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    if out.returncode != 0:
+        fail(f"python -O leg exited {out.returncode}: "
+             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    missing = [want for want in O_LEG_OK if want not in lines]
+    if missing:
+        fail(f"python -O leg: missing {missing}: {out.stdout[-2000:]}")
+    tag = "FOLD_DIFFERENTIAL_LAUNCHES "
+    counted = [ln[len(tag):] for ln in lines if ln.startswith(tag)]
+    if len(counted) != 1:
+        fail(f"python -O leg: {len(counted)} launch lines")
+    launches = json.loads(counted[0])
+    idle = [k for k in O_LEG_KERNELS if launches.get(k, 0) == 0]
+    if idle:
+        fail(f"python -O leg: kernels never launched: {idle}")
+    for want in O_LEG_OK[:3]:
+        print(f"python -O leg: {want}")
+    print(f"python -O leg: wall {wall:.3f} s [{card}]")
+    print("python -O leg: launches", json.dumps(launches))
+    return {"wall_s": wall, "launches": launches}
+
+
+def groupby_retime(call, row, card):
+    """shared_groupby (PERF.md §6 row 2) timed GROUPBY_RETIMES more times
+    on its recorded main-path call, beside the kernel row's own timing,
+    each as a share of the row's bound."""
+    from repro_torch.kernels import shared_groupby
+    codes, vals, mask, G = call
+    times = [row["ms"]] + [
+        device_ms(lambda: shared_groupby.shared_groupby(codes, vals, mask, G),
+                  KERNEL_SYMBOLS["shared_groupby"])[0]
+        for _ in range(GROUPBY_RETIMES)]
+    med = statistics.median(times)
+    shares = [100 * row["bound_ms"] / t for t in times]
+    print(f"shared_groupby re-timed: device ms {json.dumps(times)}; median "
+          f"{med:.6f} ms against the bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}): {100 * row['bound_ms'] / med:.1f} % of the "
+          f"bound at the median ({min(shares):.1f}-{max(shares):.1f} %) "
+          f"[{card}]")
+    row["retimed_ms"] = times
+
+
 def main():
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA GPU")
@@ -4113,6 +4193,7 @@ def main():
     log += sharded["log"]
     planlint_phase(kept, fold, smi[0])
     footprints = sla_phase(kept, log, smi[0], si, sc)
+    o_leg = o_leg_phase(smi[0])
     del kept
     gc.collect()
     torch.cuda.empty_cache()
@@ -4169,6 +4250,9 @@ def main():
     planlint_recorded(calls["fused_delta"], smi[0])
     rows = kernel_rows(calls, launches, attn)
     torch.cuda.synchronize()
+    groupby_retime(calls["groupby"][-1],
+                   next(r for r in rows if r["name"] == "shared_groupby"),
+                   smi[0])
     fd_row = next(r for r in rows if r["name"] == "fused_delta")
     fp = footprints["indexless"]
     print(f"roofline: fused_delta, the index-less steady beat: "
@@ -4203,6 +4287,9 @@ def main():
     for r in rows:      # no kernel runs on the training paths
         r["training_launches"] = {path: got.get(r["name"], 0)
                                   for path, got in TRAIN_LAUNCHES.items()}
+        r["o_leg_launches"] = o_leg["launches"].get(r["name"], 0)
+    print(f"python -O leg: phase {o_leg['wall_s']:.1f} s of the whole run's "
+          f"{time.perf_counter() - t_run:.1f} s [{smi[0]}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,14 +19,30 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.device import resolve_device
+
 WORD = 32
 
 
 def mask_width(qcap: int) -> int:
     if qcap % WORD != 0:
         raise ValueError(
-            f"query capacity {qcap} is not a multiple of {WORD}")
+            f"[planlint:no-bare-assert] query capacity {qcap} is not "
+            f"a multiple of {WORD}")
     return qcap // WORD
+
+
+def empty_mask(n_rows: int, qcap: int, device=None):
+    """int32 words [n_rows, W], no query set (``device=None``: the card)."""
+    return torch.zeros((n_rows, mask_width(qcap)), dtype=torch.int32,
+                       device=resolve_device(device))
+
+
+def full_mask(n_rows: int, qcap: int, device=None):
+    """int32 words [n_rows, W], every query set: the pattern 0xFFFFFFFF,
+    which is -1 in int32 (``device=None``: the card)."""
+    return torch.full((n_rows, mask_width(qcap)), -1, dtype=torch.int32,
+                      device=resolve_device(device))
 
 
 def wrap_i32(x):
@@ -83,3 +99,14 @@ def query_bit(qid, qcap: int, device=None):
     return torch.where(torch.arange(W, device=qid.device) == word, bit,
                        torch.zeros((), dtype=torch.int32,
                                    device=qid.device))
+
+
+def select_query(mask, qid):
+    """bool[T]: rows subscribed to query ``qid`` — a Python int, or a 0-d
+    tensor whose word is gathered on its device with no host read."""
+    if isinstance(qid, torch.Tensor):
+        qid = qid.to(device=mask.device, dtype=torch.int64)
+        w = torch.index_select(mask, -1, (qid // WORD).reshape(1))[..., 0]
+    else:
+        w = mask[..., qid // WORD]
+    return ((w.to(torch.int32) >> (qid % WORD)) & 1).bool()

@@ -78,8 +78,9 @@ def bulk_load(schema: TableSchema, data: Dict[str, np.ndarray],
     device = resolve_device(device)
     n = len(next(iter(data.values())))
     if n > schema.capacity:
-        raise ValueError(f"bulk_load of {schema.name}: {n} rows exceed "
-                         f"capacity {schema.capacity}")
+        raise ValueError(
+            f"[planlint:no-bare-assert] bulk_load of {schema.name}: "
+            f"{n} rows exceed capacity {schema.capacity}")
     t = empty_table(schema, device)
     for c in schema.columns:
         t[c][:n] = torch.as_tensor(np.asarray(data[c], np.int32),
@@ -247,7 +248,9 @@ def build_key_partitions(keys, valid, n_partitions: int, bucket_cap: int):
     T = keys.shape[0]
     cap = n_partitions * bucket_cap
     if cap < T:
-        raise ValueError(f"partition capacity {cap} < table capacity {T}")
+        raise ValueError(
+            f"[planlint:no-bare-assert] partition capacity {cap} < "
+            f"table capacity {T}")
     invalid = ~valid
     order = torch.argsort(keys, stable=True)
     order = order[torch.argsort(invalid[order].to(torch.int32),

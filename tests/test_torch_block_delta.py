@@ -25,6 +25,17 @@ from repro_torch.kernels import partitioned_join as tpj
 from repro_torch.kernels import ref as tref
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(a):
     """numpy -> torch (uint32 words become int32 bit patterns)."""
     a = np.array(a)

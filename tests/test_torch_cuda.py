@@ -33,6 +33,17 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import shared_groupby as tgb
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip: decided here, never at import."""

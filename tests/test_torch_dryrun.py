@@ -39,6 +39,17 @@ from test_torch_mesh import local_mesh
 
 
 @pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
 def _no_group_left():
     """No fake process group left behind for the next module (the
     launchers' tests expect none)."""

@@ -16,6 +16,7 @@ import torch
 from repro.core.executor import SharedDBEngine as RefEngine
 from repro.workloads import tpcw as ref_tpcw
 from repro_torch.core import backends as tb
+from repro_torch.core import dataquery
 from repro_torch.core.baseline import QueryAtATimeEngine
 from repro_torch.core.executor import SharedDBEngine
 from repro_torch.core.lowering import (build_cycle, build_delta_cycle,
@@ -26,6 +27,17 @@ from repro_torch.workloads import tpcw
 
 SCALE_I, SCALE_C = 64, 128
 INT_MAX = tpcw.INT_MAX
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _words(a):
@@ -343,6 +355,8 @@ ENTRY_POINTS = {
         w["plan"], tpcw.DEFAULT_UPDATE_SLOTS, w["data"], **d),
     "QueryAtATimeEngine": lambda w, **d: QueryAtATimeEngine(
         w["plan"], w["data"], **d),
+    "empty_mask": lambda w, **d: dataquery.empty_mask(4, 64, **d),
+    "full_mask": lambda w, **d: dataquery.full_mask(4, 64, **d),
 }
 
 

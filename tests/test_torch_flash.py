@@ -51,6 +51,17 @@ EDGE = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(shape, dtype, seed=0):
     B, Sq, Sk, H, KV, D = shape[:6]
     rng = np.random.default_rng(seed)

@@ -16,16 +16,26 @@ numpy inputs, at scale 64/128 on the index-less catalog.
     beat;
   * a second fold while one is in flight raises, and the
     ``delta_scans`` / ``delta_joins`` switches give the reference's
-    paths.
+    paths;
+  * under ``python -O`` (a subprocess) the carry/layout guard and a
+    stale-carry ``dispatch()`` raise, and the three guards converted
+    from bare asserts raise with their planlint rule id, whose messages
+    equal the reference's (``run_torch_fold_differential.py`` is the
+    whole leg).
 
 The reference runs with ``jit=False``, ``kernels="jnp"``, ``mesh=None``;
 its stream runs once per module and the port's streams are held to it.
 """
+import os
+import subprocess
+import sys
+import textwrap
 import time
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.analysis_static import ir_passes as rpasses
 from repro.analysis_static.diagnostics import format_findings
@@ -46,10 +56,22 @@ from repro_torch.core.lowering import check_extension_prefix, lower_plan
 from repro_torch.core.plan import Join, Pred, QueryTemplate, compile_plan
 from repro_torch.serving import QueryCycleServer
 from repro_torch.workloads import tpcw
+from run_torch_fold_differential import RULE, guard_messages
 
 SCALE_I, SCALE_C = 64, 128
 N_BASE = 10
 FOLD_BATCH = ("order_lines", "order_display", "get_cart")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at scale 64/128 gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def buy_request_address(pkg):
@@ -421,3 +443,81 @@ def test_delta_switches_give_the_reference_paths(switch):
     for k, v in ref.state["customer"].items():
         np.testing.assert_array_equal(port.state["customer"][k].numpy(),
                                       np.asarray(v), err_msg=k)
+
+
+# ------------------------------------------ the guards under python -O
+_O_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.path[:0] = ["src", "tests"]
+    assert False, "asserts must be stripped under -O"
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.core.executor import SharedDBEngine, check_carry_layout
+    from repro_torch.workloads import tpcw
+    from run_torch_fold_differential import RULE, guard_messages
+
+    try:
+        check_carry_layout(("stale",), ("fresh",))
+    except RuntimeError:
+        print("GUARD_FN_OK")
+
+    plan = tpcw.build_tpcw_plan(16, 32)
+    eng = SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS,
+                         tpcw.generate_data(np.random.default_rng(0),
+                                            16, 32),
+                         jit=False, kernels="torch", device="cpu")
+    eng.submit("get_book", {0: (5, 5)})
+    eng.run_until_drained()
+    eng.submit("get_book", {0: (5, 5)})      # delta-eligible beat
+    eng._carry_token = ("stale",)            # carry from another layout
+    try:
+        eng.dispatch()
+    except RuntimeError as e:
+        if "admission layout" in str(e):
+            print("GUARD_DISPATCH_OK")
+
+    for what, msg in guard_messages("cpu").items():
+        if msg is not None and RULE in msg:
+            print("RULE_ID_OK", what)
+""")
+
+
+def test_carry_layout_guard_survives_python_O():
+    """The port's guards hold with assertions disabled: the carry/layout
+    check and a stale-carry ``dispatch()`` raise, and the three guards
+    converted from bare asserts raise with their planlint rule id."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-O", "-c", _O_SCRIPT],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=repo)
+    why = (out.stdout, out.stderr[-2000:])
+    assert out.returncode == 0, why
+    assert "GUARD_FN_OK" in out.stdout, why
+    assert "GUARD_DISPATCH_OK" in out.stdout, why
+    ok = {line.split()[1] for line in out.stdout.splitlines()
+          if line.startswith("RULE_ID_OK ")}
+    assert ok == {"bulk_load", "mask_width", "build_key_partitions"}, why
+
+
+def test_stripped_assert_guards_give_the_reference_messages():
+    """Without -O: the three guards raise the reference's messages, rule
+    id included, on the same inputs."""
+    from repro.core.dataquery import mask_width as ref_mask_width
+    from repro.core.storage import bulk_load as ref_bulk_load
+    from repro.core.storage import build_key_partitions as ref_partitions
+    got = guard_messages("cpu")
+    schema = ref_tpcw.make_catalog(SCALE_I, SCALE_C).schemas["country"]
+    keys = jnp.zeros(9, jnp.int32)
+    probes = {"bulk_load": lambda: ref_bulk_load(
+                  schema, {c: np.zeros(schema.capacity + 1, np.int32)
+                           for c in schema.columns}),
+              "mask_width": lambda: ref_mask_width(33),
+              "build_key_partitions": lambda: ref_partitions(
+                  keys, keys == 0, 2, 4)}
+    assert sorted(got) == sorted(probes)
+    for what, probe in probes.items():
+        with pytest.raises(ValueError) as want:
+            probe()
+        assert got[what] == str(want.value), what
+        assert got[what].startswith(RULE), what

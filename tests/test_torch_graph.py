@@ -33,7 +33,6 @@ import torch
 
 from repro import configs as ref_configs
 from repro.core.executor import SharedDBEngine as RefEngine
-from repro.models import transformer as ref_tf
 from repro.serving import CycleServer as RefCycleServer
 from repro.workloads import tpcw as ref_tpcw
 from repro_torch import configs
@@ -41,12 +40,24 @@ from repro_torch.core import backends as tb
 from repro_torch.core import graphs as cg
 from repro_torch.core.executor import SharedDBEngine
 from repro_torch.core.plan import Join, Pred, QueryTemplate
+from repro_torch.models import transformer
 from repro_torch.models.registry import params_from_numpy
 from repro_torch.serving import CycleServer
 from repro_torch.workloads import tpcw
 
 SCALE_I, SCALE_C = 128, 256
 CHAINED = "torch-chained-graph-test"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _data():
@@ -261,9 +272,11 @@ def test_cycle_server_buffers_keep_their_addresses_and_tokens():
     the decode step's input and logits buffers keep their addresses
     every beat, and the tokens equal the reference's."""
     cfg, ref = _smoke("yi-6b")
-    rp, _ = ref_tf.init_lm(jax.random.PRNGKey(0), ref, dtype=jnp.float32)
-    tp = params_from_numpy(jax.tree.map(np.asarray, rp), cfg,
-                           torch.device("cpu"))
+    tree = jax.tree.map(lambda t: t.numpy(), transformer.init_lm(
+        torch.Generator().manual_seed(0), cfg, torch.device("cpu"),
+        torch.float32))
+    rp = jax.tree.map(jnp.asarray, tree)
+    tp = params_from_numpy(tree, cfg, torch.device("cpu"))
     kw = dict(capacity=2, max_seq=12, prefill_len=4, prefill_budget=2)
     want = RefCycleServer(ref, params=rp, **kw)
     got = CycleServer(cfg, params=tp, device="cpu", **kw)

@@ -33,6 +33,17 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import shared_groupby as tgb
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(a):
     """numpy -> torch (uint32 words become int32 bit patterns)."""
     a = np.array(a)
@@ -66,6 +77,42 @@ def test_dataquery_pack_unpack_popcount_query_bit():
     a, b = T(words[:3]), T(words[3:6])
     np.testing.assert_array_equal(U(tdq.union(a, b)), U(a) | U(b))
     np.testing.assert_array_equal(U(tdq.intersect(a, b)), U(a) & U(b))
+
+
+@pytest.mark.parametrize("qcap", [32, 64, 256])
+def test_dataquery_empty_and_full_mask_match_reference(qcap):
+    for n_rows in (0, 5):
+        for mine, theirs in ((tdq.empty_mask, rdq.empty_mask),
+                             (tdq.full_mask, rdq.full_mask)):
+            got = mine(n_rows, qcap, device="cpu")
+            assert got.dtype == torch.int32 and got.device.type == "cpu"
+            np.testing.assert_array_equal(
+                U(got), np.asarray(theirs(n_rows, qcap)))
+
+
+SELECT_CASES = [(qcap, qid) for qcap in (32, 64, 256)
+                for qid in sorted({0, 31, 32, qcap - 1}) if qid < qcap]
+
+
+@pytest.mark.parametrize("qid_kind", ["int", "tensor"])
+@pytest.mark.parametrize("qcap,qid", SELECT_CASES)
+def test_dataquery_select_query_matches_reference(qcap, qid, qid_kind):
+    """Rows subscribed to one query, for an int id and for a 0-d tensor
+    id (the reference's traced-id ``jnp.take`` path), equal the
+    reference's and the unpacked bits."""
+    words = _words(np.random.default_rng(qcap + qid), (37, qcap // 32))
+    words[3] = 0xFFFFFFFF
+    words[4] = 0
+    if qid_kind == "int":
+        got = tdq.select_query(T(words), qid)
+        want = rdq.select_query(jnp.asarray(words), qid)
+    else:
+        got = tdq.select_query(T(words), torch.tensor(qid))
+        want = rdq.select_query(jnp.asarray(words), jnp.int32(qid))
+    assert got.dtype == torch.bool and got.shape == (37,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(rdq.unpack(jnp.asarray(words)))[:, qid])
 
 
 # ------------------------------------------- operators left to XLA / torch
@@ -314,13 +361,31 @@ FUSED_CASES = {
 FUSED_PALLAS = ("mixed", "empty_dirty_zero_span", "join_only", "block")
 
 
+@pytest.fixture(scope="module")
+def fused_reference():
+    """Per FUSED_CASES case, computed once for the module and shared by
+    the plain and the walk tests: the JAX package's jnp reference and
+    (FUSED_PALLAS cases) its Pallas kernel in interpret mode, each as
+    numpy (words, rids)."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            rs, rj = _both(*FUSED_CASES[case])[:2]
+            want = [rref.fused_delta_ref(rs, rj)]
+            if case in FUSED_PALLAS:
+                want.append(rfd.fused_delta_pallas(rs, rj, interpret=True))
+            cache[case] = [tuple(tuple(np.asarray(x) for x in part)
+                                 for part in w) for w in want]
+        return cache[case]
+    return get
+
+
 @pytest.mark.parametrize("case", sorted(FUSED_CASES))
-def test_fused_delta_plain_matches_pallas_and_jnp(case):
+def test_fused_delta_plain_matches_pallas_and_jnp(case, fused_reference):
     scans, joins = FUSED_CASES[case]
-    rs, rj, ts, tj = _both(scans, joins)
-    want = [rref.fused_delta_ref(rs, rj)]
-    if case in FUSED_PALLAS:
-        want.append(rfd.fused_delta_pallas(rs, rj, interpret=True))
+    ts, tj = _both(scans, joins)[2:]
+    want = fused_reference(case)
     for fn in (tref.fused_delta_ref, tfd.fused_delta):
         wt, rt = fn(ts, tj)
         for wr, rr in want:
@@ -570,14 +635,11 @@ def _fused_walk(ts, tj, sms):
 
 
 @pytest.mark.parametrize("case", sorted(FUSED_CASES))
-def test_fused_walk_matches_pallas_and_jnp(case):
+def test_fused_walk_matches_pallas_and_jnp(case, fused_reference):
     """The fused kernel's walk (PANE blocks, DIRTY / PROBE / COPY warps)
     at 4 blocks and at the full card's grid equals the reference."""
-    scans, joins = FUSED_CASES[case]
-    rs, rj, ts, tj = _both(scans, joins)
-    want = [rref.fused_delta_ref(rs, rj)]
-    if case in FUSED_PALLAS:
-        want.append(rfd.fused_delta_pallas(rs, rj, interpret=True))
+    ts, tj = _both(*FUSED_CASES[case])[2:]
+    want = fused_reference(case)
     for sms in (1, 132):
         wt, rt = _fused_walk(ts, tj, sms)
         for wr, rr in want:

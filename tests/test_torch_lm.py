@@ -3,7 +3,9 @@ prefill / decode_step and CycleServer against the JAX package's, on the
 CPU at smoke size with float32 parameters.
 
 Inputs are made with numpy from fixed seeds and handed to both packages;
-the JAX parameters cross over through ``params_from_numpy``.  Tolerances:
+the parameters are one numpy tree of the port's seeded init, handed to
+the reference as arrays and to the port through ``params_from_numpy``.
+Tolerances:
 norms, activations and RoPE at rtol/atol 1e-6 (float32 elementwise);
 prefill and decode logits and caches at atol 1e-4 (float32 matmuls summed
 in another order) for yi and stablelm.  gemma3's 7 layers amplify that
@@ -11,7 +13,8 @@ roundoff about 5x a layer through the random weights' sharp softmax (the
 reference itself lies 3.7e-5 from a float64 run of the port at the
 prefill logits, and 1.2e-4 of the scale at the last layer's cache), so
 its logits and caches are held to 1e-3 of each tensor's largest
-magnitude (measured: 3.7e-4 after three decode steps).  Served token
+magnitude (measured on the reference's own init: 3.7e-4 after three
+decode steps).  Served token
 streams equal token for token, the logits of every step within 1e-4, and
 the reference's top-1 / top-2 logit margin above twice the step's largest
 logit difference, so equal tokens are forced at every step.
@@ -39,6 +42,17 @@ LOGIT_TOL = 1e-4
 GEMMA_REL_TOL = 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -60,16 +74,17 @@ def _smoke(arch):
 
 @pytest.fixture(scope="module")
 def f32_params():
-    """Per arch: (port cfg, ref cfg, ref float32 params, port params)."""
+    """Per arch: (port cfg, ref cfg, ref float32 params, port params),
+    one numpy tree from the port's seeded init handed to both."""
     cache = {}
 
     def get(arch):
         if arch not in cache:
             cfg, ref = _smoke(arch)
-            rp, _ = ref_tf.init_lm(jax.random.PRNGKey(0), ref,
-                                   dtype=jnp.float32)
-            cache[arch] = (cfg, ref, rp,
-                           params_from_numpy(_np_tree(rp), cfg, CPU))
+            tree = _torch_np(transformer.init_lm(
+                torch.Generator().manual_seed(0), cfg, CPU, torch.float32))
+            cache[arch] = (cfg, ref, jax.tree.map(jnp.asarray, tree),
+                           params_from_numpy(tree, cfg, CPU))
         return cache[arch]
     return get
 

@@ -170,16 +170,17 @@ def _smoke(arch):
 
 @pytest.fixture(scope="module")
 def f32_params():
-    """Per arch: (port cfg, ref cfg, ref float32 params, port params)."""
+    """Per arch: (port cfg, ref cfg, ref float32 params, port params),
+    one numpy tree from the port's seeded init handed to both."""
     cache = {}
 
     def get(arch):
         if arch not in cache:
             cfg, ref = _smoke(arch)
-            rp, _ = ref_tf.init_lm(jax.random.PRNGKey(0), ref,
-                                   dtype=jnp.float32)
-            cache[arch] = (cfg, ref, rp, params_from_numpy(
-                jax.tree.map(np.asarray, rp), cfg, CPU))
+            tree = jax.tree.map(lambda t: t.numpy(), transformer.init_lm(
+                torch.Generator().manual_seed(0), cfg, CPU, torch.float32))
+            cache[arch] = (cfg, ref, jax.tree.map(jnp.asarray, tree),
+                           params_from_numpy(tree, cfg, CPU))
         return cache[arch]
     return get
 
@@ -192,8 +193,10 @@ def test_moe_programs_and_init_match_the_reference(f32_params):
         assert [dataclasses.asdict(s) for s in a.group + a.leftover] == \
             [dataclasses.asdict(s) for s in b.group + b.leftover]
         assert all(s.moe for s in a.group)
-        cfg, _, rp, tp = f32_params(arch)
+        cfg, ref, _, tp = f32_params(arch)
         # init_lm's MoE tree: the reference's keys and shapes
+        rp = jax.eval_shape(lambda k: ref_tf.init_lm(
+            k, ref, dtype=jnp.float32)[0], jax.random.PRNGKey(0))
         mine = transformer.init_lm(torch.Generator().manual_seed(0), cfg,
                                    CPU, torch.float32)
         mine_np = jax.tree.map(lambda t: t.numpy(), mine)

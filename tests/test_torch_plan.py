@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.executor import _measure_key_stats as ref_key_stats
 from repro.core.lowering import lower_plan as ref_lower_plan
@@ -17,6 +18,17 @@ from repro_torch.core.lowering import lower_plan
 from repro_torch.workloads import tpcw
 
 SCALE_I, SCALE_C = 128, 256
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _assert_same(a, b, path):

@@ -29,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.analysis_static import ir_passes as rpasses
 from repro.analysis_static import registry as rregistry
@@ -57,6 +58,17 @@ from torch_lint_corpus import CORPUS
 SCALE_I, SCALE_C = 64, 128
 FOLD_CAP = 16
 PLANS = ("dense", "indexless", "folded")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def buy_request_address(pkg):

@@ -18,6 +18,17 @@ SLOTS = (8, 8, 6)                          # insert, update, delete slots
 COLS = ("k", "a", "b")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Ops at these sizes gain nothing from intra-op threads; one thread
+    keeps this module from oversubscribing the cores that parallel test
+    workers share (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _schemas(indexed):
     kw = dict(name="t", columns=COLS, capacity=CAP, pk="k",
               key_space=KEY_SPACE if indexed else 0, dirty_cap=DIRTY)

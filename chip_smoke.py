@@ -199,7 +199,15 @@ capability 9.0+ and the CUDA toolkit.  It:
      once at yi-6b's call and once at recurrentgemma-2b's; the
      fused_delta footprint's worst-case bound beside the fused_delta row;
      shared_groupby timed GROUPBY_RETIMES more times on its recorded
-     call, each time as a share of its bound;
+     call, each time as a share of its bound, beside the previous
+     design's median (PREVIOUS_DESIGN_MS), and its parts (the launch
+     with no rows, and with no rows and one group, beside a
+     ``torch.zeros`` of the packed buffer and of one group's); the
+     window of every timing of it must hold at most
+     shared_groupby.DEVICE_OPS device ops per launch of its kernel (its
+     design, printed with the build: one cooperative launch that zeroes
+     and accumulates), and its kernel's float adds must be RED in the
+     SASS;
      then the mesh phase (``mesh:`` and ``elastic:`` lines,
      ``mesh_phase``): yi-6b on a (2, 2) mesh of four simulated ranks,
      eager beside the unsharded server and graphed (``jit=True``, the
@@ -251,6 +259,7 @@ device it exits non-zero before printing any result.  The data is made
 from ``SEED`` with numpy.
 """
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -342,10 +351,12 @@ CLOCKSCAN_MAIN = ((2, 43200, 96), (3, 12048, 352), (1, 3524, 224),
 # scanning its whole bucket; delta_scan one launch per stage, 7 a chained
 # beat; bitmask_join a block of 256 left rows, a word a thread; delta_join
 # one launch per join, 4 a chained beat, a warp per slot scanning its
-# bucket; printed beside this run's
+# bucket; shared_groupby two torch.zeros fills then the set-bit kernel
+# (the median of twelve timings); printed beside this run's
 PREVIOUS_DESIGN_MS = {"clockscan": 0.090982, "fused_delta": 0.090253,
                       "partitioned_join": 0.101247, "delta_scan": 0.010399,
-                      "bitmask_join": 0.010078, "delta_join": 0.009237}
+                      "bitmask_join": 0.010078, "delta_join": 0.009237,
+                      "shared_groupby": 0.005649}
 CHAINED_STEADY = {"scan": 7, "scan_delta": 1, "join_delta": 1, "groupby": 1}
 # (T, C, Q, D) of a chained steady beat's seven predicated stages at full
 # scale: customer, item, author, order_line, orders, shopping_cart_line,
@@ -418,7 +429,13 @@ def device_ms(fn, kernel, setup=None, reps=20, launches=1):
     (0 for a function that launches none).  ``setup`` runs before each
     call, outside the range.  The third value is the events of
     ``kernel`` that the trace holds per call, the fourth the device ops
-    (kernels, copies, fills) that one whole call enqueues.  A trace that
+    (kernels, copies, fills) that one whole call enqueues, the fifth
+    every device op of the window, linked to a range or not (so also
+    what a library launched through ctypes enqueues besides its kernel),
+    per event of ``kernel`` that the trace kept, times ``launches``: the
+    device ops a call, counted against the kernel's events because the
+    trace loses some of every kind (per call where ``fn`` launches no
+    kernel).  A trace that
     holds no device event, or none of ``kernel`` where ``fn`` launches
     it, is taken again, up to PROFILE_ATTEMPTS windows: now and then a
     trace comes back without them."""
@@ -464,8 +481,12 @@ def device_ms(fn, kernel, setup=None, reps=20, launches=1):
            and kernel in e.name]
     own_us = sum(own) / len(own) * launches if own else 0.0
     other_us = sum(map(sum, whole)) / len(whole)
+    window = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.name != "chip_smoke.call" for e in events)
     return ((other_us + own_us) / 1e3, own_us / 1e3, len(own) / reps,
-            len(whole[0]) + launches)
+            len(whole[0]) + launches,
+            window / len(own) * launches if own and launches
+            else window / reps)
 
 
 def cold_l2_ms(fn, name, flush):
@@ -552,8 +573,11 @@ def edge_cases(dev):
         valid = t(rng.random(T) > 0.15, torch.bool)
         same(clockscan.clockscan(cols, lo, hi, valid),
              ref.clockscan_ref(cols, lo, hi, valid), f"clockscan {C}x{T}x{Q}")
-    # shared_groupby: out-of-range codes contribute nothing
-    for T, W, G in ((512, 1, 50), (700, 2, 100)):
+    # shared_groupby: out-of-range codes contribute nothing; no rows (the
+    # kernel still zeroes the outputs), one group, a grid whose last
+    # stripe is ragged
+    for T, W, G in ((512, 1, 50), (700, 2, 100), (0, 2, 30), (300, 1, 1),
+                    (5000, 3, 4097)):
         codes = t(rng.integers(-2, G + 2, T))
         vals = t(rng.integers(1, 10, T))
         mask = words((T, W))
@@ -2738,8 +2762,8 @@ def kernel_rows(calls, launches, attn):
         check(got, want)
         err = max_abs_err(got, want)
         b, by = bound_ms(*work)
-        ms, kernel_ms, per_call, ops = device_ms(kern, KERNEL_SYMBOLS[name],
-                                                 setup, launches=calls)
+        ms, kernel_ms, per_call, ops, window_ops = device_ms(
+            kern, KERNEL_SYMBOLS[name], setup, launches=calls)
         plain_ms = device_ms(plain, KERNEL_SYMBOLS[name], setup,
                              launches=0)[0]
         library_ms = None if library is None else \
@@ -2751,7 +2775,7 @@ def kernel_rows(calls, launches, attn):
                 "bound_ms": b, "bound_by": by, "library_ms": library_ms,
                 "calls_per_timing": calls, "per_launch_ms": ms / calls,
                 "kernel_ms": kernel_ms, "kernel_launches": per_call,
-                "device_ops": ops,
+                "device_ops": ops, "window_ops": window_ops,
                 "wall_ms": wall_ms(kern, setup),
                 "plain_wall_ms": wall_ms(plain, setup)}
 
@@ -2796,6 +2820,11 @@ def kernel_rows(calls, launches, attn):
     row("shared_groupby", lambda: shared_groupby.shared_groupby(codes, vals, mask, G),
         lambda: ref.shared_groupby_ref(codes, vals, mask, G), gb_check,
         (nbytes(codes, vals, mask) + 2 * G * Q * 4, 2 * set_bits))
+    if rows[-1]["window_ops"] > shared_groupby.DEVICE_OPS:
+        fail(f"shared_groupby enqueues {rows[-1]['window_ops']} device ops "
+             f"a call, over its {shared_groupby.DESIGN} design's "
+             f"{shared_groupby.DEVICE_OPS}")
+    rows[-1]["design"] = shared_groupby.DESIGN
     rows[-1]["cold_l2_kernel_ms"] = cold_l2_ms(
         lambda: shared_groupby.shared_groupby(codes, vals, mask, G),
         "shared_groupby", flush)
@@ -3992,13 +4021,67 @@ def ptxas_report(lib, names):
                 print(f"ptxas, {sym}{inst}: {props}")
 
 
+@functools.lru_cache(maxsize=None)
+def library_sass(lib):
+    """{function: its SASS lines} of the kernel library, from the
+    toolkit's cuobjdump (None where the toolkit has none)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+            out[fn] = []
+        elif fn is not None:
+            out[fn].append(line)
+    return out
+
+
+def groupby_build_report(lib, dev):
+    """shared_groupby as built: its design and device ops a call, the
+    co-resident blocks a streaming multiprocessor (at least two launches'
+    grids) and the grid at the TPC-W main path's shape, and the float adds
+    of its kernel in the SASS, which must all be RED (the result unused),
+    none ATOM."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import shared_groupby
+    per_sm = shared_groupby.blocks_per_sm()
+    if per_sm < 2 * shared_groupby.GRID_BLOCKS_PER_SM:
+        fail(f"shared_groupby: {per_sm} blocks co-resident a SM, under two "
+             f"launches' {shared_groupby.GRID_BLOCKS_PER_SM} each")
+    blocks, stripe = shared_groupby.launch_geometry(
+        *GROUPBY_MAIN, K.sm_count(dev), per_sm)
+    print(f"shared_groupby: {shared_groupby.DESIGN} design, "
+          f"{shared_groupby.DEVICE_OPS} device op(s) a call; {per_sm} "
+          f"blocks of {shared_groupby.THREADS} co-resident a SM; at (T, W, "
+          f"G) = {GROUPBY_MAIN}: {blocks} blocks, stripes of {stripe} "
+          f"16-byte units")
+    sass = library_sass(lib)
+    if sass is None:
+        print("cuobjdump not in the toolkit: no SASS check of "
+              "shared_groupby's adds")
+        return
+    lines = [x for fn, body in sass.items()
+             if KERNEL_SYMBOLS["shared_groupby"] in fn for x in body]
+    red = [x for x in lines if "RED" in x and ".F32" in x]
+    atom = [x for x in lines if "ATOM" in x and ".F32" in x]
+    ops = sorted({op for x in red + atom for op in x.split()
+                  if "RED" in op or "ATOM" in op})
+    print(f"SASS, {KERNEL_SYMBOLS['shared_groupby']}: {len(red)} float RED,"
+          f" {len(atom)} float ATOM: {ops}")
+    if not red or atom:
+        fail("shared_groupby: its float adds are not all RED in the SASS")
+
+
 def flash_build_report(lib):
     """The tensor-core flash-attention kernel as built: ptxas's registers
     and spills and its dynamic shared memory per head dim, and the HGMMA
     (wgmma) instructions of each kernel in the library's SASS, where the
     toolkit has cuobjdump.  Fails if the kernel holds no HGMMA."""
-    import os
-    from torch.utils.cpp_extension import CUDA_HOME
     from repro_torch import kernels as K
     sym = KERNEL_SYMBOLS["flash_attention"]
     log = (lib.parent / "ptxas.log").read_text().splitlines()
@@ -4013,18 +4096,13 @@ def flash_build_report(lib):
             smem = K.library().shareddb_flash_attention_wgmma_smem(D)
             print(f"ptxas, {sym}<{D}>: {props}; {smem} B of dynamic shared "
                   f"memory")
-    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
-    if not os.path.exists(tool):
+    sass = library_sass(lib)
+    if sass is None:
         print("cuobjdump not in the toolkit: no SASS count (ptxas above)")
         return
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[-1].strip()
-        elif "HGMMA" in line and fn is not None:
-            counts[fn] = counts.get(fn, 0) + 1
+    counts = {fn: sum("HGMMA" in x for x in lines)
+              for fn, lines in sass.items()}
+    counts = {fn: n for fn, n in counts.items() if n}
     ours = {f"D {head_dim(f)}": n for f, n in counts.items() if sym in f}
     print(f"SASS: HGMMA instructions in {sym}: {json.dumps(ours)}; in the "
           f"whole library: {sum(counts.values())}")
@@ -4038,6 +4116,9 @@ O_LEG_OK = ("stripped-guard probes ok", "fold differential ok [unsharded]",
             "fold differential ok [2-shard mesh]", "FOLD_DIFFERENTIAL_OK")
 O_LEG_KERNELS = ("clockscan", "shared_groupby", "fused_delta")
 GROUPBY_RETIMES = 5
+# (T, W, G) of the steady beat's shared_groupby call at full scale: the
+# union cap's rows, three words of queries, the items' groups
+GROUPBY_MAIN = (16384, 3, 12048)
 
 
 def o_leg_phase(card):
@@ -4083,21 +4164,52 @@ def o_leg_phase(card):
 def groupby_retime(call, row, card):
     """shared_groupby (PERF.md §6 row 2) timed GROUPBY_RETIMES more times
     on its recorded main-path call, beside the kernel row's own timing,
-    each as a share of the row's bound."""
+    each as a share of the row's bound, and the previous design's median
+    beside them; then its parts: the launch with no rows (the zeroing and
+    the barrier) and with no rows and one group (the launch and the
+    barrier), beside one ``torch.zeros`` of the packed buffer and of one
+    group's.  Fails if a timing's window holds more device ops a call
+    than the design's."""
+    import torch
     from repro_torch.kernels import shared_groupby
     codes, vals, mask, G = call
-    times = [row["ms"]] + [
+    timed = [(row["ms"], row["kernel_launches"], row["window_ops"])] + [
         device_ms(lambda: shared_groupby.shared_groupby(codes, vals, mask, G),
-                  KERNEL_SYMBOLS["shared_groupby"])[0]
+                  KERNEL_SYMBOLS["shared_groupby"])[::2]
         for _ in range(GROUPBY_RETIMES)]
+    times, kept, ops = ([t[i] for t in timed] for i in range(3))
+    if max(ops) > shared_groupby.DEVICE_OPS:
+        fail(f"shared_groupby: device ops a call {ops} in its timings, over "
+             f"the {shared_groupby.DESIGN} design's "
+             f"{shared_groupby.DEVICE_OPS}")
     med = statistics.median(times)
     shares = [100 * row["bound_ms"] / t for t in times]
-    print(f"shared_groupby re-timed: device ms {json.dumps(times)}; median "
-          f"{med:.6f} ms against the bound {row['bound_ms']:.6f} ms "
-          f"({row['bound_by']}): {100 * row['bound_ms'] / med:.1f} % of the "
-          f"bound at the median ({min(shares):.1f}-{max(shares):.1f} %) "
+    before = PREVIOUS_DESIGN_MS["shared_groupby"]
+    print(f"shared_groupby re-timed: device ms {json.dumps(times)}, device "
+          f"ops a call {json.dumps(ops)} (kernel events the trace kept a "
+          f"call {json.dumps(kept)}); median {med:.6f} ms against the "
+          f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}): "
+          f"{100 * row['bound_ms'] / med:.1f} % of the bound at the median "
+          f"({min(shares):.1f}-{max(shares):.1f} %); the previous design's "
+          f"median {before:.6f} ms, {100 * row['bound_ms'] / before:.1f} % "
           f"[{card}]")
+    none = (codes[:0], vals[:0], mask[:0])
+    Q = mask.shape[1] * 32
+    parts = {
+        "no rows": (lambda: shared_groupby.shared_groupby(*none, G), 1),
+        "no rows, one group":
+            (lambda: shared_groupby.shared_groupby(*none, 1), 1),
+        "torch.zeros [2, G, Q]":
+            (lambda: torch.zeros((2, G, Q), device=mask.device), 0),
+        "torch.zeros [2, 1, Q]":
+            (lambda: torch.zeros((2, 1, Q), device=mask.device), 0)}
+    row["parts_ms"] = {
+        what: device_ms(fn, KERNEL_SYMBOLS["shared_groupby"],
+                        launches=n)[0] for what, (fn, n) in parts.items()}
+    print(f"shared_groupby parts, device ms: {json.dumps(row['parts_ms'])}"
+          f" [{card}]")
     row["retimed_ms"] = times
+    row["retimed_device_ops"] = ops
 
 
 def main():
@@ -4145,6 +4257,7 @@ def main():
     ptxas_report(lib, ("partitioned_join", "delta_scan", "bitmask_join",
                        "delta_join"))
     flash_build_report(lib)
+    groupby_build_report(lib, dev)
 
     t0 = time.perf_counter()
     edge_cases(dev)

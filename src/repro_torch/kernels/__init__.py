@@ -209,8 +209,11 @@ def library() -> ctypes.CDLL:
             lib.shareddb_clockscan.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                i, p]
             lib.shareddb_clockscan.restype = i
-            lib.shareddb_groupby.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.shareddb_groupby.argtypes = [p, p, p, p, i, i, i, i,
+                                             ctypes.c_int64, p]
             lib.shareddb_groupby.restype = i
+            lib.shareddb_groupby_blocks_per_sm.argtypes = [p]
+            lib.shareddb_groupby_blocks_per_sm.restype = i
             lib.shareddb_partitioned_join.argtypes = [
                 p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.shareddb_partitioned_join.restype = i

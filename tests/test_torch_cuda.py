@@ -203,6 +203,124 @@ def test_shared_groupby_matches_plain(cuda_device, T, W, G):
     assert torch.allclose(s1, s2, rtol=1e-6)
 
 
+def _gb_inputs(rng, dev, T, W, G, codes=None, full=False):
+    """(codes, values, mask, G): codes drawn from [-2, G + 2) unless
+    given, values 1..9 (TPC-W's ol_qty), random words or (``full``) every
+    bit set."""
+    if codes is None:
+        codes = rng.integers(-2, G + 2, T)
+    mask = (_t(np.full((T, W), -1), dev) if full
+            else _words(rng, (T, W), dev))
+    return _t(codes, dev), _t(rng.integers(1, 10, T), dev), mask, G
+
+
+def _gb_equal(got, want):
+    """Counts bit for bit, sums within rtol 1e-6 (atomic order)."""
+    assert torch.equal(got[0], want[0])
+    assert torch.allclose(got[1], want[1], rtol=1e-6)
+
+
+# (T, W, G, case): no rows (the kernel still zeroes the outputs); one
+# group; every code out of range; every bit of every word set; all rows
+# in one group (every add of a word on the same 32 lines); a grid whose
+# last stripe is ragged; a buffer smaller than the grid (late blocks get
+# no stripe); the steady beat's shape at full scale
+GB_EDGE = [(0, 2, 50, "random"), (900, 2, 1, "random"),
+           (900, 2, 60, "out_of_range"), (700, 3, 40, "all_bits"),
+           (5000, 2, 300, "one_group"), (5000, 3, 4097, "random"),
+           (40000, 1, 3, "random"), (16384, 3, 12048, "random")]
+
+
+def _gb_case(rng, dev, T, W, G, case):
+    codes = {"out_of_range": lambda: np.where(rng.random(T) < 0.5, -1 - (
+                 rng.integers(0, 5, T)), G + rng.integers(0, 5, T)),
+             "one_group": lambda: np.full(T, G // 2)}.get(case, lambda: None)
+    return _gb_inputs(rng, dev, T, W, G, codes(), full=case == "all_bits")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,W,G,case", GB_EDGE)
+def test_shared_groupby_zeroes_a_poisoned_output(cuda_device, T, W, G, case):
+    """The C launcher on a packed [2, G, Q] buffer first filled with NaN:
+    a 16-byte unit that the first phase misses stays NaN."""
+    rng = np.random.default_rng(T + W + G)
+    codes, vals, mask, G = _gb_case(rng, cuda_device, T, W, G, case)
+    out = torch.full((2, G, W * 32), float("nan"), device=cuda_device)
+    blocks, stripe = tgb.launch_geometry(T, W, G, K.sm_count(cuda_device),
+                                         tgb.blocks_per_sm())
+    K.check_launch(K.library().shareddb_groupby(
+        codes.data_ptr(), vals.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        T, W, G, blocks, stripe, K.stream_of(mask)), "shared_groupby")
+    torch.cuda.synchronize()
+    assert not out.isnan().any()
+    _gb_equal((out[0], out[1]),
+              tref.shared_groupby_ref(codes, vals, mask, G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,W,G,case", GB_EDGE)
+def test_shared_groupby_edge_shapes(cuda_device, T, W, G, case):
+    """The wrapper: one launch a call, both outputs views of one packed
+    buffer, equal to the plain version."""
+    rng = np.random.default_rng(T * W + G)
+    args = _gb_case(rng, cuda_device, T, W, G, case)
+    K.reset_launches()
+    count, ssum = tgb.shared_groupby(*args)
+    assert K.LAUNCHES["shared_groupby"] == 1
+    assert count.is_contiguous() and ssum.is_contiguous()
+    assert ssum.data_ptr() == count.data_ptr() + count.numel() * 4
+    _gb_equal((count, ssum), tref.shared_groupby_ref(*args))
+    if case == "out_of_range":
+        assert not count.any() and not ssum.any()
+
+
+@pytest.mark.cuda
+def test_shared_groupby_replays_in_a_cuda_graph(cuda_device):
+    """One call captured in a CUDA graph, replayed on two inputs copied
+    into its static buffers: each replay zeroes and accumulates anew."""
+    rng = np.random.default_rng(27)
+    dev = cuda_device
+    T, W, G = 16384, 3, 12048
+    static = [t.clone() for t in _gb_inputs(rng, dev, T, W, G)[:3]]
+    tgb.shared_groupby(*static, G)          # build, load and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tgb.shared_groupby(*static, G)
+    for _ in range(2):
+        new = _gb_inputs(rng, dev, T, W, G)[:3]
+        for s, n in zip(static, new):
+            s.copy_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        _gb_equal(out, tref.shared_groupby_ref(*new, G))
+
+
+@pytest.mark.cuda
+def test_shared_groupby_two_streams_at_once(cuda_device):
+    """Two launches in flight on two streams (a beat beside a fold's
+    warm-up): each barrier is its own launch's, each result its plain
+    version's."""
+    rng = np.random.default_rng(28)
+    dev = cuda_device
+    worlds = [_gb_inputs(rng, dev, 16384, 3, 12048),
+              _gb_inputs(rng, dev, 43200, 2, 4097)]
+    tgb.shared_groupby(*worlds[0])
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in worlds]
+    gate = torch.cuda.Event()
+    torch.cuda.current_stream(dev).record_event(gate)
+    outs = []
+    for _ in range(8):
+        for stream, world in zip(streams, worlds):
+            stream.wait_event(gate)
+            with torch.cuda.stream(stream):
+                outs.append((world, tgb.shared_groupby(*world)))
+    torch.cuda.synchronize()
+    for world, got in outs:
+        _gb_equal(got, tref.shared_groupby_ref(*world))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Tr,Tl,W,frac,B,extra", [
     (160, 120, 2, 0.8, 48, 0), (130, 300, 1, 0.2, 7, 3),

@@ -187,11 +187,15 @@ def test_clockscan_plain_matches_pallas_and_jnp(C, Tn, Q):
 
 
 # ------------------------------------------------------- shared group-by
-@pytest.mark.parametrize("Tn,W,G", [(512, 1, 50), (700, 2, 100),
-                                    (1024, 8, 300)])
-def test_shared_groupby_plain_matches_pallas_and_jnp(Tn, W, G):
+@pytest.mark.parametrize("Tn,W,G,out", [(512, 1, 50, 0), (700, 2, 100, 0),
+                                        (1024, 8, 300, 0),
+                                        (300, 1, 1, 0),     # one group
+                                        (600, 2, 40, 3)])   # codes outside
+def test_shared_groupby_plain_matches_pallas_and_jnp(Tn, W, G, out):
+    """``out``: codes drawn from [-out, G + out), so some fall outside
+    [0, G) and contribute nothing."""
     rng = np.random.default_rng(Tn + G)
-    gc = rng.integers(0, G, Tn).astype(np.int32)
+    gc = rng.integers(-out, G + out, Tn).astype(np.int32)
     vals = rng.integers(-20, 50, Tn).astype(np.int32)
     mask = _words(rng, (Tn, W))
     args = (jnp.asarray(gc), jnp.asarray(vals), jnp.asarray(mask))
@@ -203,6 +207,52 @@ def test_shared_groupby_plain_matches_pallas_and_jnp(Tn, W, G):
         np.testing.assert_array_equal(c.numpy(), np.asarray(pc))
         np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6)
         np.testing.assert_allclose(s.numpy(), np.asarray(ps), rtol=1e-6)
+
+
+# (T, W, G, SMs, co-resident blocks a SM) -> the grid launch_geometry
+# picks: TPC-W's steady-beat call on an H100 (one block a SM; the
+# zeroing's 16-byte units size it); no rows; one group; a buffer smaller
+# than the grid (late blocks zero nothing); a ragged last stripe; a card
+# that holds one block a SM; a card of 8 SMs; W = 0 (no outputs)
+GROUPBY_GEOMETRY = [
+    ((16384, 3, 12048, 132, 4), 132),
+    ((0, 3, 12048, 132, 4), 132),
+    ((0, 2, 1, 132, 4), 1),
+    ((300, 1, 1, 132, 4), 1),
+    ((2000, 1, 1, 132, 4), 4),
+    ((40000, 1, 3, 132, 4), 79),
+    ((5000, 3, 4097, 132, 4), 132),
+    ((16384, 3, 12048, 132, 1), 132),
+    ((16384, 3, 12048, 8, 4), 8),
+    ((100, 0, 7, 132, 4), 1),
+]
+
+
+@pytest.mark.parametrize("args,blocks", GROUPBY_GEOMETRY)
+def test_shared_groupby_geometry_zeroes_every_unit_once(args, blocks):
+    """The grid and stripes of the cooperative launch: the kernel's first
+    phase replayed (block b's threads zero the 16-byte units [b * stripe,
+    min((b + 1) * stripe, units)), a thread every THREADS units) covers
+    the 2 G Q floats exactly once; the stripes are whole 128-byte lines
+    but the last; the grid is at most GRID_BLOCKS_PER_SM and the
+    co-resident blocks a SM."""
+    T, W, G, sms, per_sm = args
+    got, stripe = tgb.launch_geometry(*args)
+    assert got == blocks
+    assert 1 <= got <= sms * min(tgb.GRID_BLOCKS_PER_SM, per_sm)
+    floats = 2 * G * W * 32
+    units = floats // tgb.UNIT
+    assert units * tgb.UNIT == floats        # no tail below 16 bytes
+    assert stripe % tgb.LINE == 0
+    seen = np.zeros(units, np.int64)
+    live = 0
+    for b in range(got):
+        begin, end = b * stripe, min((b + 1) * stripe, units)
+        for t in range(tgb.THREADS):
+            seen[begin + t:end:tgb.THREADS] += 1
+        live += end > begin
+    assert (seen == 1).all()
+    assert live == (-(-units // stripe) if units else 0)
 
 
 # ------------------------------------------------------ partitioned join

@@ -1,0 +1,8 @@
+"""Kernels: clockscan's least time in the traced window (``bench/roofline/clockscan.py``)
+over its device time (the mean of its kept trace events times its
+launches), in %."""
+
+
+def read(rec):
+    least, dev = rec["least_s"].get("clockscan"), rec["kernel_s"].get("clockscan")
+    return 100.0 * least / dev if least is not None and dev else None

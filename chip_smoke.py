@@ -1073,7 +1073,7 @@ def beat_entry(eng, path, beat, wall, prof, **extra):
              "wall_ms": wall * 1e3,
              "stage_ms": s["t_stage_s"] * 1e3,
              "dispatch_ms": s["t_dispatch_s"] * 1e3,
-             "device_wait_ms": s["t_kernel_s"] * 1e3,
+             "device_wait_ms": s["t_wait_s"] * 1e3,
              "collect_ms": s["t_collect_s"] * 1e3,
              "backend_ops": s["backend_ops"], "profiled": prof is not None,
              "fold_in_flight": False, **extra}

@@ -40,7 +40,6 @@ class QueryAtATimeEngine:
         self.state = plan.catalog.init_state(initial_data, self.device)
         self._fns = {name: self._build(tpl)
                      for name, tpl in plan.templates.items()}
-        self.queries_done = 0
 
     def _cap_for(self, tpl: QueryTemplate) -> int:
         spine_cap = self.plan.catalog.schemas[tpl.spine].capacity
@@ -122,12 +121,11 @@ class QueryAtATimeEngine:
         arr = np.zeros((max(len(tpl.preds), 1), 2), np.int32)
         for pi in range(len(tpl.preds)):
             arr[pi] = params[pi]
-        t = Ticket(0, template, params, time.time())
+        t = Ticket(0, template, params, time.perf_counter())
         res = self._fns[template](self.state,
                                   torch.as_tensor(arr, device=self.device))
         t.result = {k: v.cpu().numpy() for k, v in res.items()}
-        t.done_time = time.time()
-        self.queries_done += 1
+        t.done_time = time.perf_counter()
         return t
 
     def apply_update(self, table: str, kind: str, payload: Dict) -> None:

@@ -54,6 +54,18 @@ hold one tree per shard, each beat runs the S shard bodies (and, in a
 reseed, one all_gather per mirrored predicated stage) and then the
 cross-shard merge, all in the one captured graph when every shard is on
 one card; ``collect`` assembles the merged results.
+
+Tracing (``trace=True``): every beat's body marks its stage boundaries
+(``graphs.mark``; the stage names are ``core/lowering.py``'s, between
+``start`` and ``commit``), as event-record nodes of the captured graphs
+on a card, and ``collect`` turns them into device seconds per stage
+(``last_collect_stats["stage_s"]``).  While a torch profiler runs, the
+host steps of ``dispatch`` and ``collect`` are also profiler ranges
+(``repro.dispatch.admit`` / ``.stage`` / ``.launch`` / ``.backpressure``,
+``repro.collect.wait`` / ``.copy_out`` / ``.route``).  With
+``trace=False`` no graph holds an event and no record grows.  Every
+host stamp (tickets, write acknowledgements, spans) is
+``time.perf_counter()``.
 """
 from __future__ import annotations
 
@@ -127,16 +139,32 @@ def _clear_counts_at_entry(fn, counts: Dict[str, int]):
 
 @dataclasses.dataclass
 class Ticket:
+    """A query's ticket.  ``beat`` is the sequence number of the dispatch
+    that admitted it, ``admit_time`` that admission's stamp and
+    ``done_time`` the collect() that routed its result (all
+    ``perf_counter``)."""
     id: int
     template: str
     params: Any
     submit_time: float
     done_time: Optional[float] = None
     result: Any = None
+    beat: Optional[int] = None
+    admit_time: Optional[float] = None
 
-    @property
-    def latency(self) -> float:
-        return (self.done_time - self.submit_time) if self.done_time else None
+
+@dataclasses.dataclass
+class WriteTicket:
+    """A write's acknowledgement, returned by ``submit_update``: ``beat``
+    and ``admit_time`` as for a ``Ticket``; ``done_time`` is set by the
+    collect() that completes its beat, which acknowledges the write."""
+    id: int
+    table: str
+    kind: str
+    submit_time: float
+    beat: Optional[int] = None
+    admit_time: Optional[float] = None
+    done_time: Optional[float] = None
 
 
 class _StagingBuffers:
@@ -230,27 +258,32 @@ class _StagingBuffers:
 
 @dataclasses.dataclass
 class CycleResult:
-    """One collected heartbeat: routed tickets + its observed wall time.
+    """One collected heartbeat: its routed tickets and accounting.
 
-    ``wall_s`` is the collector-side inter-completion time; ``admitted``
-    / ``dirty`` count the queries and update-touched rows the heartbeat
-    carried; ``scan_path`` / ``join_path`` name the flavours it ran
-    ("delta", "full", "mixed" when backpressure folded several heartbeats
-    into one collect, "" for no carried joins).  The ``t_*_s`` fields
-    are the host-time breakdown — staging (queue drain + buffer fill +
-    copies enqueued), dispatch (the cycle's kernels enqueued), kernel
-    (the collect-side wait for the device) and collect (result copy +
-    ticket routing) — and ``backend_ops`` the beat's backend launches."""
+    ``admitted`` / ``dirty`` count the queries and update-touched rows
+    the heartbeat carried; ``scan_path`` / ``join_path`` name the
+    flavours it ran ("delta", "full", "mixed" when backpressure folded
+    several heartbeats into one collect, "" for no carried joins).  The
+    ``t_*_s`` fields are the host-time breakdown — staging (queue drain
+    + buffer fill + copies enqueued), dispatch (the graph launched),
+    wait (the collect-side wait for the beat's completion event), copy
+    (the results copied to the host) and route (results assembled and
+    tickets routed); ``t_collect_s`` is copy + route.  ``stage_s`` is
+    the device seconds of each stage of the beat's body (``{}`` unless
+    the engine traces) and ``backend_ops`` the beat's backend
+    launches."""
     tickets: Dict[str, List[Ticket]]
-    wall_s: float
     admitted: int = 0
     dirty: int = 0
     scan_path: str = ""
     join_path: str = ""
     t_stage_s: float = 0.0
     t_dispatch_s: float = 0.0
-    t_kernel_s: float = 0.0
+    t_wait_s: float = 0.0
+    t_copy_s: float = 0.0
+    t_route_s: float = 0.0
     t_collect_s: float = 0.0
+    stage_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     backend_ops: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
@@ -333,6 +366,13 @@ class _InFlight:
     """One dispatched-but-not-collected heartbeat."""
     admitted: Dict[str, List[Ticket]]
     results: Any
+    beat: int = 0               # the dispatch's sequence number
+    slot: int = 0               # the pipeline slot it ran on
+    writes: List[WriteTicket] = dataclasses.field(default_factory=list)
+    writes_held: int = 0        # writes left queued behind the slots
+    # the body's stage marks (a graph's events are recorded again by its
+    # next replay, which waits until this flight is collected)
+    marks: list = dataclasses.field(default_factory=list)
     done: Any = None            # CUDA event recorded behind the cycle
     assemble: Any = None        # a mesh generation's collect epilogue
     n_admitted: int = 0
@@ -341,8 +381,11 @@ class _InFlight:
     join_path: str = ""
     t_stage_s: float = 0.0
     t_dispatch_s: float = 0.0
-    t_kernel_s: float = 0.0
-    t_collect_s: float = 0.0
+    t_wait_s: float = 0.0
+    t_copy_s: float = 0.0
+    t_route_s: float = 0.0
+    d2h_copies: int = 0
+    stage_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     backend_ops: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
@@ -354,7 +397,8 @@ class SharedDBEngine:
                  initial_data: Dict[str, Dict[str, np.ndarray]],
                  kernels: str = "auto", device=None,
                  pipeline_depth: int = 2, delta_scans: bool = True,
-                 delta_joins: bool = True, jit: bool = True, mesh=None):
+                 delta_joins: bool = True, jit: bool = True, mesh=None,
+                 trace: bool = False):
         """``device=None`` runs on the CUDA card and raises when there is
         none; ``device="cpu"`` runs the plain PyTorch path.  ``kernels``:
         "auto" (``hopper`` on a card of capability 9.0+, ``torch`` on the
@@ -380,7 +424,19 @@ class SharedDBEngine:
         bodies, the all_gather and the merge) as one graph; on distinct
         CUDA devices it raises (graphs across devices are unverified).
         A mesh the engine cannot run raises; nothing falls back to one
-        shard."""
+        shard.
+
+        ``trace=True`` times every beat's stages on the device (graphed:
+        timing events captured in each graph) and, while a torch profiler
+        runs, marks ``dispatch`` / ``collect``'s host steps as profiler
+        ranges (module docstring).  A mesh engine does not trace: its
+        shard bodies would repeat the marks, so ``trace=True`` with a
+        mesh raises."""
+        if mesh is not None and trace:
+            raise NotImplementedError(
+                "trace=True on a mesh: the shard bodies would repeat the "
+                "stage marks")
+        self.trace = bool(trace)
         self._mesh = mesh
         if mesh is not None:
             mesh_dev = mesh.devices[0]
@@ -402,8 +458,12 @@ class SharedDBEngine:
         self.update_slots = update_slots
         self._queues: Dict[str, collections.deque] = {
             name: collections.deque() for name in plan.templates}
+        # (WriteTicket, payload) in arrival order
         self._update_queue: collections.deque = collections.deque()
         self._ticket_ids = itertools.count()
+        self._write_ids = itertools.count()
+        self._beat_seq = 0           # the next dispatch's sequence number
+        self._admitted_writes: List[WriteTicket] = []   # the last admission's
         self._backend = resolve_backend(kernels, self.device)
         # measured once from the initial snapshot and reused by every
         # re-lower (folds): the partition geometry must stay identical
@@ -444,21 +504,15 @@ class SharedDBEngine:
         self._spilled: Dict[str, List[Ticket]] = {}
         self._spilled_stats: List[_InFlight] = []
         self.cycles_run = 0
-        self.queries_done = 0
         self.last_overflow = 0    # union-cap overflow of the last collect
         self.delta_cycles = 0     # heartbeats dispatched down each path
         self.full_cycles = 0
         self.delta_join_cycles = 0
-        self.full_join_cycles = 0
         self.last_scan_path = ""  # paths of the last dispatch
         self.last_join_path = ""
         self.last_delta_overflow = 0   # defensive invariant (always 0)
         self.last_parts_rebuilt: Dict[str, bool] = {}
-        self.last_collect_stats = {"admitted": 0, "dirty": 0,
-                                   "scan_path": "", "join_path": "",
-                                   "t_stage_s": 0.0, "t_dispatch_s": 0.0,
-                                   "t_kernel_s": 0.0, "t_collect_s": 0.0,
-                                   "backend_ops": {}}
+        self.last_collect_stats = self._collect_stats([])
 
     # --------------------------------------------- compiled-cycle handle
     def _build_compiled(self, plan: CompiledPlan) -> _CompiledHandle:
@@ -580,7 +634,7 @@ class SharedDBEngine:
             for slot in range(len(h.staging)):
                 h.graphs[f, slot] = cg.capture(
                     lambda f=f, slot=slot: self._body(h, live, f, slot),
-                    pool)
+                    pool, marks=self.trace)
         h.capture_stats = {"warmup_s": t1 - t0,
                            "capture_s": time.perf_counter() - t1,
                            "graphs": len(h.graphs),
@@ -638,6 +692,7 @@ class SharedDBEngine:
         """The beat's body, the one that is captured: slot ``slot``'s
         staged admission and slot ``slot - 1``'s rids in, slot ``slot``'s
         results, the scan carry and the state rolled forward in place."""
+        cg.mark("start")
         out = buf.results[slot]
         state, carry, results = self._cycle_out(
             h, flavour, buf.state, buf.carry,
@@ -648,14 +703,28 @@ class SharedDBEngine:
         cg.copy_into(out, results)
         cg.copy_into(buf.carry, carry)
         cg.copy_into(buf.state, state)
+        cg.mark("commit")
 
-    def _run_beat(self, flavour: str, slot: int) -> None:
+    def _run_beat(self, flavour: str, slot: int) -> list:
+        """Run (replay or, eagerly, call) one beat's body; returns its
+        stage marks (empty unless tracing)."""
         h = self._gen
         if h.graphs:
-            h.graphs[flavour, slot].replay()
-        else:
+            g = h.graphs[flavour, slot]
+            g.replay()
+            return g.marks
+        sink = cg.MarkSink(self.device) if self.trace else None
+        with cg.marking(sink):
             self._body(h, _BeatBuffers(self.state, h.carry, h.results),
                        flavour, slot)
+        return sink.marks if sink is not None else []
+
+    def _range(self, name: str):
+        """A profiler range over a host step, only while tracing under a
+        running profiler."""
+        if self.trace and torch.autograd._profiler_enabled():
+            return torch.autograd.profiler.record_function(name)
+        return contextlib.nullcontext()
 
     # ------------------------------------------------------ plan folding
     def begin_fold(self, new_templates: List[QueryTemplate],
@@ -806,7 +875,7 @@ class SharedDBEngine:
         """Mint a ticket WITHOUT enqueueing it (serving front ends hold
         tickets for templates still waiting on a fold batch)."""
         return Ticket(next(self._ticket_ids), template, params,
-                      time.time())
+                      time.perf_counter())
 
     def accepts(self, template: str) -> bool:
         """True iff the engine has an admission queue for the template
@@ -816,9 +885,16 @@ class SharedDBEngine:
     def submit_ticket(self, ticket: Ticket) -> None:
         self._queues[ticket.template].append(ticket)
 
-    def submit_update(self, table: str, kind: str, payload: Dict) -> None:
-        """kind: insert | update | delete (payload per storage slots)."""
-        self._update_queue.append((table, kind, payload))
+    def submit_update(self, table: str, kind: str,
+                      payload: Dict) -> WriteTicket:
+        """kind: insert | update | delete (payload per storage slots).
+        Writes are admitted FIFO per table and kind, up to the update
+        slots of a beat; the returned ticket is acknowledged (its
+        ``done_time`` set) by the collect() of the beat that carried it."""
+        w = WriteTicket(next(self._write_ids), table, kind,
+                        time.perf_counter())
+        self._update_queue.append((w, payload))
+        return w
 
     def pending(self) -> int:
         return (sum(len(q) for q in self._queues.values())
@@ -828,7 +904,7 @@ class SharedDBEngine:
         return len(self._inflight)
 
     # ------------------------------------------------------------ one beat
-    def _admit_queries(self, buf: _StagingBuffers):
+    def _admit_queries(self, buf: _StagingBuffers, beat: int, now: float):
         """Drain the queues into the packed staging buffers."""
         admitted = {}
         params, active = buf.params, buf.active
@@ -840,6 +916,7 @@ class SharedDBEngine:
             while q and len(take) < cap:
                 take.append(q.popleft())
             for slot, ticket in enumerate(take):
+                ticket.beat, ticket.admit_time = beat, now
                 g = off + slot
                 active[g] = True
                 for pi in range(len(tpl.preds)):
@@ -851,17 +928,20 @@ class SharedDBEngine:
 
     def _admit_updates(self, buf: _StagingBuffers) -> Dict[str, int]:
         """Drain the update queue into the staging batches, FIFO per
-        table and kind; returns each table's admitted touch count."""
+        table and kind; returns each table's admitted touch count (the
+        admitted writes go to ``_admitted_writes``)."""
         cat = self.plan.catalog
         s = self.update_slots
         fill = {t: {"ins": 0, "upd": 0, "del": 0} for t in cat.schemas}
         hold = collections.deque()
+        writes = self._admitted_writes = []
         while self._update_queue:
-            table, kind, payload = self._update_queue.popleft()
+            w, payload = item = self._update_queue.popleft()
+            table, kind = w.table, w.kind
             b, f = buf.updates[table], fill[table]
             if kind == "insert":
                 if f["ins"] >= s.n_insert:
-                    hold.append((table, kind, payload))
+                    hold.append(item)
                     continue
                 i = f["ins"]
                 for c, v in payload.items():
@@ -870,7 +950,7 @@ class SharedDBEngine:
                 f["ins"] += 1
             elif kind == "update":
                 if f["upd"] >= s.n_update:
-                    hold.append((table, kind, payload))
+                    hold.append(item)
                     continue
                 i = f["upd"]
                 schema = cat.schemas[table]
@@ -881,12 +961,13 @@ class SharedDBEngine:
                 f["upd"] += 1
             else:
                 if f["del"] >= s.n_delete:
-                    hold.append((table, kind, payload))
+                    hold.append(item)
                     continue
                 i = f["del"]
                 b["del_key"][i] = int(payload["key"])
                 b["del_mask"][i] = True
                 f["del"] += 1
+            writes.append(w)
         self._update_queue = hold
         # an exact upper bound on the rows each batch can dirty
         return {t: f["ins"] + f["upd"] + f["del"] for t, f in fill.items()}
@@ -943,28 +1024,35 @@ class SharedDBEngine:
             # migration beat boundary: swap generations before admitting
             # this heartbeat's work
             self._commit_fold()
-        while len(self._inflight) >= self.pipeline_depth:
-            for name, tickets in self._collect_oldest().items():
-                self._spilled.setdefault(name, []).extend(tickets)
+        with self._range("repro.dispatch.backpressure"):
+            while len(self._inflight) >= self.pipeline_depth:
+                for name, tickets in self._collect_oldest().items():
+                    self._spilled.setdefault(name, []).extend(tickets)
         t0 = time.perf_counter()
+        beat, self._beat_seq = self._beat_seq, self._beat_seq + 1
         h, slot = self._gen, self._staging_idx
         buf = h.staging[slot]
         self._staging_idx = (slot + 1) % len(h.staging)
-        buf.reset()
-        admitted = self._admit_queries(buf)
-        touches = self._admit_updates(buf)
-        # path choice, made HOST-side so the delta cycle never contains
-        # the full-table compare: eligible when the carried words exist
-        # and every delta fits its fixed capacity, else a full rescan
-        # (which reseeds the carry)
-        changed = self._diff_admission(buf)
-        force_full, self._force_full = self._force_full, False
-        use_delta = (not force_full and self.delta_scans
-                     and self._carry is not None
-                     and self._delta_eligible(changed, touches))
-        use_delta_join = (use_delta and self.delta_joins
-                          and self._join_delta_eligible(touches))
-        buf.stage()
+        with self._range("repro.dispatch.admit"):
+            buf.reset()
+            admitted = self._admit_queries(buf, beat, t0)
+            touches = self._admit_updates(buf)
+            writes = self._admitted_writes
+            for w in writes:
+                w.beat, w.admit_time = beat, t0
+            # path choice, made HOST-side so the delta cycle never
+            # contains the full-table compare: eligible when the carried
+            # words exist and every delta fits its fixed capacity, else a
+            # full rescan (which reseeds the carry)
+            changed = self._diff_admission(buf)
+            force_full, self._force_full = self._force_full, False
+            use_delta = (not force_full and self.delta_scans
+                         and self._carry is not None
+                         and self._delta_eligible(changed, touches))
+            use_delta_join = (use_delta and self.delta_joins
+                              and self._join_delta_eligible(touches))
+        with self._range("repro.dispatch.stage"):
+            buf.stage()
         t_staged = time.perf_counter()
         flavour = ("delta_join" if use_delta_join else "delta") \
             if use_delta else "full"
@@ -973,12 +1061,13 @@ class SharedDBEngine:
             self.delta_cycles += 1
         else:
             self.full_cycles += 1
-        self._run_beat(flavour, slot)
+        with self._range("repro.dispatch.launch"):
+            marks = self._run_beat(flavour, slot)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
         results = h.results[slot]
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
         t_launched = time.perf_counter()
         # both carry halves are (re)seeded by EVERY heartbeat
         self._carry = h.carry
@@ -989,12 +1078,12 @@ class SharedDBEngine:
             self.last_join_path = "delta" if use_delta_join else "full"
             if use_delta_join:
                 self.delta_join_cycles += 1
-            else:
-                self.full_join_cycles += 1
         self._prev_params[...] = buf.params
         self._prev_active[...] = buf.active
         self._inflight.append(_InFlight(
-            admitted, results, done=done, assemble=h.assemble,
+            admitted, results, beat=beat, slot=slot, writes=writes,
+            writes_held=len(self._update_queue), marks=marks, done=done,
+            assemble=h.assemble,
             n_admitted=sum(len(ts) for ts in admitted.values()),
             n_dirty=sum(touches.values()),
             scan_path=self.last_scan_path,
@@ -1011,6 +1100,16 @@ class SharedDBEngine:
         for name, tickets in self._collect_oldest().items():
             out.setdefault(name, []).extend(tickets)
         stats, self._spilled_stats = self._spilled_stats, []
+        self.last_collect_stats = self._collect_stats(stats)
+        return out
+
+    @staticmethod
+    def _collect_stats(stats: List[_InFlight]) -> Dict[str, Any]:
+        """``last_collect_stats`` over the flights one collect() took:
+        the beats' ids, counts, paths, host spans (``t_collect_s`` is
+        copy + route; ``t_kernel_s`` is ``t_wait_s`` under its old name,
+        which ``bench/harness.py`` reads), device-to-host copies, writes
+        held behind the update slots and device seconds per stage."""
 
         def one_path(paths):
             paths = {p for p in paths if p}
@@ -1018,20 +1117,30 @@ class SharedDBEngine:
                     else "mixed" if paths else "")
 
         ops: Dict[str, int] = {}
+        stage_s: Dict[str, float] = {}
         for f in stats:
             for op, n in f.backend_ops.items():
                 ops[op] = ops.get(op, 0) + n
-        self.last_collect_stats = {
+            for name, sec in f.stage_s.items():
+                stage_s[name] = stage_s.get(name, 0.0) + sec
+        wait = sum(f.t_wait_s for f in stats)
+        copy = sum(f.t_copy_s for f in stats)
+        route = sum(f.t_route_s for f in stats)
+        return {
+            "beats": [f.beat for f in stats],
             "admitted": sum(f.n_admitted for f in stats),
             "dirty": sum(f.n_dirty for f in stats),
             "scan_path": one_path(f.scan_path for f in stats),
             "join_path": one_path(f.join_path for f in stats),
             "t_stage_s": sum(f.t_stage_s for f in stats),
             "t_dispatch_s": sum(f.t_dispatch_s for f in stats),
-            "t_kernel_s": sum(f.t_kernel_s for f in stats),
-            "t_collect_s": sum(f.t_collect_s for f in stats),
+            "t_wait_s": wait, "t_kernel_s": wait,
+            "t_copy_s": copy, "t_route_s": route,
+            "t_collect_s": copy + route,
+            "d2h_copies": sum(f.d2h_copies for f in stats),
+            "writes_held": sum(f.writes_held for f in stats),
+            "stage_s": stage_s,
             "backend_ops": ops}
-        return out
 
     def _collect_oldest(self) -> Dict[str, List[Ticket]]:
         if not self._inflight:
@@ -1040,28 +1149,42 @@ class SharedDBEngine:
         self._spilled_stats.append(flight)
         results = flight.results
         t0 = time.perf_counter()
-        if flight.done is not None:
-            flight.done.synchronize()
+        with self._range("repro.collect.wait"):
+            if flight.done is not None:
+                flight.done.synchronize()
         t_ready = time.perf_counter()
-        if flight.assemble is not None:
-            results = flight.assemble(results)
-        self.last_overflow = int(results["_overflow"])
-        self.last_delta_overflow = int(results.get("_delta_overflow", 0))
-        self.last_parts_rebuilt = {
-            t: bool(v) for t, v in results["_parts_rebuilt"].items()}
-        now = time.time()
-        out = {}
-        for name, tickets in flight.admitted.items():
-            # a copy: the slot's buffers take a later beat's results
-            res = {k: v.to("cpu", copy=True).numpy()
-                   for k, v in results[name].items()}
-            for slot, ticket in enumerate(tickets):
-                ticket.result = {k: v[slot] for k, v in res.items()}
-                ticket.done_time = now
-            out[name] = tickets
-            self.queries_done += len(tickets)
-        flight.t_kernel_s = t_ready - t0
-        flight.t_collect_s = time.perf_counter() - t_ready
+        with self._range("repro.collect.copy_out"):
+            if flight.assemble is not None:
+                results = flight.assemble(results)
+            flags = [results["_overflow"], results.get("_delta_overflow", 0),
+                     *results["_parts_rebuilt"].values()]
+            self.last_overflow = int(flags[0])
+            self.last_delta_overflow = int(flags[1])
+            self.last_parts_rebuilt = {
+                t: bool(v) for t, v in results["_parts_rebuilt"].items()}
+            # copies: the slot's buffers take a later beat's results
+            res = {name: {k: v.to("cpu", copy=True).numpy()
+                          for k, v in results[name].items()}
+                   for name in flight.admitted}
+        t_copied = time.perf_counter()
+        with self._range("repro.collect.route"):
+            out = {}
+            for name, tickets in flight.admitted.items():
+                for slot, ticket in enumerate(tickets):
+                    ticket.result = {k: v[slot]
+                                     for k, v in res[name].items()}
+                    ticket.done_time = t_copied
+                out[name] = tickets
+            for w in flight.writes:
+                w.done_time = t_copied
+        t_routed = time.perf_counter()
+        flight.t_wait_s = t_ready - t0
+        flight.t_copy_s = t_copied - t_ready
+        flight.t_route_s = t_routed - t_copied
+        flight.d2h_copies = (sum(torch.is_tensor(v) for v in flags)
+                             + sum(len(r) for r in res.values()))
+        if flight.marks:
+            flight.stage_s = cg.stage_seconds(flight.marks)
         self.cycles_run += 1
         return out
 
@@ -1083,7 +1206,6 @@ class SharedDBEngine:
         depth = self.pipeline_depth if pipelined else 1
         done: List[CycleResult] = []
         dispatched = 0
-        t_prev = time.time()
         while len(done) < max_cycles and (self.pending() or self._inflight
                                           or self._spilled):
             while (self.pending() and dispatched < max_cycles
@@ -1093,19 +1215,14 @@ class SharedDBEngine:
             if not self._inflight and not self._spilled:
                 break       # budget exhausted with work still queued
             routed = self.collect()
-            now = time.time()
             s = self.last_collect_stats
-            done.append(CycleResult(tickets=routed, wall_s=now - t_prev,
-                                    admitted=s["admitted"],
-                                    dirty=s["dirty"],
-                                    scan_path=s["scan_path"],
-                                    join_path=s["join_path"],
-                                    t_stage_s=s["t_stage_s"],
-                                    t_dispatch_s=s["t_dispatch_s"],
-                                    t_kernel_s=s["t_kernel_s"],
-                                    t_collect_s=s["t_collect_s"],
-                                    backend_ops=s["backend_ops"]))
-            t_prev = now
+            done.append(CycleResult(
+                tickets=routed, admitted=s["admitted"], dirty=s["dirty"],
+                scan_path=s["scan_path"], join_path=s["join_path"],
+                t_stage_s=s["t_stage_s"], t_dispatch_s=s["t_dispatch_s"],
+                t_wait_s=s["t_wait_s"], t_copy_s=s["t_copy_s"],
+                t_route_s=s["t_route_s"], t_collect_s=s["t_collect_s"],
+                stage_s=s["stage_s"], backend_ops=s["backend_ops"]))
         return done
 
     # --------------------------------------------------- host-side fetch

@@ -19,10 +19,25 @@ refuse the serving thread's own CUDA calls while a capture is open.
 CUDA still refuses a device-wide synchronise (``torch.cuda.
 synchronize()``) from any thread while a capture is open, and the
 capture breaks: callers that run beside one wait on events or streams.
+
+Stage marks: a body calls ``mark(name)`` at its stage boundaries (the
+cycle bodies of ``core/lowering.py`` and ``SharedDBEngine._body``).  A
+mark records into the thread's ``MarkSink`` when one is open
+(``marking``) and is a no-op otherwise.  On a card each mark records a
+timing event on the current stream; opened around a capture
+(``capture(..., marks=True)``), the events are ``external`` and become
+event-record nodes of the graph, recorded again by every replay.  On the
+CPU, where a body runs synchronously, a mark stamps ``perf_counter``.
+``stage_seconds`` turns a sink's marks into seconds per stage, each
+stage timed from the mark before it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -82,12 +97,67 @@ def copy_into(dst, src, path=()) -> None:
         dst.copy_(src)
 
 
+_marking = threading.local()
+
+
+class MarkSink:
+    """The stage marks of one body, ``(name, stamp)`` in order: a timing
+    CUDA event on a card (``external`` inside a capture), a
+    ``perf_counter`` on the CPU."""
+
+    def __init__(self, device: torch.device, external: bool = False):
+        self.cuda = device.type == "cuda"
+        self.external = external
+        self.marks: List[Tuple[str, object]] = []
+
+    def add(self, name: str) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True, external=self.external)
+            ev.record()
+            self.marks.append((name, ev))
+        else:
+            self.marks.append((name, time.perf_counter()))
+
+
+@contextlib.contextmanager
+def marking(sink: Optional[MarkSink]):
+    """Send this thread's ``mark`` calls to ``sink`` (None: drop them)."""
+    outer = getattr(_marking, "sink", None)
+    _marking.sink = sink
+    try:
+        yield sink
+    finally:
+        _marking.sink = outer
+
+
+def mark(name: str) -> None:
+    """A stage boundary of the body being built or run; a no-op unless a
+    sink is open on this thread."""
+    sink = getattr(_marking, "sink", None)
+    if sink is not None:
+        sink.add(name)
+
+
+def stage_seconds(marks) -> Dict[str, float]:
+    """Seconds per stage from one body's marks, in mark order: each mark
+    after the first closes the stage of its name, timed from the mark
+    before it (a name met twice sums).  Events must have completed."""
+    out: Dict[str, float] = {}
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        s = b - a if isinstance(a, float) else a.elapsed_time(b) / 1e3
+        out[name] = out.get(name, 0.0) + s
+    return out
+
+
 @dataclasses.dataclass
 class Graph:
     """One captured body.  ``replay`` enqueues it on the current stream
-    and counts the kernel launches it holds."""
+    and counts the kernel launches it holds; ``marks`` are its stage
+    marks' events (empty unless captured with ``marks=True``), recorded
+    again by each replay."""
     graph: torch.cuda.CUDAGraph
     record: kernels.LaunchRecord
+    marks: List[Tuple[str, object]] = dataclasses.field(default_factory=list)
 
     def replay(self) -> None:
         self.graph.replay()
@@ -98,18 +168,20 @@ class Graph:
         self.record.held.clear()
 
 
-def capture(body, pool) -> Graph:
+def capture(body, pool, marks: bool = False) -> Graph:
     """Capture ``body`` on the current (non-default) stream into a graph
-    drawing its temporaries from ``pool``.  Raises if the capture fails:
+    drawing its temporaries from ``pool``; with ``marks`` its stage marks
+    become event-record nodes of the graph.  Raises if the capture fails:
     nothing falls back to eager."""
     graph = torch.cuda.CUDAGraph()
-    with kernels.recording() as record:
+    sink = MarkSink(torch.device("cuda"), external=True) if marks else None
+    with kernels.recording() as record, marking(sink):
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             body()
         finally:
             graph.capture_end()
-    return Graph(graph, record)
+    return Graph(graph, record, sink.marks if marks else [])
 
 
 def pool_bytes(pool) -> int:

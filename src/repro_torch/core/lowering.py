@@ -38,6 +38,15 @@ Every cycle keeps the reference's static shapes and never waits for the
 host: the device-scalar pane offset becomes an index tensor (gather /
 scatter along the word axis) instead of a Python slice, and every
 ``lax.cond`` becomes a ``torch.where``.
+
+A cycle marks its stage boundaries (``graphs.mark``, a no-op unless the
+executor traces the beat): ``apply`` after update-apply, ``scan:<table>``
+after each scan (``scan:delta`` after the chained delta ops,
+``scan:fused`` after the fused one), ``join:<spine>.<fk>.<pk table>``
+after each join (``join:delta`` after the chained dirty-row probe),
+``sort:<spine>.<col>`` after each sort with its top-n routing,
+``groupby:<spine>`` after each group-by and ``route:<spine>`` after each
+unsorted routing pass.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ from repro_torch.core.backends import (DeltaJoinIn, DeltaScanIn,
                                        FusedJoinIn, FusedScanIn,
                                        OperatorBackend)
 from repro_torch.core.device import resolve_device, upload
+from repro_torch.core.graphs import mark
 from repro_torch.core.plan import CompiledPlan, GroupAgg
 from repro_torch.core.storage import (INT_SENTINEL, apply_updates,
                                       build_key_partitions,
@@ -513,6 +523,7 @@ def build_cycle(lowered: LoweredPlan, backend: OperatorBackend,
 
     def cycle(storage, queries, updates):
         storage, partitions, rebuilt = apply_phase(storage, updates)
+        mark("apply")
 
         # shared scans (ClockScan): one pass per table for ALL queries,
         # each over its subscribers' word window
@@ -528,6 +539,7 @@ def build_cycle(lowered: LoweredPlan, backend: OperatorBackend,
                 m = backend.scan(cols, lo, hi, tbl["_valid"])
                 scan_carry[st.table] = m
             scan_masks[st.table] = F.pad(m, (st.wlo, W - st.whi))
+            mark(f"scan:{st.table}")
 
         carry = {"scan": scan_carry, "parts": partitions}
         results = post_scan(storage, partitions, scan_masks)
@@ -579,6 +591,7 @@ def build_delta_cycle(lowered: LoweredPlan, backend: OperatorBackend,
     def cycle(storage, carry, rid_carry, queries, updates):
         storage, partitions, rebuilt = apply_phase(storage, updates,
                                                    carry["parts"])
+        mark("apply")
         changed = queries["changed"]
 
         scan_masks, new_carry = {}, {}
@@ -592,6 +605,7 @@ def build_delta_cycle(lowered: LoweredPlan, backend: OperatorBackend,
                 # degenerate scans are recomputed, never carried
                 m = _degenerate_scan(st, tbl, covered, queries)
                 scan_masks[st.table] = F.pad(m, (st.wlo, W - st.whi))
+                mark(f"scan:{st.table}")
                 continue
             _, lo, hi = _bind_predicates(st, covered, pidx, queries)
             cols = torch.stack([tbl[c] for c in st.cols])
@@ -616,6 +630,7 @@ def build_delta_cycle(lowered: LoweredPlan, backend: OperatorBackend,
             at = (w0.long() + torch.arange(A, device=device)).expand(T, A)
             panes.append((st, carry["scan"][st.table].scatter(1, at, pane)))
             delta_in.append(DeltaScanIn(cols, lo, hi, tbl["_valid"], dr))
+            mark(f"scan:{st.table}")
 
         # the chained path: every stage's dirty-row rescan in ONE op
         if delta_in:
@@ -625,6 +640,7 @@ def build_delta_cycle(lowered: LoweredPlan, backend: OperatorBackend,
                                        cat.schemas[st.table].capacity)
                 new_carry[st.table] = m
                 scan_masks[st.table] = F.pad(m, (st.wlo, W - st.whi))
+            mark("scan:delta")
 
         fused_join_in = []
         if delta_joins:
@@ -656,6 +672,7 @@ def build_delta_cycle(lowered: LoweredPlan, backend: OperatorBackend,
             if delta_joins:
                 fused_rids = {j.key: r
                               for j, r in zip(carried_joins, rids)}
+            mark("scan:fused")
 
         results = post_scan(storage, partitions, scan_masks,
                             rid_carry=rid_carry, fused_rids=fused_rids)
@@ -713,6 +730,7 @@ def _build_post_scan(lowered: LoweredPlan, backend: OperatorBackend,
                                 storage[st.spine]["_dirty_rows"],
                                 *partitions[st.pk_table]) for st in probed))
                 delta_rids = {st.key: r for st, r in zip(probed, rids)}
+                mark("join:delta")
         for st, sub in zip(lowered.joins, join_subs):
             tbl = storage[st.spine]
             m = spine_masks[st.spine]
@@ -748,6 +766,7 @@ def _build_post_scan(lowered: LoweredPlan, backend: OperatorBackend,
             spine_masks[st.spine] = (combined & sub[None, :]) \
                 | (m & ~sub[None, :])
             join_rids[st.key] = rid
+            mark("join:" + ".".join(st.key))
 
         # 4. shared sorts + fused per-query top-n + routing (Gamma) over
         #    the bounded UNION of wanted tuples (Fig. 4)
@@ -766,6 +785,7 @@ def _build_post_scan(lowered: LoweredPlan, backend: OperatorBackend,
                                   plan.max_results, rows=rows_c[perm])
             for name, o, c in st.slots:
                 results[name] = {"rows": rows[o:o + c]}
+            mark(f"sort:{st.spine}.{st.col}")
 
         # 5. shared group-bys (phase 1 shared over the union, phase 2 —
         #    the per-query top-k — as a stable sort, so ties break toward
@@ -789,6 +809,7 @@ def _build_post_scan(lowered: LoweredPlan, backend: OperatorBackend,
                     "groups": top_grp[o:o + c].to(torch.int32),
                     "scores": top_val[o:o + c],
                     "counts": top_cnt[o:o + c]}
+            mark(f"groupby:{st.spine}")
 
         # 6. unsorted templates route in natural row order — ONE routing
         #    pass per spine shared by all such templates
@@ -800,6 +821,7 @@ def _build_post_scan(lowered: LoweredPlan, backend: OperatorBackend,
                                   plan.max_results, rows=rows_c)
             for name, o, c in st.slots:
                 results[name] = {"rows": rows[o:o + c]}
+            mark(f"route:{st.spine}")
         results["_overflow"] = overflow
         results["_join_rids"] = join_rids
         return results

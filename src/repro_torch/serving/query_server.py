@@ -26,7 +26,8 @@ from __future__ import annotations
 import collections
 from typing import Dict, List, Tuple
 
-from repro_torch.core.executor import CycleResult, SharedDBEngine, Ticket
+from repro_torch.core.executor import (CycleResult, SharedDBEngine, Ticket,
+                                      WriteTicket)
 from repro_torch.core.plan import QueryTemplate
 
 
@@ -110,8 +111,11 @@ class QueryCycleServer:
         self._held[template].append(t)
         return t
 
-    def submit_update(self, table: str, kind: str, payload: dict) -> None:
-        self.engine.submit_update(table, kind, payload)
+    def submit_update(self, table: str, kind: str,
+                      payload: dict) -> WriteTicket:
+        """A write, acknowledged by the collect() of the beat that carries
+        it (``SharedDBEngine.submit_update``)."""
+        return self.engine.submit_update(table, kind, payload)
 
     def pending(self) -> int:
         return self.engine.pending() + sum(

@@ -1056,6 +1056,103 @@ def test_planlint_on_the_card(cuda_device):
         geom, desc, n_block, sms=K.sm_count(dev))) == []
 
 
+# ------------------------------------------------- the traced beat
+def _traced_pair(dev, scale=(1000, 2880)):
+    """Graphed index-less engines on one plan and data, tracing off and
+    on, at a scale whose beats take milliseconds."""
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.workloads import tpcw
+    si, sc = scale
+    plan = tpcw.build_tpcw_plan(si, sc, dense_pk_index=False)
+    data = tpcw.generate_data(np.random.default_rng(0), si, sc)
+    return [SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                           kernels="hopper", device=dev, trace=trace)
+            for trace in (False, True)]
+
+
+def _traced_beat(e, beat):
+    """The same admission every beat (so beats after the first may take
+    the delta path) and a customer update, with an item update every
+    third beat."""
+    e.submit_update("customer", "update", {
+        "key": 3 + beat, "col": "c_expiration", "val": 900 + beat})
+    if beat % 3 == 2:
+        e.submit_update("item", "update", {"key": 7 + beat, "col": "i_cost",
+                                           "val": 1234 + beat})
+    e.submit("get_book", {0: (5, 5)})
+    e.submit("get_cart", {0: (12, 12)})
+    e.submit("best_sellers", {0: (0, 400), 1: (1, 3)})
+
+
+@pytest.mark.cuda
+def test_traced_graph_stages_sum_to_the_replay(cuda_device):
+    """Every graph of a ``trace=True`` engine holds its stage marks from
+    ``start`` to ``commit`` and a ``trace=False`` one holds none; the
+    launches a replay counts are the same either way; and each traced
+    beat's stages sum to within 10 % of a CUDA event pair around its
+    replay (never above it), with full and delta beats both seen."""
+    off, on = _traced_pair(cuda_device)
+    assert off.graphed and on.graphed
+    assert all(not g.marks for g in off._gen.graphs.values())
+    for g in on._gen.graphs.values():
+        names = [n for n, _ in g.marks]
+        assert names[0] == "start" and names[-1] == "commit"
+        assert "apply" in names and len(names) == len(set(names))
+    pairs = []
+    real = on._run_beat
+
+    def timed(flavour, slot):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        marks = real(flavour, slot)
+        ev1.record()
+        pairs.append((ev0, ev1))
+        return marks
+    on._run_beat = timed
+    paths = set()
+    for beat in range(8):
+        launched = []
+        for e in (off, on):
+            _traced_beat(e, beat)
+            before = dict(K.LAUNCHES)
+            e.dispatch()
+            launched.append({k: n - before.get(k, 0)
+                             for k, n in K.LAUNCHES.items()})
+            e.collect()
+        assert launched[0] == launched[1], (beat, launched)
+        assert off.last_collect_stats["stage_s"] == {}
+        stage_ms = sum(on.last_collect_stats["stage_s"].values()) * 1e3
+        ev0, ev1 = pairs[-1]
+        ev1.synchronize()
+        pair_ms = ev0.elapsed_time(ev1)
+        assert 0.9 * pair_ms <= stage_ms <= pair_ms * 1.001, \
+            (beat, stage_ms, pair_ms)
+        assert all(v >= 0 for v in on.last_collect_stats["stage_s"].values())
+        paths.add(on.last_scan_path)
+    assert paths == {"full", "delta"}
+
+
+@pytest.mark.cuda
+def test_traced_eager_beat_names_the_graphed_stages(cuda_device):
+    """On the card an eager traced beat records ordinary timing events at
+    the same marks as the captured ones: the same stage names, in order,
+    beat for beat."""
+    from repro_torch.core.executor import SharedDBEngine
+    from repro_torch.workloads import tpcw
+    plan = tpcw.build_tpcw_plan(64, 128, dense_pk_index=False)
+    data = tpcw.generate_data(np.random.default_rng(0), 64, 128)
+    engs = [SharedDBEngine(plan, tpcw.DEFAULT_UPDATE_SLOTS, data,
+                           kernels="hopper", device=cuda_device, jit=jit,
+                           trace=True) for jit in (True, False)]
+    for beat in range(4):
+        for e in engs:
+            _traced_beat(e, beat)
+            e.run_cycle()
+        a, b = (list(e.last_collect_stats["stage_s"]) for e in engs)
+        assert a == b and a[-1] == "commit", (beat, a, b)
+
+
 # ------------------------------------------------- the sharded heartbeat
 # (updates) of each beat: a reseed, an item update (delta scans, full
 # join probes), then customer and cart updates (delta scans and joins)

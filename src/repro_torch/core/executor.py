@@ -10,13 +10,18 @@ The heartbeat is split so host and device overlap:
 
   dispatch() — drain the queues into PREALLOCATED pinned staging buffers,
                copy them into the pipeline slot's fixed device buffers
-               (two asynchronous copies) and replay the slot's captured
-               graph of the chosen cycle flavour: a few copies and ONE
-               graph launch on the current stream (``jit=True`` on a
-               card; with ``jit=False``, and on the CPU, the same body
-               runs eagerly).  Nothing in it waits for the device.
-  collect()  — wait for the oldest in-flight heartbeat and route its
-               results to the waiting tickets.
+               (two asynchronous copies), replay the slot's captured
+               graph of the chosen cycle flavour and queue ONE copy of
+               the slot's packed results to its pinned host mirror right
+               behind it: a few copies and ONE graph launch on the
+               current stream (``jit=True`` on a card; with
+               ``jit=False``, and on the CPU, the same body runs
+               eagerly, and the same copy follows it).  Nothing in it
+               waits for the device.
+  collect()  — wait for the oldest in-flight heartbeat's completion
+               event (recorded behind its copy-out, so it never waits
+               for a later beat) and route its results from host memory
+               to the waiting tickets.
 
 With double-buffered admission (pipeline depth 2) the queue draining and
 parameter staging for heartbeat N+1 overlap device execution of N; a
@@ -40,7 +45,9 @@ tensor.  Each pipeline slot owns its staged admission and its results,
 whose ``_join_rids`` are the slot's rid carry: slot S's graphs read slot
 S-1's rids and write slot S's, so the rids a beat reads are never the
 ones it writes, and a beat's results stay intact until it is collected.
-There are ``max(2, pipeline_depth)`` slots.
+There are ``max(2, pipeline_depth)`` slots.  A slot's results but its
+rids are views into one flat device buffer (``_Mirror``) that each beat
+of the slot copies, whole, to the slot's pinned host mirror.
 
 Plan folding (core/folding.py): ``begin_fold`` builds (and on a card
 captures) the cycles of an extended plan on a background thread while
@@ -53,7 +60,8 @@ sharded by spine-row range: state, carries, rids and the staged admission
 hold one tree per shard, each beat runs the S shard bodies (and, in a
 reseed, one all_gather per mirrored predicated stage) and then the
 cross-shard merge, all in the one captured graph when every shard is on
-one card; ``collect`` assembles the merged results.
+one card; ``collect`` assembles the merged results and copies them out
+(a mesh generation has no host mirror).
 
 Tracing (``trace=True``): every beat's body marks its stage boundaries
 (``graphs.mark``; the stage names are ``core/lowering.py``'s, between
@@ -265,9 +273,11 @@ class CycleResult:
     flavours it ran ("delta", "full", "mixed" when backpressure folded
     several heartbeats into one collect, "" for no carried joins).  The
     ``t_*_s`` fields are the host-time breakdown — staging (queue drain
-    + buffer fill + copies enqueued), dispatch (the graph launched),
-    wait (the collect-side wait for the beat's completion event), copy
-    (the results copied to the host) and route (results assembled and
+    + buffer fill + copies enqueued), dispatch (the graph launched and
+    the results' copy-out queued), wait (the collect-side wait for the
+    beat's completion event), copy (the results copied out of the pinned
+    host mirror into memory of their own; under a mesh, from the
+    device) and route (results assembled and
     tickets routed); ``t_collect_s`` is copy + route.  ``stage_s`` is
     the device seconds of each stage of the beat's body (``{}`` unless
     the engine traces) and ``backend_ops`` the beat's backend
@@ -315,6 +325,23 @@ class _BeatBuffers:
 
 
 @dataclasses.dataclass
+class _Mirror:
+    """One pipeline slot's results but its rid carry, packed: each leaf a
+    view into ``packed``, one flat device buffer, which ``_run_beat``
+    copies to the pinned ``host`` buffer in stream order right behind
+    each beat of the slot."""
+    packed: torch.Tensor        # uint8, on the device
+    host: torch.Tensor          # uint8, pinned on a card
+    layout: Any                 # the results tree of ``graphs.Span``s
+
+    def read(self) -> Dict:
+        """The results as numpy arrays in host memory of their own (the
+        slot's next beat rewrites ``host``): numpy views of one copy,
+        on an H100 host about a fifth of the time of torch views."""
+        return cg.unpack(self.host.numpy().copy(), self.layout)
+
+
+@dataclasses.dataclass
 class _CompiledHandle:
     """One plan generation: its built cycles and the buffers and graphs
     its beats run on, swapped in one piece.
@@ -332,6 +359,8 @@ class _CompiledHandle:
     staging: List[_StagingBuffers] = dataclasses.field(default_factory=list)
     carry: Any = None            # the scan carry, rolled forward in place
     results: List[Dict] = dataclasses.field(default_factory=list)
+    # each slot's packed results and host mirror; empty under a mesh
+    mirrors: List[_Mirror] = dataclasses.field(default_factory=list)
     # (flavour, slot) -> captured graph; empty when the beats run eagerly
     graphs: Dict[tuple, cg.Graph] = dataclasses.field(default_factory=dict)
     capture_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -373,7 +402,8 @@ class _InFlight:
     # the body's stage marks (a graph's events are recorded again by its
     # next replay, which waits until this flight is collected)
     marks: list = dataclasses.field(default_factory=list)
-    done: Any = None            # CUDA event recorded behind the cycle
+    done: Any = None            # CUDA event recorded behind the copy-out
+    mirror: Optional[_Mirror] = None   # the slot's, of the beat's generation
     assemble: Any = None        # a mesh generation's collect epilogue
     n_admitted: int = 0
     n_dirty: int = 0
@@ -385,6 +415,7 @@ class _InFlight:
     t_copy_s: float = 0.0
     t_route_s: float = 0.0
     d2h_copies: int = 0
+    copies_at_dispatch: int = 0
     stage_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     backend_ops: Dict[str, int] = dataclasses.field(default_factory=dict)
 
@@ -602,7 +633,24 @@ class SharedDBEngine:
                 results["_delta_overflow"] = torch.zeros(
                     (), dtype=torch.int32, device=dev)
             h.carry = cg.empty_like_tree(carry)
-            h.results = [cg.empty_like_tree(results) for _ in range(n_slots)]
+            if spec is None:
+                # a slot's results but its rid carry are views into one
+                # flat buffer, copied out in one piece behind each beat
+                layout, nbytes = cg.pack_layout(
+                    {k: v for k, v in results.items() if k != "_join_rids"})
+                for _ in range(n_slots):
+                    m = _Mirror(
+                        torch.empty(nbytes, dtype=torch.uint8, device=dev),
+                        torch.empty(nbytes, dtype=torch.uint8,
+                                    pin_memory=cuda), layout)
+                    views = cg.unpack(m.packed, layout)
+                    h.mirrors.append(m)
+                    h.results.append(
+                        {k: cg.empty_like_tree(v) if k == "_join_rids"
+                         else views[k] for k, v in results.items()})
+            else:
+                h.results = [cg.empty_like_tree(results)
+                             for _ in range(n_slots)]
             if self.graphed:
                 self._capture(h, _BeatBuffers(
                     scratch, carry,
@@ -706,18 +754,25 @@ class SharedDBEngine:
         cg.mark("commit")
 
     def _run_beat(self, flavour: str, slot: int) -> list:
-        """Run (replay or, eagerly, call) one beat's body; returns its
-        stage marks (empty unless tracing)."""
+        """Run (replay or, eagerly, call) one beat's body, then queue the
+        copy of the slot's packed results to its host mirror, right
+        behind the body in stream order; returns the stage marks (empty
+        unless tracing)."""
         h = self._gen
         if h.graphs:
             g = h.graphs[flavour, slot]
             g.replay()
-            return g.marks
-        sink = cg.MarkSink(self.device) if self.trace else None
-        with cg.marking(sink):
-            self._body(h, _BeatBuffers(self.state, h.carry, h.results),
-                       flavour, slot)
-        return sink.marks if sink is not None else []
+            marks = g.marks
+        else:
+            sink = cg.MarkSink(self.device) if self.trace else None
+            with cg.marking(sink):
+                self._body(h, _BeatBuffers(self.state, h.carry, h.results),
+                           flavour, slot)
+            marks = sink.marks if sink is not None else []
+        if h.mirrors:
+            m = h.mirrors[slot]
+            m.host.copy_(m.packed, non_blocking=True)
+        return marks
 
     def _range(self, name: str):
         """A profiler range over a host step, only while tracing under a
@@ -1014,7 +1069,11 @@ class SharedDBEngine:
         """Admit one heartbeat's work and enqueue the global plan.
 
         Returns without waiting for the device; a later collect() claims
-        the results.  At full pipeline depth the oldest in-flight
+        the results.  The beat's results are copied to the slot's pinned
+        host mirror in stream order right behind its body, ahead of any
+        later beat, and the completion event is recorded behind that
+        copy (a mesh generation copies at collect instead).  At full
+        pipeline depth the oldest in-flight
         heartbeat is collected first (backpressure), so a staging buffer
         is only rewritten after the heartbeat that read it completed.
         When a fold's build has landed, this beat first commits it
@@ -1083,7 +1142,8 @@ class SharedDBEngine:
         self._inflight.append(_InFlight(
             admitted, results, beat=beat, slot=slot, writes=writes,
             writes_held=len(self._update_queue), marks=marks, done=done,
-            assemble=h.assemble,
+            mirror=h.mirrors[slot] if h.mirrors else None,
+            assemble=h.assemble, d2h_copies=1 if h.mirrors else 0,
             n_admitted=sum(len(ts) for ts in admitted.values()),
             n_dirty=sum(touches.values()),
             scan_path=self.last_scan_path,
@@ -1095,7 +1155,11 @@ class SharedDBEngine:
     def collect(self) -> Dict[str, List[Ticket]]:
         """Wait for the oldest in-flight heartbeat and route its results
         (plus any routing spilled by dispatch()-side backpressure, so
-        every admitted ticket appears in exactly one collect())."""
+        every admitted ticket appears in exactly one collect()).  On one
+        device it waits for that beat's completion event alone and reads
+        the results from host memory that the beat's own copy filled; a
+        mesh generation assembles its shards' results and copies them
+        from the device here."""
         out, self._spilled = self._spilled, {}
         for name, tickets in self._collect_oldest().items():
             out.setdefault(name, []).extend(tickets)
@@ -1106,10 +1170,16 @@ class SharedDBEngine:
     @staticmethod
     def _collect_stats(stats: List[_InFlight]) -> Dict[str, Any]:
         """``last_collect_stats`` over the flights one collect() took:
-        the beats' ids, counts, paths, host spans (``t_collect_s`` is
-        copy + route; ``t_kernel_s`` is ``t_wait_s`` under its old name,
-        which ``bench/harness.py`` reads), device-to-host copies, writes
-        held behind the update slots and device seconds per stage."""
+        the beats' ids, counts, paths, host spans (``t_copy_s`` is the
+        host copy out of the pinned mirror, or under a mesh the copies
+        from the device; ``t_collect_s`` is copy + route; ``t_kernel_s``
+        is ``t_wait_s`` under its old name, which ``bench/harness.py``
+        reads), device-to-host copies issued (``d2h_copies``: one a
+        beat, queued at dispatch; under a mesh one a flag and result
+        tensor, at collect), the beats whose results came from the
+        mirror (``copies_at_dispatch``: on one device every beat, since
+        the branch that reads the mirror counts it), writes held behind
+        the update slots and device seconds per stage."""
 
         def one_path(paths):
             paths = {p for p in paths if p}
@@ -1138,34 +1208,45 @@ class SharedDBEngine:
             "t_copy_s": copy, "t_route_s": route,
             "t_collect_s": copy + route,
             "d2h_copies": sum(f.d2h_copies for f in stats),
+            "copies_at_dispatch": sum(f.copies_at_dispatch for f in stats),
             "writes_held": sum(f.writes_held for f in stats),
             "stage_s": stage_s,
             "backend_ops": ops}
 
     def _collect_oldest(self) -> Dict[str, List[Ticket]]:
+        """Collect the oldest flight: wait for its ``done`` event, read
+        its results and route them.  With a mirror (one device) nothing
+        else waits and nothing is copied from the device; a mesh
+        generation's results are assembled and copied out here."""
         if not self._inflight:
             return {}
         flight = self._inflight.popleft()
         self._spilled_stats.append(flight)
-        results = flight.results
         t0 = time.perf_counter()
         with self._range("repro.collect.wait"):
             if flight.done is not None:
                 flight.done.synchronize()
         t_ready = time.perf_counter()
         with self._range("repro.collect.copy_out"):
-            if flight.assemble is not None:
-                results = flight.assemble(results)
-            flags = [results["_overflow"], results.get("_delta_overflow", 0),
-                     *results["_parts_rebuilt"].values()]
-            self.last_overflow = int(flags[0])
-            self.last_delta_overflow = int(flags[1])
+            if flight.mirror is not None:
+                # host memory that the beat's own copy filled
+                res = flight.mirror.read()
+                flight.copies_at_dispatch = 1
+            else:
+                # a mesh generation: its shards' results assembled and
+                # copied out here (copies: the slot's buffers take a
+                # later beat's results)
+                res = flight.assemble(flight.results)
+                flight.d2h_copies = sum(
+                    torch.is_tensor(v) for v in res["_parts_rebuilt"].values())
+                for name in flight.admitted:
+                    res[name] = {k: v.to("cpu", copy=True).numpy()
+                                 for k, v in res[name].items()}
+                    flight.d2h_copies += len(res[name])
+            self.last_overflow = int(res["_overflow"])
+            self.last_delta_overflow = int(res["_delta_overflow"])
             self.last_parts_rebuilt = {
-                t: bool(v) for t, v in results["_parts_rebuilt"].items()}
-            # copies: the slot's buffers take a later beat's results
-            res = {name: {k: v.to("cpu", copy=True).numpy()
-                          for k, v in results[name].items()}
-                   for name in flight.admitted}
+                t: bool(v) for t, v in res["_parts_rebuilt"].items()}
         t_copied = time.perf_counter()
         with self._range("repro.collect.route"):
             out = {}
@@ -1181,8 +1262,6 @@ class SharedDBEngine:
         flight.t_wait_s = t_ready - t0
         flight.t_copy_s = t_copied - t_ready
         flight.t_route_s = t_routed - t_copied
-        flight.d2h_copies = (sum(torch.is_tensor(v) for v in flags)
-                             + sum(len(r) for r in res.values()))
         if flight.marks:
             flight.stage_s = cg.stage_seconds(flight.marks)
         self.cycles_run += 1

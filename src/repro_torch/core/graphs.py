@@ -30,15 +30,21 @@ event-record nodes of the graph, recorded again by every replay.  On the
 CPU, where a body runs synchronously, a mark stamps ``perf_counter``.
 ``stage_seconds`` turns a sink's marks into seconds per stage, each
 stage timed from the mark before it.
+
+Packed trees: ``pack_layout`` places a tree's leaves in one flat byte
+buffer and ``unpack`` views a buffer of that layout as the tree, so one
+copy moves every leaf (the engine's results, device to pinned host).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import kernels
@@ -71,6 +77,53 @@ def leaves(tree):
             yield from leaves(v)
     else:
         yield tree
+
+
+#: Byte alignment of each leaf in a packed buffer (``pack_layout``).
+PACK_ALIGN = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """Where one leaf of a packed tree lies in its flat byte buffer."""
+    offset: int
+    nbytes: int
+    dtype: torch.dtype
+    shape: Tuple[int, ...]
+
+    def view(self, flat):
+        """The leaf in ``flat``, a byte tensor or a numpy uint8 array."""
+        part = flat[self.offset:self.offset + self.nbytes]
+        if isinstance(part, torch.Tensor):
+            return part.view(self.dtype).view(self.shape)
+        return part.view(_numpy_dtype(self.dtype)).reshape(self.shape)
+
+
+def pack_layout(tree):
+    """``(layout, nbytes)``: ``tree`` with each tensor leaf replaced by
+    its ``Span`` in one flat byte buffer of ``nbytes``, leaves in order,
+    each at a ``PACK_ALIGN``-byte boundary and no two at one address."""
+    end = 0
+
+    def place(t):
+        nonlocal end
+        span = Span(end, t.nbytes, t.dtype, tuple(t.shape))
+        end += -(-max(t.nbytes, 1) // PACK_ALIGN) * PACK_ALIGN
+        return span
+    layout = map_tree(place, tree)
+    return layout, end
+
+
+def unpack(flat, layout):
+    """The tree of contiguous views into ``flat`` (a byte tensor on a
+    device or on the host, or a numpy uint8 array) that ``layout``
+    places."""
+    return map_tree(lambda s: s.view(flat), layout)
 
 
 def copy_into(dst, src, path=()) -> None:

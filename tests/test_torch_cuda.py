@@ -1029,6 +1029,44 @@ def test_graphed_steady_beat_counts_one_fused_delta(cuda_device):
 
 
 @pytest.mark.cuda
+def test_collect_returns_behind_its_own_beat(cuda_device):
+    """Graphed, beats n and n+1 in flight and a long sleep queued on the
+    serving stream behind them: collect() of n returns while an event
+    recorded after the sleep has not completed (n's results reached
+    pinned host memory right behind its own graph, in one copy issued at
+    dispatch), and n's answers equal the eager twin's."""
+    eng, eager = _twin_engines(cuda_device, "indexless")
+    queries = (("get_book", (5, 5)), ("get_cart", (12, 12)),
+               ("order_lines", (26, 26)), ("get_customer", (8, 8)))
+    tickets = []
+    for e in (eng, eager):
+        e.submit("get_book", {0: (3, 3)})
+        e.run_cycle()                       # the reseed beat
+        e.submit_update("customer", "update", {
+            "key": 3, "col": "c_expiration", "val": 900})
+        tickets.append([e.submit(n, {0: p}) for n, p in queries])
+        e.dispatch()
+        e.submit("get_book", {0: (9, 9)})
+        e.dispatch()
+        if e is eng:
+            torch.cuda._sleep(2_000_000_000)    # ~1 s at 1.98 GHz
+            after = torch.cuda.Event()
+            after.record()
+        e.collect()
+        if e is eng:
+            assert not after.query(), "collect waited behind a later beat"
+            s = e.last_collect_stats
+            assert s["d2h_copies"] == s["copies_at_dispatch"] == 1
+            assert len(s["beats"]) == 1
+            after.synchronize()
+        e.collect()
+    assert all(t.result is not None for t in tickets[0])
+    for a, b in zip(*tickets):
+        for k, want in b.result.items():
+            assert np.array_equal(a.result[k], want), (a.template, k)
+
+
+@pytest.mark.cuda
 def test_planlint_on_the_card(cuda_device):
     """planlint's sweep on the card over both backends exits 0; a graphed
     index-less engine was gated once, its fixed buffers are disjoint, and

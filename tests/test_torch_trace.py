@@ -5,7 +5,9 @@
     ``commit`` marks, each >= 0; with ``trace=False`` no mark sink opens
     and ``stage_s`` is ``{}``;
   * host spans: ``t_collect_s`` is copy + route, and ``d2h_copies``
-    counts the result copies;
+    counts the result copies: one a beat, queued at dispatch, whose
+    results the collect reads from the host mirror
+    (``copies_at_dispatch``);
   * beats: tickets and write acknowledgements carry the sequence number
     of the dispatch that admitted them, writes FIFO per table and kind
     behind the update slots (``writes_held`` counts those left queued);
@@ -102,12 +104,8 @@ def test_stage_marks_name_every_lowered_stage_in_plan_order(kind):
         assert s["t_collect_s"] == pytest.approx(s["t_copy_s"]
                                                  + s["t_route_s"])
         assert s["t_wait_s"] == s["t_kernel_s"] >= 0.0
-        # every template's result keys and the flags (overflow, delta
-        # overflow, each partitioned table's rebuild)
-        res = eng._gen.results[0]
-        assert s["d2h_copies"] == sum(
-            len(res[name]) for name in eng.plan.templates) + 2 + len(
-            res["_parts_rebuilt"])
+        # every template's results and the flags in one packed copy
+        assert s["d2h_copies"] == s["copies_at_dispatch"] == 1
         seen.append(eng.last_scan_path)
     assert seen[0] == "full" and "delta" in seen
 
